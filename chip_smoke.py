@@ -8,28 +8,52 @@ non-zero and prints no result):
 1. build: ``nvcc`` compiles every CUDA source of the port for sm_90a,
    one process per source, all at once;
 2. kernels: each kernel is held against its plain PyTorch version on the
-   card, in bf16 and f32, at the shapes the serving path gives it
-   (fedmm-base: S 8, C 1024, KV 8, rep 2, dh 64 for decode; H 16, KV 8,
-   dh 64, T 512 and a ragged 300 for prefill), plus the GQA groupings of
-   smollm-135m (rep 3) and yi-6b (rep 8, dh 128).  Each kernel is timed
-   beside its plain version, PyTorch's scaled_dot_product_attention (a
-   yardstick only: the port never calls it) and its bound;
+   card, in bf16 and f32, at the shapes its paths give it -- decode
+   (fedmm-base: S 8, C 1024, KV 8, rep 2, dh 64, plus the GQA groupings
+   of smollm-135m and yi-6b), flash (T 512 and a ragged 300 for
+   prefill; B 32, T 16, H 12, KV 4 for the federated round, with its
+   gradient), gram (the loss's (32, 768), the server's (4, 32, 768), a
+   ragged (37, 100); forward and gradient) and lora_matmul (the round's
+   M 512, K 768, N 768 and 256, rank 8, and a ragged case; output, dx
+   and dB).  Each is timed, in bf16 at each path's shapes, beside its
+   plain version, its bound and a PyTorch yardstick the port never
+   calls: one call where one computes the same function (SDPA;
+   ``F.cosine_similarity`` for gram; as ``library_ms``), and for gram
+   and lora_matmul a composition of calls (``F.normalize`` + ``@``;
+   ``torch.addmm(x @ W, x @ A, B)``; as ``composition_ms``);
 3. serve: ``ServeEngine`` on fedmm-base at full width (24 layers, bf16,
    random weights from seed 0) serves 16 requests with prompts of 128 to
-   512 tokens through 8 slots; the kernels' launch counters must show
-   that every prefill layer ran the flash kernel and every decode step
-   layer the decode kernel.  A second, shorter serve run under
-   ``torch.profiler`` reports the device's busy share and time by kernel;
-4. oracle: one request through the same model on the card and with its
-   weights copied to the CPU in f32 (the kernels' plain versions); the
-   prefill logits and 8 decode steps must agree.
+   512 tokens through 8 slots; the launch counters must show that every
+   prefill layer ran the flash kernel and every decode step layer the
+   decode kernel.  A second, shorter serve run under ``torch.profiler``
+   reports the device's busy share and time by kernel;
+4. serve oracle: one request through the same model on the card and
+   with its weights copied to the CPU in f32 (the kernels' plain
+   versions); the prefill logits and 8 decode steps must agree;
+5. federation: ``SequentialFederation`` on fedmm-small at full width
+   (12 layers, bf16, geodora, precision aggregation, the default 4 nodes
+   x 10 local steps, batch 32 x 16 tokens, rank 8) runs 2 rounds; each
+   must launch exactly 7,680 lora_matmul (48 GeoLoRA linears, forward
+   and dx, in the task and anchor passes of 40 steps), 960 flash and 44
+   gram kernels, with finite records and weights summing to 1.  One
+   local step under ``torch.profiler`` reports the device's busy share
+   and the host's op count;
+6. federation oracle: one local step from the state the rounds left,
+   on the card in bf16 and f32 and through the plain versions on the
+   CPU in f32: losses, pooled activations and every gradient must
+   agree.
 
-It prints the card's name and power limit, one JSON line with every
-kernel's numbers, and last ``{"ok": true, "device": {...}}``.  There is
-no CPU fallback: without CUDA it exits 1.
+Launch counters are set to 0 just before each path (serve, federation)
+and read just after; the kernel checks' own launches never count.  It
+prints the card's name and power limit, one JSON line with every
+kernel's numbers (the top-level times are its first timed shape's;
+``timings`` lists every timed shape with its path), and last
+``{"ok": true, "device": {...}}``.  There is no CPU fallback: without
+CUDA it exits 1.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -44,13 +68,18 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.federation import (FederationConfig,  # noqa: E402
+                                         SequentialFederation)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.gram import cosine_gram  # noqa: E402
+from repro_torch.kernels.lora_matmul import lora_matmul  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import (ServeConfig, ServeEngine,  # noqa: E402
                                init_pool_cache, poisson_requests, scatter_slot)
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 SENTINEL = (2 ** 31 - 1) // 2
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
@@ -221,8 +250,10 @@ def decode_phase() -> dict:
         f" on the device ({issue_ms:.4f} ms to issue on the host), plain "
         f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} flops)")
-    return dict(max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    return dict(max_abs_err=errs[torch.bfloat16], timings=[dict(
+        path="serve", shape="S 8, C 1024, KV 8, rep 2, dh 64", ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms)])
 
 
 # ----------------------------------------------------------------------
@@ -257,25 +288,223 @@ def flash_phase() -> dict:
         log(f"  flash_attention dh 128 rep 4 {dtype}: max_abs_err {err:.3g}")
         if not err <= TOL[dtype]:
             raise AssertionError(f"flash_attention dh 128: {err}")
+        # the federated round's shape, with the gradient (plain backward)
+        g = torch.Generator(device="cuda").manual_seed(11)
+        qkv = tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                    for shape in ((32, 16, 12, 64), (32, 16, 4, 64),
+                                  (32, 16, 4, 64)))
+        check_vjp(f"flash_attention round shape (B 32, T 16, H 12, KV 4) "
+                  f"{dtype}", flash_attention, ref.flash_attention_ref, qkv,
+                  (0, 1, 2), TOL[dtype])
 
-    q, k, v = flash_inputs(512, 16, 8, 64, torch.bfloat16)
-    sets = copies((q, k, v))
-    ms = time_ms(lambda *x: flash_attention(*x), sets)
-    issue_ms = host_ms(lambda *x: flash_attention(*x), sets)
-    plain_ms = time_ms(lambda *x: ref.flash_attention_ref(*x), sets)
-    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in x)
-                for x in sets]
-    library_ms = time_ms(lambda *x: F.scaled_dot_product_attention(
-        *x, is_causal=True, enable_gqa=True), lib_sets)
-    t, h, dh = 512, 16, 64
-    ops = 4 * h * dh * t * (t + 1) // 2                # causal pairs only
-    b_ms, b_by = bound_ms(nbytes(q, k, v) + nbytes(q), ops, torch.bfloat16)
-    log(f"  flash_attention timing (bf16, T 512, H 16, KV 8): kernel "
-        f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), plain "
-        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}; {ops} flops)")
-    return dict(max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    # timing, bf16: serve's prefill of one 512-token prompt, and the round's
+    # (B 32, T 16), where three quarters of each 64 x 64 tile is padding
+    timings = []
+    for path, (b, t, h, n_kv) in (("serve", (1, 512, 16, 8)),
+                                  ("federation", (32, 16, 12, 4))):
+        g = torch.Generator(device="cuda").manual_seed(t)
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16) for shape in ((b, t, h, 64), (b, t, n_kv, 64),
+                                          (b, t, n_kv, 64)))
+        sets = copies((q, k, v))
+        ms = time_ms(lambda *x: flash_attention(*x), sets)
+        issue_ms = host_ms(lambda *x: flash_attention(*x), sets)
+        plain_ms = time_ms(lambda *x: ref.flash_attention_ref(*x), sets)
+        lib_sets = [tuple(a.transpose(1, 2).contiguous() for a in x)
+                    for x in sets]
+        library_ms = time_ms(lambda *x: F.scaled_dot_product_attention(
+            *x, is_causal=True, enable_gqa=True), lib_sets)
+        lib_err = (F.scaled_dot_product_attention(
+            *lib_sets[0], is_causal=True, enable_gqa=True).transpose(1, 2)
+            .float() - ref.flash_attention_ref(*sets[0]).float()
+        ).abs().max().item()
+        if not lib_err <= TOL[torch.bfloat16]:
+            raise AssertionError(f"SDPA yardstick computes another function "
+                                 f"({lib_err})")
+        ops = 4 * b * h * 64 * t * (t + 1) // 2        # causal pairs only
+        b_ms, b_by = bound_ms(nbytes(q, k, v) + nbytes(q), ops,
+                              torch.bfloat16)
+        shape = f"B {b}, T {t}, H {h}, KV {n_kv}, dh 64"
+        log(f"  flash_attention timing ({path}, bf16, {shape}): kernel "
+            f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), plain "
+            f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}; {ops} flops)")
+        timings.append(dict(path=path, shape=shape, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by,
+                            library_ms=library_ms))
+    return dict(max_abs_err=errs[torch.bfloat16], timings=timings)
+
+
+# ----------------------------------------------------------------------
+# the training kernels: forward and backward against the plain versions
+def check_vjp(name, fn, plain, args, live, tol):
+    """``fn`` (the kernel's autograd Function) and ``plain`` (its plain
+    version under autograd) on the same inputs and the same random
+    cotangent: the output and the gradient of every argument in ``live``.
+    Errors are max |got - want| over max(1, max |want|): the outputs run up
+    to a few units, where one bf16 step is 2^-7 of the value.  Returns
+    the forward error."""
+    def run(f):
+        leaves = [a.detach().clone().requires_grad_(i in live)
+                  for i, a in enumerate(args)]
+        out = f(*leaves)
+        return out, leaves
+    got, gl = run(fn)
+    want, wl = run(plain)
+    g = torch.Generator(device="cuda").manual_seed(123)
+    cot = torch.randn(want.shape, generator=g, device="cuda")
+    (got.float() * cot).sum().backward()
+    (want.float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    errs = {}
+    for what, a, b in [("out", got, want)] + [
+            (f"d{i}", gl[i].grad, wl[i].grad) for i in live]:
+        scale = max(1.0, b.float().abs().max().item())
+        errs[what] = (a.float() - b.float()).abs().max().item() / scale
+    log(f"  {name}: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (of max(1, max |value|); tol {tol})")
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"{name}: {bad} > {tol}")
+    return errs["out"]
+
+
+def gram_phase() -> dict:
+    log("kernel phase: gram (forward: the kernel; backward: plain PyTorch)")
+    errs = {}
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, shape in (("loss (32, 768)", (32, 768)),
+                            ("server (4, 32, 768)", (4, 32, 768)),
+                            ("ragged (37, 100)", (37, 100))):
+            x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            x[..., 3, :] = 0.0                       # the eps clamp
+            err = check_vjp(f"gram {what} {dtype}", cosine_gram,
+                            ref.cosine_gram_ref, (x,), (0,), TOL[dtype])
+            errs.setdefault(dtype, err)
+
+    def composition(x):
+        xn = F.normalize(x.float(), dim=-1, eps=1e-4)   # max(|x|, sqrt(eps))
+        return xn @ xn.transpose(-1, -2)
+
+    def library(x):            # one call; each row norm clamped at 1e-4
+        return F.cosine_similarity(x.unsqueeze(-2), x.unsqueeze(-3), dim=-1,
+                                   eps=1e-4)
+
+    out = []
+    for what, shape in (("loss", (32, 768)), ("server", (4, 32, 768))):
+        x = torch.randn(shape, generator=g, device="cuda")
+        x[..., 5, :] *= 1e-6                         # a norm under the clamp
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            want = ref.cosine_gram_ref(xd)
+            tol = 1e-5 if dtype == torch.float32 else TOL[dtype]
+            for yard, fn in (("F.normalize + @", composition),
+                             ("F.cosine_similarity", library)):
+                lib_err = (fn(xd).float() - want).abs().max().item()
+                if not lib_err <= tol:
+                    raise AssertionError(f"gram yardstick {yard} computes "
+                                         f"another function ({lib_err} > "
+                                         f"{tol}, {dtype})")
+        x = x.to(torch.bfloat16)
+        sets = copies((x,))
+        ms = time_ms(lambda t: cosine_gram(t), sets)
+        issue_ms = host_ms(lambda t: cosine_gram(t), sets)
+        plain_ms = time_ms(lambda t: ref.cosine_gram_ref(t), sets)
+        composition_ms = time_ms(composition, sets)
+        library_ms = time_ms(library, sets)
+        b, d = shape[-2:]
+        k = x.numel() // (b * d)
+        ops = k * (2 * b * b * d + 3 * b * d)       # products and row norms
+        b_ms, b_by = bound_ms(nbytes(x) + 4 * k * b * b, ops, torch.bfloat16)
+        log(f"  gram timing ({what}, bf16, {tuple(shape)}): kernel "
+            f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), plain "
+            f"{plain_ms:.4f} ms, F.cosine_similarity {library_ms:.4f} ms, "
+            f"F.normalize + @ {composition_ms:.4f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}; {nbytes(x) + 4 * k * b * b} bytes, "
+            f"{ops} flops); inputs stay in L2")
+        out.append(dict(path=f"federation ({what})", shape=str(shape),
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=library_ms,
+                        composition_ms=composition_ms))
+    return dict(max_abs_err=errs[torch.bfloat16], timings=out)
+
+
+def lora_inputs(m, k, n, r, dtype, seed=0):
+    """x, W, A, B as the round has them: W scaled d_in^-0.5, A rank^-0.5
+    (frozen, shared), B small (trained from 0)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda")
+    w = torch.randn((k, n), generator=g, device="cuda") * k ** -0.5
+    a = torch.randn((k, r), generator=g, device="cuda") * r ** -0.5
+    b = torch.randn((r, n), generator=g, device="cuda") * 0.02
+    return tuple(t.to(dtype) for t in (x, w, a, b))
+
+
+def lora_phase() -> dict:
+    log("kernel phase: lora_matmul (forward and dx: the kernel; dB: "
+        "torch.matmul on the kernel's x @ A)")
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, shape in (("wq / wo (512, 768, 768, r 8)",
+                             (512, 768, 768, 8)),
+                            ("wk / wv (512, 768, 256, r 8)",
+                             (512, 768, 256, 8)),
+                            ("ragged (100, 200, 72, r 4)",
+                             (100, 200, 72, 4))):
+            args = lora_inputs(*shape, dtype, seed=shape[2])
+            err = check_vjp(f"lora_matmul {what} {dtype}", lora_matmul,
+                            ref.lora_matmul_ref, args, (0, 3), TOL[dtype])
+            errs.setdefault(dtype, err)
+
+    def composition(x, w, a, b):
+        return torch.addmm(x @ w, x @ a, b)
+
+    def dx_kernel(dy, w, a, b):                     # what backward launches
+        return lora_matmul(dy, w.t(), b.t(), a.t())
+
+    out = []
+    for n in (768, 256):
+        args = lora_inputs(512, 768, n, 8, torch.bfloat16, seed=n)
+        sets = copies(args)
+        ms = time_ms(lambda *t: lora_matmul(*t), sets)
+        issue_ms = host_ms(lambda *t: lora_matmul(*t), sets)
+        plain_ms = time_ms(lambda *t: ref.lora_matmul_ref(*t), sets)
+        composition_ms = time_ms(composition, sets)
+        dy_sets = [(torch.randn((512, n), device="cuda").to(torch.bfloat16),
+                    *t[1:]) for t in sets]
+        dx_ms = time_ms(dx_kernel, dy_sets)
+        x, w, a, b = args
+        m_, k_, r_ = 512, 768, 8
+        ops = 2 * m_ * k_ * n + 2 * m_ * k_ * r_ + 2 * m_ * r_ * n
+        moved = nbytes(x, w, a, b) + m_ * n * x.element_size()
+        b_ms, b_by = bound_ms(moved, ops, torch.bfloat16)
+        log(f"  lora_matmul timing (bf16, M 512, K 768, N {n}, r 8): kernel "
+            f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), dx "
+            f"kernel {dx_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"addmm(x @ W, x @ A, B) {composition_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} flops)")
+        out.append(dict(path="federation", shape=f"M 512, K 768, N {n}, r 8",
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None, composition_ms=composition_ms,
+                        dx_ms=dx_ms))
+    return dict(max_abs_err=errs[torch.bfloat16], timings=out)
+
+
+# ----------------------------------------------------------------------
+# launch counters of every wrapper, set to 0 just before a path runs
+WRAPPERS = {"decode_attention": decode_attention,
+            "flash_attention": flash_attention, "gram": cosine_gram,
+            "lora_matmul": lora_matmul}
+
+
+def reset_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 # ----------------------------------------------------------------------
@@ -306,14 +535,12 @@ def serve_phase(cfg, params) -> dict:
     reqs = serve_requests(cfg)
     eng = ServeEngine(params, cfg, scfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    decode_attention.launches = 0
-    flash_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     recs = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decode_attention": decode_attention.launches,
-                "flash_attention": flash_attention.launches}
+    launches = read_counts()
     st = eng.stats
     bad = [r.rid for r in reqs if recs[r.rid].state != "completed"
            or len(recs[r.rid].tokens) != 64]
@@ -321,7 +548,8 @@ def serve_phase(cfg, params) -> dict:
         raise AssertionError(f"requests not completed with 64 tokens: {bad}")
     steps = st["block_dispatches"] * scfg.block_steps
     want = {"decode_attention": cfg.n_layers * steps,
-            "flash_attention": cfg.n_layers * st["admit_dispatches"]}
+            "flash_attention": cfg.n_layers * st["admit_dispatches"],
+            "gram": 0, "lora_matmul": 0}
     if launches != want or st["admit_dispatches"] != len(reqs):
         raise AssertionError(f"kernel launches {launches}, want {want} "
                              f"({st['admit_dispatches']} admissions, "
@@ -355,22 +583,32 @@ def trace_phase(cfg, params) -> None:
         eng.serve(reqs)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    steps = eng.stats["block_dispatches"] * scfg.block_steps
+    device_summary(prof, wall_us, f"trace phase (profiled, {len(reqs)} "
+                   f"requests x 17 tokens, {eng.stats['admit_dispatches']} "
+                   f"admissions, {steps} decode steps)")
+
+
+def device_summary(prof, wall_us: float, title: str) -> None:
+    """Device busy time against the host's wall time, the count of
+    PyTorch ops the host ran, and device time by kernel, from a
+    ``torch.profiler`` run; raises without device events."""
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
-        raise AssertionError("trace phase: the profiler recorded no device "
-                             "events, so the device's busy share is unknown")
+        raise AssertionError(f"{title}: the profiler recorded no device "
+                             f"events, so the device's busy share is unknown")
     by_name = {}
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    steps = eng.stats["block_dispatches"] * scfg.block_steps
-    log(f"trace phase (profiled, {len(reqs)} requests x 17 tokens, "
-        f"{eng.stats['admit_dispatches']} admissions, {steps} decode steps): "
-        f"wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
-        f"({100 * busy / wall_us:.1f}%), idle "
-        f"{100 - 100 * busy / wall_us:.1f}%,"
-        f" {len(kern)} kernel launches")
+    host_ops = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.name.startswith("aten::"))
+    log(f"{title}: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), idle "
+        f"{100 - 100 * busy / wall_us:.1f}%, {len(kern)} kernel launches, "
+        f"{host_ops} aten ops on the host (nested calls included)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {us / 1e3:9.2f} ms  {100 * us / busy:5.1f}%  {name[:90]}")
 
@@ -401,11 +639,12 @@ def run_one(params, cfg, tokens, device, steps: int = 8, feed=None):
 def oracle_phase(cfg, params, req) -> None:
     log(f"oracle phase: request {req.rid} ({len(req.tokens)} prompt "
         f"tokens) on the card vs the plain versions on the CPU (f32)")
-    cpu_params = _tree(params, lambda t: t.float().cpu())
+    cpu_params = tree_map(lambda t: t.float().cpu(), params)
     cfg32 = cfg.with_(dtype="float32")
     want, fed = run_one(cpu_params, cfg32, req.tokens, "cpu")
     cases = (("card bf16", params, cfg, 5e-2),
-             ("card f32", _tree(params, lambda t: t.float()), cfg32, 1e-3))
+             ("card f32", tree_map(lambda t: t.float(), params), cfg32,
+              1e-3))
     for name, p, c, rel in cases:
         got, _ = run_one(p, c, req.tokens, "cuda", feed=fed)
         for i, (g, w) in enumerate(zip(got, want)):
@@ -420,9 +659,140 @@ def oracle_phase(cfg, params, req) -> None:
                                      f"{err} (max |logit| {scale})")
 
 
-def _tree(tree, fn):
-    return {k: _tree(v, fn) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+# ----------------------------------------------------------------------
+# federation phases: the paper's round on fedmm-small at full width
+def federation_phase(rounds: int = 2):
+    cfg = get_config("fedmm-small")
+    fcfg = FederationConfig(method="geodora", aggregation="precision",
+                            rounds=rounds)
+    log(f"federation phase: fedmm-small ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, "
+        f"{cfg.dtype}), geodora, precision aggregation, {fcfg.n_nodes} "
+        f"nodes x {fcfg.local_steps} local steps, batch {fcfg.local_batch} "
+        f"x {fcfg.n_tokens} tokens, {fcfg.anchors_per_class * fcfg.n_classes}"
+        f" anchors, rank {fcfg.lora_rank}, {rounds} rounds")
+    t0 = time.perf_counter()
+    fed = SequentialFederation(fcfg, cfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  set-up {time.perf_counter() - t0:.3f} s (weights, tokenizers, "
+        f"anchors, initial consensus)")
+    attn = fed.frozen["blocks"]["attn"]
+    n_lin = cfg.n_layers * sum(1 for lin in attn.values()
+                               if lin.get("lora_A") is not None)
+    steps, passes = fcfg.n_nodes * fcfg.local_steps, 2  # task and geo passes
+    want = {"decode_attention": 0,
+            "lora_matmul": steps * passes * n_lin * 2,   # forward and dx
+            "flash_attention": steps * passes * cfg.n_layers,
+            "gram": steps + fcfg.n_nodes}                # loss, then upload
+    total = dict.fromkeys(want, 0)
+    walls = []
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = fed.run_round()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = read_counts()
+        log(f"  round {r}: wall {walls[-1]:.3f} s, task {rec['task_loss']:.4f}"
+            f", geo {rec['geo_loss']:.4f}, acc {rec['acc']:.3f}, cross-node "
+            f"CKA {rec['cross_node_cka']:.4f}, weights "
+            f"{[round(w, 4) for w in rec['weights']]}, uplink "
+            f"{rec['uplink_bytes']} of {rec['full_model_bytes']} bytes; "
+            f"launches {got}")
+        if got != want:
+            raise AssertionError(f"round {r}: kernel launches {got}, want "
+                                 f"{want} ({n_lin} GeoLoRA linears)")
+        values = [rec[k] for k in ("task_loss", "geo_loss", "acc",
+                                   "cross_node_cka")] + rec["weights"]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"round {r}: non-finite record {rec}")
+        if not abs(sum(rec["weights"]) - 1.0) <= 1e-5:
+            raise AssertionError(f"round {r}: weights sum to "
+                                 f"{sum(rec['weights'])}")
+        for k in total:
+            total[k] += got[k]
+    leaves = [t for n in fed.nodes for t in tree_leaves(n["trainable"])]
+    if not all(bool(torch.isfinite(t).all()) for t in leaves + [fed.gbar]):
+        raise AssertionError("non-finite trainables or consensus Gram")
+    log(f"  launches per round as required: {want}")
+    return fed, dict(launches=total, walls=walls)
+
+
+def federation_trace_phase(fed) -> None:
+    """One local step of node 0 under ``torch.profiler``, after the rounds
+    above have run its shapes.  Its results are dropped: the state stays
+    as the rounds left it."""
+    from torch.profiler import ProfilerActivity, profile
+    node = fed.nodes[0]
+    tokens, labels, _ = fed._draw(0, node)
+    anchors = fed.anchor_tokens[node["modality"]]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fed._local_step(node["trainable"], node["opt_state"], fed.frozen,
+                        tokens, labels, anchors, fed.gbar)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    device_summary(prof, wall_us, "federation trace (one profiled local "
+                   "step of node 0, forward, backward and AdamW)")
+
+
+def federation_oracle_phase(fed) -> dict:
+    """One local step of node 0 (the state after the rounds, one fresh
+    batch) through the port's plain path on the CPU in f32, and on the
+    card in bf16 and f32: losses, pooled activations and every gradient."""
+    node = fed.nodes[0]
+    tokens, labels, _ = fed._draw(0, node)
+    anchors = fed.anchor_tokens[node["modality"]]
+    cfg32 = fed.cfg.with_(dtype="float32")
+
+    def step(device, cfg, cast):
+        f = copy.copy(fed)
+        f.cfg = cfg
+
+        def move(t):
+            return None if t is None else cast(t.detach().to(device))
+        return f._grads(tree_map(move, node["trainable"]),
+                        tree_map(move, fed.frozen), tokens.to(device),
+                        labels.to(device), anchors.to(device),
+                        fed.gbar.to(device))
+
+    t0 = time.perf_counter()
+    want_g, want_m = step("cpu", cfg32, lambda t: t.float())
+    log(f"federation oracle: one local step of node 0 ({node['modality']}, "
+        f"full depth {fed.cfg.n_layers} layers) on the card vs the plain "
+        f"versions on the CPU in f32 ({time.perf_counter() - t0:.1f} s on "
+        f"the CPU)")
+    want_leaves = tree_leaves(want_g)
+    errs = {}
+    for name, cfg, cast, tol, gtol in (
+            ("card bf16", fed.cfg, lambda t: t, 5e-2, 1e-1),
+            ("card f32", cfg32, lambda t: t.float(), 1e-3, 1e-3)):
+        got_g, got_m = step("cuda", cfg, cast)
+        torch.cuda.synchronize()
+        rel = {}
+        for k in ("task", "geo", "pooled", "pooled_a"):
+            w = want_m[k].float()
+            rel[k] = ((got_m[k].float().cpu() - w).abs().max().item()
+                      / max(w.abs().max().item(), 1e-30))
+        grad = [((g.float().cpu() - w.float()).abs().max().item()
+                 / max(w.float().abs().max().item(), 1e-30))
+                for g, w in zip(tree_leaves(got_g), want_leaves)]
+        rel["grads"] = max(grad)
+        log(f"  {name}: task {got_m['task'].item():.6f} (CPU "
+            f"{want_m['task'].item():.6f}), geo {got_m['geo'].item():.6f} "
+            f"(CPU {want_m['geo'].item():.6f}); errors of max |value|: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+            + f" over {len(grad)} gradient leaves (tol {tol}, gradients "
+            f"{gtol})")
+        bad = {k: v for k, v in rel.items()
+               if not v <= (gtol if k == "grads" else tol)}
+        if bad:
+            raise AssertionError(f"federation oracle {name}: {bad}")
+        errs[name] = rel
+    return errs
 
 
 # ----------------------------------------------------------------------
@@ -449,7 +819,9 @@ def main() -> int:
                 log(f"  ptxas {src}: {line.strip()}")
 
     rows = {"decode_attention": decode_phase(),
-            "flash_attention": flash_phase()}
+            "flash_attention": flash_phase(),
+            "gram": gram_phase(),
+            "lora_matmul": lora_phase()}
 
     cfg = get_config("fedmm-base")
     params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
@@ -457,18 +829,33 @@ def main() -> int:
     served = serve_phase(cfg, params)
     trace_phase(cfg, params)
     oracle_phase(cfg, params, served["first"])
+    del params
+
+    fed, rounds = federation_phase()
+    federation_trace_phase(fed)
+    federation_oracle_phase(fed)
 
     sources = {"decode_attention": "src/repro/kernels/decode_attention.py:77",
-               "flash_attention": "src/repro/kernels/flash_attention.py:69"}
+               "flash_attention": "src/repro/kernels/flash_attention.py:69",
+               "gram": "src/repro/kernels/gram.py:31",
+               "lora_matmul": "src/repro/kernels/lora_matmul.py:44"}
+    by_path = {k: {"serve": served["launches"][k],
+                   "federation": rounds["launches"][k]} for k in rows}
+    # the top-level times are the first timed shape's; ``timings`` holds
+    # every timed shape with its path
     kernels = [dict(name=k, route="cuda",
                     source=f"src/repro_torch/csrc/{k}.cu",
-                    replaces=sources[k], launches=served["launches"][k],
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                    replaces=sources[k], launches=sum(by_path[k].values()),
+                    launches_by_path=by_path[k],
+                    max_abs_err=r["max_abs_err"],
+                    **{key: r["timings"][0][key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")},
+                    timings=r["timings"])
                for k, r in rows.items()]
     log(f"serve: {served['tokens'] / served['wall_s']} tokens/s, wall "
         f"{served['wall_s']} s")
+    log(f"federation: round wall {rounds['walls']} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

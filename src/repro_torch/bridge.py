@@ -1,5 +1,6 @@
 """numpy <-> torch parameter trees, for weights carried across from the
-JAX package.
+JAX package, and the loader that carries a reference federation's state
+into the port's (``load_federation_state``).
 
 Trees are nested dicts / lists / tuples with array leaves; ``None``
 leaves (how ``core/lora.py`` partitions frozen from trainable leaves)
@@ -14,15 +15,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map
+
 
 def _map(fn, tree):
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
+    return tree_map(lambda x: None if x is None else fn(x), tree)
 
 
 def _leaf_to_torch(x, device) -> torch.Tensor:
@@ -56,4 +53,43 @@ def params_to_numpy(tree) -> object:
     return _map(_leaf_to_numpy, tree)
 
 
-__all__ = ["params_from_numpy", "params_to_numpy"]
+def load_federation_state(fed, state: dict) -> None:
+    """Overwrite the state of the port's ``SequentialFederation`` ``fed``
+    with a reference federation's, given as numpy (``np.asarray`` of the
+    JAX arrays), so both start a round from the same numbers.  ``fed``
+    must be built from the same ``FederationConfig`` values and model
+    config.  ``state`` holds:
+
+    - ``frozen`` / ``frozen_bridge`` (None without bridge nodes): the
+      frozen parameter trees, base weights with ``lora_A``;
+    - ``nodes``: per node ``{"trainable", "opt_state"}``;
+    - ``tokenizers``: per modality ``(w1, b1, w2)``;
+    - ``anchor_tokens`` and ``synthetic_anchor_tokens``: per modality;
+    - ``prototypes`` and ``modality_maps`` (per modality ``(w, b)``): the
+      task's draws;
+    - ``gbar``: the consensus Gram.
+
+    bf16 leaves arrive bit for bit (``params_from_numpy``)."""
+    def t(tree):
+        return params_from_numpy(tree, fed.device)
+
+    fed.frozen = t(state["frozen"])
+    fed.frozen_bridge = t(state["frozen_bridge"])
+    if len(state["nodes"]) != len(fed.nodes):
+        raise ValueError(f"{len(state['nodes'])} reference nodes, "
+                         f"{len(fed.nodes)} in the port")
+    for node, ref in zip(fed.nodes, state["nodes"]):
+        node["trainable"] = t(ref["trainable"])
+        node["opt_state"] = t(ref["opt_state"])
+    for m, (w1, b1, w2) in state["tokenizers"].items():
+        tok = fed.tokenizers[m]
+        tok.w1, tok.b1, tok.w2 = t(w1), t(b1), t(w2)
+    fed.anchor_tokens = t(state["anchor_tokens"])
+    fed.synthetic_anchor_tokens = t(state["synthetic_anchor_tokens"])
+    fed.task.prototypes = t(state["prototypes"])
+    fed.task.maps = {m: tuple(t(wb)) for m, wb
+                     in state["modality_maps"].items()}
+    fed.gbar = t(state["gbar"])
+
+
+__all__ = ["params_from_numpy", "params_to_numpy", "load_federation_state"]

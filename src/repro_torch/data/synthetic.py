@@ -1,0 +1,99 @@
+"""Synthetic unpaired multimodal task with a shared latent concept space:
+the port of ``repro.data.synthetic.SyntheticMultimodal``.
+
+``n_classes`` concepts are prototypes in a latent space; a sample of class
+c in modality m is an independent draw around prototype c pushed through
+a fixed map of that modality.  Nodes hold one modality each and never
+share samples; the public anchor set holds a few unpaired draws per class
+per modality.  A ``corrupt`` node's data is latent-free noise.
+
+The math is the JAX package's; the random numbers are not.  JAX's
+threefry streams and its ``hash()``-seeded modality maps cannot be
+reproduced, so every stream here is a ``torch.Generator`` on the task's
+device, seeded from the task seed and a stable digest of names
+(``stream``).  Parity tests carry the reference's prototypes, maps and
+draws across instead of re-seeding.
+"""
+from __future__ import annotations
+
+import hashlib
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+
+
+def stream(device, seed: int, *names) -> torch.Generator:
+    """A generator on ``device`` seeded from ``seed`` and ``names`` through
+    SHA-256, the same in every process (unlike Python's ``hash()``)."""
+    key = "/".join(str(p) for p in (seed, *names)).encode()
+    digest = int.from_bytes(hashlib.sha256(key).digest()[:8], "little")
+    return torch.Generator(device=device).manual_seed(digest % 2 ** 63)
+
+
+class SyntheticMultimodal:
+    def __init__(self, n_classes: int = 8,
+                 modalities: Tuple[str, ...] = ("image", "text", "genetics",
+                                                "tabular"), *,
+                 d_latent: int = 32, d_raw: int = 64, noise: float = 0.25,
+                 seed: int = 0, device=None):
+        dev = resolve_device(device)
+        self.n_classes, self.modalities = n_classes, tuple(modalities)
+        self.d_latent, self.d_raw, self.noise = d_latent, d_raw, noise
+        self.prototypes = torch.randn((n_classes, d_latent), device=dev,
+                                      generator=stream(dev, seed, "protos"))
+        #: fixed modality maps (w (d_latent, d_raw), b (d_raw,))
+        self.maps: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        for m in self.modalities:
+            g = stream(dev, seed, "modality", m)
+            w = torch.randn((d_latent, d_raw), generator=g, device=dev)
+            b = torch.randn((d_raw,), generator=g, device=dev)
+            self.maps[m] = (w * d_latent ** -0.5, 0.3 * b)
+
+    def _view(self, latent: torch.Tensor, modality: str,
+              out_noise: torch.Tensor) -> torch.Tensor:
+        w, b = self.maps[modality]
+        return torch.tanh(latent @ w + b) + out_noise
+
+    def sample(self, gen: torch.Generator, modality: str, n: int, *,
+               corrupt: bool = False, paired: Optional[str] = None):
+        """-> raw (n, d_raw), labels (n,), raw2.  ``corrupt`` draws pure
+        noise with random labels.  With ``paired`` (a bridge node's second
+        modality) raw2 is the same clean latent and output-noise draws
+        pushed through that modality's map (else None)."""
+        dev = self.prototypes.device
+        labels = torch.randint(0, self.n_classes, (n,), generator=gen,
+                               device=dev)
+        latent = self.prototypes[labels] + self.noise * torch.randn(
+            (n, self.d_latent), generator=gen, device=dev)
+        out_noise = 0.05 * torch.randn((n, self.d_raw), generator=gen,
+                                       device=dev)
+        raw2 = None if paired is None else self._view(latent, paired,
+                                                      out_noise)
+        if corrupt:
+            raw = torch.randn((n, self.d_raw), generator=gen, device=dev)
+            labels = torch.randint(0, self.n_classes, (n,), generator=gen,
+                                   device=dev)
+            return raw, labels, raw2
+        return self._view(latent, modality, out_noise), labels, raw2
+
+    def anchor_set(self, gen: torch.Generator, n_per_class: int = 4
+                   ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """Public anchors: for each modality, ``n_per_class`` independent
+        (unpaired) draws per class, class-sorted so Gram rows correspond
+        across modalities at the concept level."""
+        dev = self.prototypes.device
+        labels = torch.arange(self.n_classes, device=dev).repeat_interleave(
+            n_per_class)
+        out = {}
+        for m in self.modalities:
+            latent = self.prototypes[labels] + self.noise * torch.randn(
+                (labels.shape[0], self.d_latent), generator=gen, device=dev)
+            noise = 0.05 * torch.randn((labels.shape[0], self.d_raw),
+                                       generator=gen, device=dev)
+            out[m] = (self._view(latent, m, noise), labels)
+        return out
+
+
+__all__ = ["SyntheticMultimodal", "stream"]

@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: argtypes of each exported launch function, by source name
 SIGNATURES: Dict[str, Dict[str, list]] = {
     # q, k, v, q_pos, kv_pos, out, S, C, KV, rep, dh, window, scale,
@@ -37,6 +38,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     # q, k, v, out, B, T, S, H, KV, dh, scale, is_bf16, stream
     "flash_attention": {"flash_attention_launch":
                         [_P] * 4 + [_I] * 6 + [_F, _I, _P]},
+    # x, out, K, B, D, eps, is_bf16, stream
+    "gram": {"gram_launch": [_P, _P, _I, _I, _I, _F, _I, _P]},
+    # x, w, a, b, y, xa, M, K, N, r, 6 element strides, is_bf16, stream
+    "lora_matmul": {"lora_matmul_launch":
+                    [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,16 +1,23 @@
-"""Full-sequence (prefill) attention: the wrapper of
-``csrc/flash_attention.cu`` (the port of ``flash_attention_pallas``,
-forward only).
+"""Full-sequence (prefill and training) attention: the wrapper of
+``csrc/flash_attention.cu`` (the port of ``flash_attention_pallas``), with
+its gradient.
 
-``flash_attention(q, k, v)`` takes the layout
-``blockwise_attention`` uses -- q (B, T, H, dh), k / v (B, S, KV, dh),
-query head h reading KV head h // (H // KV) -- and returns (B, T, H, dh)
-in q's dtype.  The mask is causal, aligned bottom-right
-(``k <= q + (S - T)``); scores are scaled by dh^-0.5.  The full
-(non-causal) mask of the Pallas kernel serves the encoder families and
-comes with them.  A tensor on the CPU goes to the plain version
-``ref.flash_attention_ref``; a CUDA tensor launches the kernel or raises.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention(q, k, v)`` takes the layout ``blockwise_attention``
+uses -- q (B, T, H, dh), k / v (B, S, KV, dh), query head h reading KV
+head h // (H // KV) -- and returns (B, T, H, dh) in q's dtype.  The mask
+is causal, aligned bottom-right (``k <= q + (S - T)``); scores are scaled
+by dh^-0.5.  The full (non-causal) mask of the Pallas kernel serves the
+encoder families and comes with them.
+
+It is a ``torch.autograd.Function``, for the federated round's local
+steps.  The Pallas kernel has no backward, so the backward is plain
+PyTorch by design: it recomputes the attention through
+``ref.flash_attention_ref`` under autograd and takes the exact gradient
+of that (a hand-written backward kernel is queued in ROADMAP.md).
+
+A tensor on the CPU goes to the plain version ``ref.flash_attention_ref``;
+a CUDA tensor launches the kernel or raises.  ``flash_attention.launches``
+counts kernel launches (forward only; the backward launches none).
 """
 from __future__ import annotations
 
@@ -48,9 +55,8 @@ def _check(q, k, v) -> None:
                              f"bytes at a time)")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Causal online-softmax attention; see the module docstring."""
+def _forward(q: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
     if q.device.type != "cuda" or q.device.index not in (None, 0):
@@ -68,6 +74,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     _build.check_launch("flash_attention", err)
     flash_attention.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, dout):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_attention_ref(*leaves)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal online-softmax attention, differentiable; see the module
+    docstring."""
+    return _FlashAttention.apply(q, k, v)
 
 
 flash_attention.launches = 0

@@ -1,9 +1,12 @@
-"""Plain PyTorch versions of the port's attention kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each wrapper in ``kernels/`` sends a CPU tensor here; on the card
 ``chip_smoke.py`` holds the CUDA kernel against these on the same inputs.
-They mirror the JAX oracles in ``repro/kernels/ref.py`` with two
-deliberate differences, both of which the CUDA kernels share:
+They mirror the JAX oracles in ``repro/kernels/ref.py``.  ``cosine_gram_ref``
+also takes a stack (K, B, D) of node batches, and ``lora_matmul_ref`` has
+no scale (every caller of the JAX ``linear`` uses 1).  The attention
+versions differ from the JAX oracles in two deliberate ways, both of
+which the CUDA kernels share:
 
 - a row whose every key is masked yields 0, as ``decode_attention_pallas``
   does (it masks ``p`` explicitly and clamps ``l``); the JAX oracle takes
@@ -15,8 +18,8 @@ deliberate differences, both of which the CUDA kernels share:
   in the JAX oracle; with S == T, as in prefill, that is the Pallas rule
   too.
 
-Scores (scaled by dh^-0.5), softmax and the weighted sum run in float32;
-the result is cast back to the input dtype.
+Attention scores (scaled by dh^-0.5), softmax and the weighted sum run in
+float32; the result is cast back to the input dtype.
 """
 from __future__ import annotations
 
@@ -72,4 +75,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, t, h, dh).to(q.dtype)
 
 
-__all__ = ["decode_attention_ref", "flash_attention_ref"]
+def cosine_gram_ref(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Pairwise cosine similarities in float32, each row divided by
+    ``sqrt(max(|x|^2, eps))``.  x: (B, D) -> (B, B), or a stack
+    (K, B, D) -> (K, B, B)."""
+    x32 = x.float()
+    xn = x32 / torch.sqrt((x32 * x32).sum(-1, keepdim=True).clamp_min(eps))
+    return xn @ xn.transpose(-1, -2)
+
+
+def lora_matmul_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """The GeoLoRA linear y = x @ W + (x @ A) @ B, both products in float32,
+    cast back to x's dtype.  x: (M, K); w: (K, N); a: (K, r); b: (r, N)."""
+    x32 = x.float()
+    y = x32 @ w.float() + (x32 @ a.float()) @ b.float()
+    return y.to(x.dtype)
+
+
+__all__ = ["decode_attention_ref", "flash_attention_ref", "cosine_gram_ref",
+           "lora_matmul_ref"]

@@ -1,2 +1,2 @@
-"""Model code of the port: shared blocks, GQA attention, the dense
-transformer."""
+"""Model code of the port: shared blocks with the GeoLoRA / GeoDoRA
+linear, GQA attention, the dense transformer."""

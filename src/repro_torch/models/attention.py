@@ -1,5 +1,5 @@
-"""GQA attention: prefill through the flash kernel, slot decode through the
-decode kernel.
+"""GQA attention: prefill and training through the flash kernel (which
+carries a gradient), slot decode through the decode kernel.
 
 Ports ``make_gqa``, ``_qkv``, ``gqa_forward`` and ``gqa_decode_slots`` from
 ``repro.models.attention`` for the causal, un-windowed case the dense
@@ -59,7 +59,8 @@ def gqa_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 kind: str = "causal", window: int = 0,
                 positions: Optional[torch.Tensor] = None,
                 return_kv: bool = False):
-    """Full-sequence (prefill) attention.  x: (B, T, d_model).  The causal
+    """Full-sequence (prefill or training) attention.  x: (B, T, d_model),
+    differentiable (the flash wrapper is an autograd Function).  The causal
     mask follows sequence order (the flash kernel masks by index), so
     ``positions`` only feeds RoPE and must run 0..T-1 as in prefill."""
     _causal_only(kind, window)

@@ -1,11 +1,14 @@
-"""Shared building blocks: norms, RoPE, linear, SwiGLU MLP.
+"""Shared building blocks: norms, RoPE, linear (with the GeoLoRA /
+GeoDoRA side-cars), SwiGLU MLP, the loss and the pool.
 
 Parameters are plain nested dicts of tensors, as in ``repro.models.common``:
-every linear is ``{"w": (d_in, d_out)}``.  The GeoLoRA / GeoDoRA side-cars
-(``lora_A`` / ``lora_B`` / ``dora_m``) are the federated round's path and
-come with the ``lora_matmul`` kernel in slice 2; ``linear`` refuses them.
-Matrix products run as ``torch.matmul`` in the model dtype (the JAX package
-leaves them to XLA); norms and RoPE compute in float32 and cast back.
+every linear is ``{"w": (d_in, d_out)[, "lora_A": (d_in, r), "lora_B":
+(r, d_out)[, "dora_m": (d_out,)]]}``.  A linear with side-cars runs the
+fused ``lora_matmul`` kernel (``lora_A`` and ``w`` frozen); the GeoDoRA
+rescale by ``dora_m / ||W + A B||_col`` stays outside the kernel, as in the
+JAX package.  Other matrix products run as ``torch.matmul`` in the model
+dtype (the JAX package leaves them to XLA); norms and RoPE compute in
+float32 and cast back.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.lora_matmul import lora_matmul
 
 
 def truncated_normal_init(gen: torch.Generator, shape, scale: float = 0.02,
@@ -32,15 +37,58 @@ def make_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,
                                        dtype, device)}
 
 
+def add_lora(gen: torch.Generator, lin: dict, rank: int, dtype,
+             a_std: float = 1.0) -> dict:
+    """Attach GeoLoRA side-cars: ``lora_A`` Gaussian and frozen (shared by
+    every node, paper Eq. 4), ``lora_B`` zero.  Stacked leading dims of
+    ``w`` carry over."""
+    d_in, d_out = lin["w"].shape[-2:]
+    batch = tuple(lin["w"].shape[:-2])
+    dev = lin["w"].device
+    a = torch.randn((*batch, d_in, rank), generator=gen, device=dev)
+    return dict(lin, lora_A=(a_std * rank ** -0.5 * a).to(dtype),
+                lora_B=torch.zeros((*batch, rank, d_out), dtype=dtype,
+                                   device=dev))
+
+
+def add_dora(lin: dict) -> dict:
+    """Attach the GeoDoRA magnitude, initialised to W's column norms."""
+    w = lin["w"].float()
+    return dict(lin, dora_m=torch.sqrt((w * w).sum(-2)).to(lin["w"].dtype))
+
+
+def dora_column_norm(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """||W + A B||_col in float32 without forming A B:
+    ||col_j||^2 = ||W_j||^2 + 2 (W^T A B)_jj + (B^T (A^T A) B)_jj."""
+    w32, a32, b32 = w.float(), a.float(), b.float()
+    wsq = (w32 * w32).sum(-2)
+    m = torch.einsum("...ij,...ir->...jr", w32, a32)          # (d_out, r)
+    cross = torch.einsum("...jr,...rj->...j", m, b32)
+    g = torch.einsum("...ir,...is->...rs", a32, a32)           # (r, r)
+    bsq = torch.einsum("...rj,...rs,...sj->...j", b32, g, b32)
+    return torch.sqrt((wsq + 2.0 * cross + bsq).clamp_min(eps))
+
+
 def linear(x: torch.Tensor, lin: dict) -> torch.Tensor:
-    """y = x @ W in x's dtype."""
-    side = [k for k in ("lora_A", "lora_B", "dora_m") if k in lin]
-    if side:
-        raise NotImplementedError(
-            f"linear with GeoLoRA/GeoDoRA side-cars {side}: that is the "
-            f"lora_matmul kernel's path, ported in slice 2 (the federated "
-            f"round)")
-    return x @ lin["w"].to(x.dtype)
+    """y = x @ W in x's dtype; with side-cars y = x @ W + (x @ A) @ B
+    through the ``lora_matmul`` kernel, then under GeoDoRA
+    y * dora_m / ||W + A B||_col.  The norm sees W and A detached and B
+    live, so B's gradient also flows through it."""
+    w = lin["w"].to(x.dtype)
+    if "lora_A" not in lin:
+        if "dora_m" in lin:
+            raise ValueError("linear: dora_m without lora_A / lora_B")
+        return x @ w
+    a = lin["lora_A"].detach().to(x.dtype)
+    b = lin["lora_B"].to(x.dtype)
+    lead = x.shape[:-1]
+    y = lora_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w, a, b)
+    y = y.reshape(*lead, w.shape[-1])
+    if "dora_m" in lin:
+        norm = dora_column_norm(w.detach(), a, b).to(x.dtype)
+        y = y * (lin["dora_m"].to(x.dtype) / norm)
+    return y
 
 
 # ----------------------------------------------------------------------
@@ -97,6 +145,21 @@ def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(F.silu(g) * u, params["down"])
 
 
-__all__ = ["truncated_normal_init", "make_linear", "linear", "rms_norm",
-           "make_rms_norm", "rope_frequencies", "apply_rope", "make_swiglu",
-           "swiglu"]
+# ----------------------------------------------------------------------
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy in float32.  logits (..., V); labels (...,)."""
+    logits32 = logits.float()
+    gold = logits32.gather(-1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits32, dim=-1) - gold).mean()
+
+
+def mean_pool(x: torch.Tensor) -> torch.Tensor:
+    """The paper's Pool(): mean over the token axis -> (..., d_model)."""
+    return x.mean(dim=-2)
+
+
+__all__ = ["truncated_normal_init", "make_linear", "add_lora", "add_dora",
+           "dora_column_norm", "linear", "rms_norm", "make_rms_norm",
+           "rope_frequencies", "apply_rope", "make_swiglu", "swiglu",
+           "cross_entropy_loss", "mean_pool"]

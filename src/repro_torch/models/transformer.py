@@ -1,7 +1,9 @@
-"""The homogeneous transformer, dense family: init, prefill and slot decode.
+"""The homogeneous transformer, dense family: init, the training forward,
+prefill and slot decode.
 
-Ports ``init_params``, ``_embed_inputs``, ``prefill``, ``init_cache`` and
-``decode_step_slots`` from ``repro.models.transformer`` with the same
+Ports ``init_params``, ``_embed_inputs``, ``forward`` (``_forward_impl``),
+``prefill``, ``init_cache`` and ``decode_step_slots`` from
+``repro.models.transformer`` with the same
 parameter and cache trees (layer axis L stacked first), so weights and
 caches carried across with ``repro_torch.bridge`` drop in.  The layer stack
 is a Python loop over L where JAX scans.  Other families (moe, ssm,
@@ -19,8 +21,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (linear, make_linear, make_rms_norm,
-                                       make_swiglu, rms_norm, swiglu,
-                                       truncated_normal_init)
+                                       make_swiglu, mean_pool, rms_norm,
+                                       swiglu, truncated_normal_init)
 
 _SENTINEL = (2 ** 31 - 1) // 2       # position of an empty cache entry
 
@@ -39,10 +41,12 @@ def _check_supported(cfg: ModelConfig) -> None:
             "sliding-window and chunked attention come in a later slice")
 
 
-def _layer(blocks: dict, i: int) -> dict:
-    """Layer i of the stacked block tree (views, no copy)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in blocks.items()}
+def _layers(blocks: dict, n: int) -> list:
+    """The stacked block tree as n per-layer trees: views, no copy.  One
+    ``unbind`` per leaf, so a gradient flows back into the stack once."""
+    split = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in blocks.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 # ======================================================================
@@ -89,11 +93,55 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
     return x, positions
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+def _run_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig, collect: bool = False):
+    """The decoder stack over the full sequence (a Python loop where JAX
+    scans).  Returns the residual stream and, when ``collect``, each
+    layer's rope'd K/V."""
+    kvs = []
+    for bp in _layers(params["blocks"], cfg.n_layers):
+        h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+        h = attn.gqa_forward(bp["attn"], h, cfg, positions=positions,
+                             return_kv=collect)
+        if collect:
+            h, kv = h
+            kvs.append(kv)
+        x = x + h
+        h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+        x = x + swiglu(bp["mlp"], h)
+    return x, kvs
+
+
+def _head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits of the final-normed stream."""
     if cfg.tie_embeddings:
         return x @ params["embed"].T.to(x.dtype)
     return linear(x, params["lm_head"])
+
+
+def _final(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+
+
+def pooled(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """``forward``'s ``aux["pooled"]`` without the logits (what the
+    federation reads): the mean over tokens of the final-normed stream,
+    (B, d_model) in the model dtype."""
+    _check_supported(cfg)
+    x, positions = _embed_inputs(params, batch, cfg)
+    x, _ = _run_stack(params, x, positions, cfg)
+    return mean_pool(_final(params, x, cfg))
+
+
+def forward(params: dict, batch: dict,
+            cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence forward -> (logits (B, S, V), {"pooled": (B, d)}).
+    ``batch`` holds ``tokens`` or the adapter path's ``inputs_embeds``."""
+    _check_supported(cfg)
+    x, positions = _embed_inputs(params, batch, cfg)
+    x, _ = _run_stack(params, x, positions, cfg)
+    x = _final(params, x, cfg)
+    return _head(params, x, cfg), {"pooled": mean_pool(x)}
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig,
@@ -105,18 +153,9 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
     entries at the position sentinel."""
     _check_supported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i)
-        h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-        h, kv = attn.gqa_forward(bp["attn"], h, cfg, positions=positions,
-                                 return_kv=True)
-        x = x + h
-        h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
-        x = x + swiglu(bp["mlp"], h)
-        ks.append(kv["k"])
-        vs.append(kv["v"])
-    logits = _logits(params, x, cfg)
+    x, kvs = _run_stack(params, x, positions, cfg, collect=True)
+    ks, vs = [kv["k"] for kv in kvs], [kv["v"] for kv in kvs]
+    logits = _head(params, _final(params, x, cfg), cfg)
 
     b, s = x.shape[:2]
     target = max(cache_len if cache_len is not None else s + 1024, s)
@@ -163,8 +202,7 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
     _check_supported(cfg)
     x = params["embed"][batch["tokens"].long()]
     lens = cache["len"]
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i)
+    for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
         lc = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"][i],
               "lens": lens}
         h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
@@ -174,7 +212,9 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
         x = x + swiglu(bp["mlp"], h)
     new_lens = lens + 1 if step_mask is None \
         else torch.where(step_mask, lens + 1, lens)
-    return _logits(params, x, cfg), dict(cache, len=new_lens.to(torch.int32))
+    logits = _head(params, _final(params, x, cfg), cfg)
+    return logits, dict(cache, len=new_lens.to(torch.int32))
 
 
-__all__ = ["init_params", "prefill", "init_cache", "decode_step_slots"]
+__all__ = ["init_params", "forward", "pooled", "prefill", "init_cache",
+           "decode_step_slots"]

@@ -1,0 +1,79 @@
+"""AdamW on partitioned parameter trees: the port of
+``repro.optim.adamw.AdamW``.
+
+``None`` leaves (frozen parameters under GeoLoRA) pass through untouched,
+so moments exist only for the trainable side-cars.  The state is
+``{"m", "v": f32 trees, "step": int32}`` (plus ``"round"`` with a
+``round_schedule``), as in the JAX package, so states carry across with
+``bridge.params_from_numpy``.  Updates are functional: they return new
+tensors and leave their inputs as they were.  Every scalar stays a tensor
+on the parameters' device, so a step never waits for the device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _map(fn, *trees):
+    return tree_map(lambda *xs: None if xs[0] is None else fn(*xs), *trees)
+
+
+@dataclass(frozen=True)
+class AdamW:
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0
+    # global-round schedule: multiplier keyed on the state's "round"
+    # counter, which the round driver bumps once per federated round
+    round_schedule: Optional[Callable] = None    # round tensor -> multiplier
+
+    def init(self, params) -> dict:
+        dev = tree_leaves(params)[0].device
+        def zeros(p):
+            return torch.zeros_like(p, dtype=torch.float32)
+        state = {"m": _map(zeros, params), "v": _map(zeros, params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        if self.round_schedule is not None:
+            state["round"] = torch.zeros((), dtype=torch.int32, device=dev)
+        return state
+
+    def update(self, grads, state: dict, params):
+        step = state["step"] + 1
+        if self.grad_clip > 0:
+            gnorm = torch.sqrt(sum((g.float() ** 2).sum()
+                                   for g in tree_leaves(grads)))
+            scale = (self.grad_clip / (gnorm + 1e-9)).clamp(max=1.0)
+            grads = _map(lambda g: g.float() * scale, grads)
+        b1, b2 = self.b1, self.b2
+        m = _map(lambda mm, g: b1 * mm + (1 - b1) * g.float(),
+                 state["m"], grads)
+        v = _map(lambda vv, g: b2 * vv + (1 - b2) * g.float().square(),
+                 state["v"], grads)
+        stepf = step.float()
+        mhat_scale = 1.0 / (1 - b1 ** stepf)
+        vhat_scale = 1.0 / (1 - b2 ** stepf)
+        lr = self.lr
+        if self.round_schedule is not None and "round" in state:
+            lr = lr * self.round_schedule(state["round"])
+
+        def upd(p, mm, vv):
+            u = (mm * mhat_scale) / (torch.sqrt(vv * vhat_scale) + self.eps)
+            if self.weight_decay:
+                u = u + self.weight_decay * p.float()
+            return (p.float() - lr * u).to(p.dtype)
+
+        new_state = {"m": m, "v": v, "step": step}
+        if "round" in state:
+            new_state["round"] = state["round"]
+        return _map(upd, params, m, v), new_state
+
+
+__all__ = ["AdamW"]

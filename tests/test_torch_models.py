@@ -82,13 +82,20 @@ def test_common_blocks_match():
 
 
 def test_linear_refuses_lora_side_cars():
+    """Well-formed side-cars run through ``lora_matmul`` (their parity is in
+    tests/test_torch_train_kernels.py); ``linear`` refuses the malformed
+    ones: a GeoDoRA magnitude without GeoLoRA factors, and a W that asks
+    for a gradient (the kernel's backward gives W none: it is frozen
+    wherever side-cars are attached)."""
     lin = {"w": torch.zeros(4, 3), "lora_A": torch.zeros(4, 2),
            "lora_B": torch.zeros(2, 3)}
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tcommon.linear(torch.zeros(1, 4), lin)
-    with pytest.raises(NotImplementedError):
+    assert tuple(tcommon.linear(torch.ones(1, 4), lin).shape) == (1, 3)
+    with pytest.raises(ValueError, match="dora_m without"):
         tcommon.linear(torch.zeros(1, 4), {"w": lin["w"],
                                             "dora_m": torch.ones(3)})
+    live = dict(lin, w=lin["w"].clone().requires_grad_())
+    with pytest.raises(ValueError, match="frozen"):
+        tcommon.linear(torch.zeros(1, 4), live)
 
 
 def test_init_params_tree_matches_jax(tiny):
@@ -116,7 +123,7 @@ def test_gqa_forward_matches(tiny):
     jcfg, tcfg, jp, tp = tiny
     x = _rnd(3, (2, 12, 64))
     jblk = jax.tree.map(lambda a: a[0], jp["blocks"]["attn"])
-    tblk = TT._layer(tp["blocks"], 0)["attn"]
+    tblk = TT._layers(tp["blocks"], tcfg.n_layers)[0]["attn"]
     jy, jkv = jattn.gqa_forward(jblk, jnp.asarray(x), jcfg, return_kv=True)
     ty, tkv = tattn.gqa_forward(tblk, torch.from_numpy(x), tcfg,
                                 return_kv=True)
