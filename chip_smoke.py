@@ -15,10 +15,14 @@ non-zero and prints no result):
    gradient), gram (the loss's (32, 768), the server's (4, 32, 768), a
    ragged (37, 100); forward and gradient) and lora_matmul (the round's
    M 512, K 768, N 768 and 256, rank 8, and a ragged case; output, dx
-   and dB).  Each is timed, in bf16 at each path's shapes, beside its
+   and dB) and selective_scan (Falcon-Mamba's prefill, B 1, S 512 and
+   128, C = d_inner * N = 131,072; a ragged (3, 37, 1000) and S 1 from a
+   nonzero h0; h_all and h_last).  Each is timed, in bf16 at each path's
+   shapes (the scan in f32, as the prefill gives it), beside its
    plain version, its bound and a PyTorch yardstick the port never
    calls: one call where one computes the same function (SDPA;
-   ``F.cosine_similarity`` for gram; as ``library_ms``), and for gram
+   ``F.cosine_similarity`` for gram; as ``library_ms``; none computes
+   the scan's recurrence), and for gram
    and lora_matmul a composition of calls (``F.normalize`` + ``@``;
    ``torch.addmm(x @ W, x @ A, B)``; as ``composition_ms``);
 3. serve: ``ServeEngine`` on fedmm-base at full width (24 layers, bf16,
@@ -30,7 +34,15 @@ non-zero and prints no result):
 4. serve oracle: one request through the same model on the card and
    with its weights copied to the CPU in f32 (the kernels' plain
    versions); the prefill logits and 8 decode steps must agree;
-5. federation: ``SequentialFederation`` on fedmm-small at full width
+5. ssm serve: ``ServeEngine`` on falcon-mamba-7b at full width and depth
+   (64 layers, d_model 4096, d_inner 8192, state 16, bf16, random weights
+   from seed 0) serves the same 16 requests through 8 slots; every
+   admission must launch the scan kernel once per layer and nothing else
+   a kernel.  A shorter profiled run reports busy share and time by
+   kernel, and one request through a 2-layer model at full width is held
+   against the CPU in f32 (prefill logits and 8 decode steps, within
+   ``TOL`` of max |logit|);
+6. federation: ``SequentialFederation`` on fedmm-small at full width
    (12 layers, bf16, geodora, precision aggregation, the default 4 nodes
    x 10 local steps, batch 32 x 16 tokens, rank 8) runs 2 rounds; each
    must launch exactly 7,680 lora_matmul (48 GeoLoRA linears, forward
@@ -38,14 +50,14 @@ non-zero and prints no result):
    gram kernels, with finite records and weights summing to 1.  One
    local step under ``torch.profiler`` reports the device's busy share
    and the host's op count;
-6. federation oracle: one local step from the state the rounds left,
+7. federation oracle: one local step from the state the rounds left,
    on the card in bf16 and f32 and through the plain versions on the
    CPU in f32: losses, pooled activations and every gradient must
    agree.
 
-Launch counters are set to 0 just before each path (serve, federation)
-and read just after; the kernel checks' own launches never count.  It
-prints the card's name and power limit, one JSON line with every
+Launch counters are set to 0 just before each path (serve, ssm serve,
+federation) and read just after; the kernel checks' own launches never
+count.  It prints the card's name and power limit, one JSON line with every
 kernel's numbers (the top-level times are its first timed shape's;
 ``timings`` lists every timed shape with its path), and last
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback: without
@@ -76,6 +88,7 @@ from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gram import cosine_gram  # noqa: E402
 from repro_torch.kernels.lora_matmul import lora_matmul  # noqa: E402
+from repro_torch.kernels.selective_scan import selective_scan  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import (ServeConfig, ServeEngine,  # noqa: E402
                                init_pool_cache, poisson_requests, scatter_slot)
@@ -492,10 +505,76 @@ def lora_phase() -> dict:
 
 
 # ----------------------------------------------------------------------
+# kernel phase: selective scan
+MAMBA_C = 8192 * 16                    # falcon-mamba-7b: d_inner x state
+
+
+def scan_inputs(b, s, c, dtype, h0_zero=True, seed=0):
+    """da in (0.3, 0.99) (exp(dt A) of a Mamba layer lies in (0, 1)), dbx
+    and h0 standard normal; h0 is 0 for the prefill's shapes."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    da = 0.3 + 0.69 * torch.rand((b, s, c), generator=g, device="cuda")
+    dbx = torch.randn((b, s, c), generator=g, device="cuda")
+    h0 = torch.randn((b, c), generator=g, device="cuda")
+    return (da.to(dtype), dbx.to(dtype),
+            torch.zeros_like(h0) if h0_zero else h0)
+
+
+def scan_phase() -> dict:
+    log("kernel phase: selective_scan (forward only, as the prefill runs "
+        "it)")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, shape, zero in (
+                ("falcon-mamba prefill (1, 512, 131072)", (1, 512, MAMBA_C),
+                 True),
+                ("falcon-mamba prefill (1, 128, 131072)", (1, 128, MAMBA_C),
+                 True),
+                ("ragged (3, 37, 1000), h0 != 0", (3, 37, 1000), False),
+                ("S 1 (2, 1, 131072), h0 != 0", (2, 1, MAMBA_C), False)):
+            args = scan_inputs(*shape, dtype, zero, seed=shape[1])
+            got = selective_scan(*args)
+            want = ref.selective_scan_ref(*args)
+            torch.cuda.synchronize()
+            # both widen the same inputs and compute in f32: the f32
+            # tolerance holds for bf16 inputs too
+            scale = max(1.0, want[0].abs().max().item())
+            err = max((g - w).abs().max().item()
+                      for g, w in zip(got, want)) / scale
+            log(f"  selective_scan {what} {dtype}: max_abs_err {err:.3g} of "
+                f"max(1, max |h|) = {scale:.4g} (h_all and h_last; tol "
+                f"{TOL[torch.float32]})")
+            if not err <= TOL[torch.float32]:
+                raise AssertionError(f"selective_scan {what} {dtype}: {err}")
+            errs.setdefault(dtype, err)
+
+    timings = []
+    for s in (512, 128):
+        sets = copies(scan_inputs(1, s, MAMBA_C, torch.float32))
+        ms = time_ms(lambda *x: selective_scan(*x), sets)
+        issue_ms = host_ms(lambda *x: selective_scan(*x), sets)
+        plain_ms = time_ms(lambda *x: ref.selective_scan_ref(*x), sets,
+                           iters=10)
+        da, dbx, h0 = sets[0]
+        moved = nbytes(da, dbx, h0) + 4 * (da.numel() + h0.numel())
+        ops = 2 * da.numel()                           # one mul, one add
+        b_ms, b_by = bound_ms(moved, ops, torch.float32)
+        shape = f"B 1, S {s}, C {MAMBA_C}, f32"
+        log(f"  selective_scan timing (ssm serve prefill, {shape}): kernel "
+            f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), plain "
+            f"{plain_ms:.4f} ms, no single PyTorch call, bound {b_ms:.4f} ms"
+            f" ({b_by}; {moved} bytes, {ops} flops)")
+        timings.append(dict(path="ssm serve", shape=shape, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=None))
+    return dict(max_abs_err=errs[torch.float32], timings=timings)
+
+
+# ----------------------------------------------------------------------
 # launch counters of every wrapper, set to 0 just before a path runs
 WRAPPERS = {"decode_attention": decode_attention,
             "flash_attention": flash_attention, "gram": cosine_gram,
-            "lora_matmul": lora_matmul}
+            "lora_matmul": lora_matmul, "selective_scan": selective_scan}
 
 
 def reset_counts() -> None:
@@ -524,10 +603,15 @@ def serve_requests(cfg, n_per_len: int = 4, max_new: int = 64):
 
 
 def serve_phase(cfg, params) -> dict:
+    """The 16 requests through 8 slots; every admission must run its
+    prefill kernel (flash, or the scan for ssm) once per layer and every
+    dense decode step the decode kernel once per layer, and nothing else
+    may launch a kernel."""
     scfg = ServeConfig(n_slots=8, cache_len=1024, block_steps=8,
                        max_new_tokens=64)
-    log("serve phase: fedmm-base, 24 layers, bf16, 8 slots x 1024, "
-        "M = 8, 16 requests x 64 tokens")
+    log(f"serve phase: {cfg.arch_id}, {cfg.family}, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.dtype}, 8 slots x 1024, M = 8, 16 "
+        f"requests x 64 tokens")
     # warm-up (cuBLAS handles, allocator) on its own engine, not counted
     ServeEngine(params, cfg, dataclasses.replace(scfg, max_new_tokens=9),
                 device="cuda").serve(serve_requests(cfg, 1, 9)[:2])
@@ -547,9 +631,12 @@ def serve_phase(cfg, params) -> dict:
     if bad:
         raise AssertionError(f"requests not completed with 64 tokens: {bad}")
     steps = st["block_dispatches"] * scfg.block_steps
-    want = {"decode_attention": cfg.n_layers * steps,
-            "flash_attention": cfg.n_layers * st["admit_dispatches"],
-            "gram": 0, "lora_matmul": 0}
+    want = dict.fromkeys(WRAPPERS, 0)
+    if cfg.family == "ssm":
+        want["selective_scan"] = cfg.n_layers * st["admit_dispatches"]
+    else:
+        want.update(decode_attention=cfg.n_layers * steps,
+                    flash_attention=cfg.n_layers * st["admit_dispatches"])
     if launches != want or st["admit_dispatches"] != len(reqs):
         raise AssertionError(f"kernel launches {launches}, want {want} "
                              f"({st['admit_dispatches']} admissions, "
@@ -564,7 +651,8 @@ def serve_phase(cfg, params) -> dict:
         f"{launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return dict(launches=launches, wall_s=wall, tokens=n_tok, stats=st,
-                first=reqs[0])
+                first=reqs[0],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
 def trace_phase(cfg, params) -> None:
@@ -584,9 +672,10 @@ def trace_phase(cfg, params) -> None:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     steps = eng.stats["block_dispatches"] * scfg.block_steps
-    device_summary(prof, wall_us, f"trace phase (profiled, {len(reqs)} "
-                   f"requests x 17 tokens, {eng.stats['admit_dispatches']} "
-                   f"admissions, {steps} decode steps)")
+    device_summary(prof, wall_us, f"trace phase ({cfg.arch_id}, profiled, "
+                   f"{len(reqs)} requests x 17 tokens, "
+                   f"{eng.stats['admit_dispatches']} admissions, {steps} "
+                   f"decode steps)")
 
 
 def device_summary(prof, wall_us: float, title: str) -> None:
@@ -636,15 +725,22 @@ def run_one(params, cfg, tokens, device, steps: int = 8, feed=None):
     return out, fed
 
 
-def oracle_phase(cfg, params, req) -> None:
-    log(f"oracle phase: request {req.rid} ({len(req.tokens)} prompt "
-        f"tokens) on the card vs the plain versions on the CPU (f32)")
+def oracle_phase(cfg, params, req, tol=(5e-2, 1e-3)) -> None:
+    """``req`` through ``params`` on the card in bf16 and in f32, fed the
+    tokens the CPU run picked; logits within ``tol`` (bf16, f32) of max
+    |logit| of the plain versions' on the CPU in f32."""
+    log(f"oracle phase: {cfg.arch_id} ({cfg.n_layers} layers), request "
+        f"{req.rid} ({len(req.tokens)} prompt tokens) on the card vs the "
+        f"plain versions on the CPU (f32)")
     cpu_params = tree_map(lambda t: t.float().cpu(), params)
     cfg32 = cfg.with_(dtype="float32")
+    t0 = time.perf_counter()
     want, fed = run_one(cpu_params, cfg32, req.tokens, "cpu")
-    cases = (("card bf16", params, cfg, 5e-2),
+    log(f"  CPU f32 run: {time.perf_counter() - t0:.1f} s")
+    del cpu_params
+    cases = (("card bf16", params, cfg, tol[0]),
              ("card f32", tree_map(lambda t: t.float(), params), cfg32,
-              1e-3))
+              tol[1]))
     for name, p, c, rel in cases:
         got, _ = run_one(p, c, req.tokens, "cuda", feed=fed)
         for i, (g, w) in enumerate(zip(got, want)):
@@ -657,6 +753,35 @@ def oracle_phase(cfg, params, req) -> None:
             if not err <= rel * scale:
                 raise AssertionError(f"{name} {what}: logits differ by "
                                      f"{err} (max |logit| {scale})")
+
+
+# ----------------------------------------------------------------------
+# ssm phases: Falcon-Mamba-7B at full width
+def ssm_phases() -> dict:
+    """The ssm serve phase on falcon-mamba-7b at full width and depth, its
+    profiled run, then the oracle on a 2-layer model at full width.  Each
+    model's weights are freed before the next is built."""
+    cfg = get_config("falcon-mamba-7b")
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in tree_leaves(params))
+    log(f"ssm weights: {cfg.arch_id}, {cfg.n_layers} layers, {n_par} "
+        f"parameters ({cfg.param_count} by the config's count, which "
+        f"leaves out conv_b and dt_bias), "
+        f"{sum(nbytes(t) for t in tree_leaves(params)) / 2 ** 30:.2f} GiB, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    served = serve_phase(cfg, params)
+    trace_phase(cfg, params)
+    del params
+    small = cfg.with_(n_layers=2)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           small, device="cuda")
+    oracle_phase(small, params, served["first"],
+                 tol=(TOL[torch.bfloat16], TOL[torch.float32]))
+    del params
+    return served
 
 
 # ----------------------------------------------------------------------
@@ -683,7 +808,8 @@ def federation_phase(rounds: int = 2):
     want = {"decode_attention": 0,
             "lora_matmul": steps * passes * n_lin * 2,   # forward and dx
             "flash_attention": steps * passes * cfg.n_layers,
-            "gram": steps + fcfg.n_nodes}                # loss, then upload
+            "gram": steps + fcfg.n_nodes,                # loss, then upload
+            "selective_scan": 0}
     total = dict.fromkeys(want, 0)
     walls = []
     for r in range(rounds):
@@ -821,7 +947,8 @@ def main() -> int:
     rows = {"decode_attention": decode_phase(),
             "flash_attention": flash_phase(),
             "gram": gram_phase(),
-            "lora_matmul": lora_phase()}
+            "lora_matmul": lora_phase(),
+            "selective_scan": scan_phase()}
 
     cfg = get_config("fedmm-base")
     params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
@@ -831,6 +958,8 @@ def main() -> int:
     oracle_phase(cfg, params, served["first"])
     del params
 
+    ssm_served = ssm_phases()
+
     fed, rounds = federation_phase()
     federation_trace_phase(fed)
     federation_oracle_phase(fed)
@@ -838,8 +967,10 @@ def main() -> int:
     sources = {"decode_attention": "src/repro/kernels/decode_attention.py:77",
                "flash_attention": "src/repro/kernels/flash_attention.py:69",
                "gram": "src/repro/kernels/gram.py:31",
-               "lora_matmul": "src/repro/kernels/lora_matmul.py:44"}
+               "lora_matmul": "src/repro/kernels/lora_matmul.py:44",
+               "selective_scan": "src/repro/kernels/selective_scan.py:49"}
     by_path = {k: {"serve": served["launches"][k],
+                   "ssm serve": ssm_served["launches"][k],
                    "federation": rounds["launches"][k]} for k in rows}
     # the top-level times are the first timed shape's; ``timings`` holds
     # every timed shape with its path
@@ -853,8 +984,9 @@ def main() -> int:
                         "library_ms")},
                     timings=r["timings"])
                for k, r in rows.items()]
-    log(f"serve: {served['tokens'] / served['wall_s']} tokens/s, wall "
-        f"{served['wall_s']} s")
+    for what, run in (("serve", served), ("ssm serve", ssm_served)):
+        log(f"{what}: {run['tokens'] / run['wall_s']} tokens/s, wall "
+            f"{run['wall_s']} s, peak memory {run['peak_gib']} GiB")
     log(f"federation: round wall {rounds['walls']} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

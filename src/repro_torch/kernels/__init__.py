@@ -8,7 +8,10 @@
   gradient (port of ``cosine_gram_pallas``);
 - ``lora_matmul``: the fused GeoLoRA linear x @ W + (x @ A) @ B, whose
   input gradient launches the same kernel (port of
-  ``lora_matmul_pallas``).
+  ``lora_matmul_pallas``);
+- ``selective_scan``: the diagonal recurrence of every Mamba layer's
+  prefill, h_t = da_t * h_{t-1} + dbx_t, forward only (port of
+  ``selective_scan_pallas``).
 
 The sources live in ``repro_torch/csrc/`` and are built on first use by
 ``kernels._build``.  Importing this package builds nothing.

@@ -43,6 +43,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     # x, w, a, b, y, xa, M, K, N, r, 6 element strides, is_bf16, stream
     "lora_matmul": {"lora_matmul_launch":
                     [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I, _P]},
+    # da, dbx, h0, h_all, h_last, B, S, C, is_bf16, stream
+    "selective_scan": {"selective_scan_launch": [_P] * 5 + [_I] * 4 + [_P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

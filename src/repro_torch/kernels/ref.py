@@ -19,7 +19,8 @@ which the CUDA kernels share:
   too.
 
 Attention scores (scaled by dh^-0.5), softmax and the weighted sum run in
-float32; the result is cast back to the input dtype.
+float32; the result is cast back to the input dtype.  The scan runs in
+float32 and returns float32, as the Pallas kernel does.
 """
 from __future__ import annotations
 
@@ -93,5 +94,19 @@ def lora_matmul_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype)
 
 
+def selective_scan_ref(da: torch.Tensor, dbx: torch.Tensor,
+                       h0: torch.Tensor) -> tuple:
+    """Diagonal recurrence h_t = da_t * h_{t-1} + dbx_t, a sequential loop
+    over S in float32.  da, dbx: (B, S, C); h0: (B, C) -> (h_all (B, S, C),
+    h_last (B, C)), both float32."""
+    da32, dbx32 = da.float(), dbx.float()
+    h = h0.float()
+    h_all = torch.empty(da32.shape, dtype=torch.float32, device=da.device)
+    for t in range(da32.shape[1]):
+        h = da32[:, t] * h + dbx32[:, t]
+        h_all[:, t] = h
+    return h_all, h
+
+
 __all__ = ["decode_attention_ref", "flash_attention_ref", "cosine_gram_ref",
-           "lora_matmul_ref"]
+           "lora_matmul_ref", "selective_scan_ref"]

@@ -26,7 +26,7 @@ def truncated_normal_init(gen: torch.Generator, shape, scale: float = 0.02,
     from ``gen`` (on ``device``) and cast to ``dtype``."""
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * scale).to(dtype)
+    return t.mul_(scale).to(dtype)          # in place: one f32 copy at most
 
 
 def make_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,

@@ -1,15 +1,16 @@
-"""The homogeneous transformer, dense family: init, the training forward,
-prefill and slot decode.
+"""The homogeneous transformer, dense and ssm families: init, the
+training forward, prefill and slot decode.
 
 Ports ``init_params``, ``_embed_inputs``, ``forward`` (``_forward_impl``),
 ``prefill``, ``init_cache`` and ``decode_step_slots`` from
 ``repro.models.transformer`` with the same
 parameter and cache trees (layer axis L stacked first), so weights and
 caches carried across with ``repro_torch.bridge`` drop in.  The layer stack
-is a Python loop over L where JAX scans.  Other families (moe, ssm,
-hybrid, vlm, audio), MLA, windowed / chunked attention and the
-single-position ``decode_step`` are later slices and raise
-``NotImplementedError``.
+is a Python loop over L where JAX scans.  A dense block is pre-norm GQA
+attention and SwiGLU; an ssm block (Falcon-Mamba) is one pre-norm Mamba
+mixer, whose cache is its recurrent state.  Other families (moe, hybrid,
+vlm, audio), MLA, windowed / chunked attention and the single-position
+``decode_step`` are later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.common import (linear, make_linear, make_rms_norm,
                                        make_swiglu, mean_pool, rms_norm,
                                        swiglu, truncated_normal_init)
@@ -32,10 +34,11 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.mla is not None:
+    if cfg.family not in ("dense", "ssm") or cfg.mla is not None:
         raise NotImplementedError(
             f"family {cfg.family!r}{' with MLA' if cfg.mla else ''}: the "
-            f"port runs the dense family; the others come in later slices")
+            f"port runs the dense and ssm families; the others come in "
+            f"later slices")
     if cfg.sliding_window or cfg.attention_chunk:
         raise NotImplementedError(
             "sliding-window and chunked attention come in a later slice")
@@ -71,6 +74,12 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig, *,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = make_linear(gen, d, cfg.vocab_size, dtype, device=dev)
+    if cfg.family == "ssm":
+        p["blocks"] = {
+            "ln": make_rms_norm(d, dtype, batch=L, device=dev),
+            "mixer": ssm.make_mamba(gen, cfg, dtype, batch=L, device=dev),
+        }
+        return p
     p["blocks"] = {
         "ln1": make_rms_norm(d, dtype, batch=L, device=dev),
         "attn": attn.make_gqa(gen, cfg, dtype, batch=L, device=dev),
@@ -97,9 +106,16 @@ def _run_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig, collect: bool = False):
     """The decoder stack over the full sequence (a Python loop where JAX
     scans).  Returns the residual stream and, when ``collect``, each
-    layer's rope'd K/V."""
+    layer's rope'd K/V (dense) or final recurrent state (ssm)."""
     kvs = []
     for bp in _layers(params["blocks"], cfg.n_layers):
+        if cfg.family == "ssm":
+            h = rms_norm(x, bp["ln"]["scale"], cfg.norm_eps)
+            h, state = ssm.mamba_forward(bp["mixer"], h, cfg)
+            if collect:
+                kvs.append(state)
+            x = x + h
+            continue
         h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
         h = attn.gqa_forward(bp["attn"], h, cfg, positions=positions,
                              return_kv=collect)
@@ -146,18 +162,25 @@ def forward(params: dict, batch: dict,
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig,
             cache_len: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
-    """Forward over the prompt, then pack the per-layer rope'd K/V into a
-    decode cache with room for ``cache_len`` positions (default S + 1024).
-    Returns full-sequence logits (B, S, V) and the cache
-    ``{"k", "v": (L, B, C, KV, dh), "pos": (L, B, C), "len": ()}``, empty
-    entries at the position sentinel."""
+    """Forward over the prompt, then pack the per-layer caches for decode.
+    Returns full-sequence logits (B, S, V) and the cache: for the dense
+    family the rope'd K/V with room for ``cache_len`` positions (default
+    S + 1024), ``{"k", "v": (L, B, C, KV, dh), "pos": (L, B, C), "len":
+    ()}``, empty entries at the position sentinel; for the ssm family the
+    stacked final states ``{"h": (L, B, d_inner, N) f32, "conv": (L, B,
+    K - 1, d_inner), "len": ()}`` (``cache_len`` is not read)."""
     _check_supported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     x, kvs = _run_stack(params, x, positions, cfg, collect=True)
-    ks, vs = [kv["k"] for kv in kvs], [kv["v"] for kv in kvs]
     logits = _head(params, _final(params, x, cfg), cfg)
 
     b, s = x.shape[:2]
+    length = torch.tensor(s, dtype=torch.int32, device=x.device)
+    if cfg.family == "ssm":
+        return logits, {"h": torch.stack([st["h"] for st in kvs]),
+                        "conv": torch.stack([st["conv"] for st in kvs]),
+                        "len": length}
+    ks, vs = [kv["k"] for kv in kvs], [kv["v"] for kv in kvs]
     target = max(cache_len if cache_len is not None else s + 1024, s)
 
     def grow(t: torch.Tensor, fill=0) -> torch.Tensor:
@@ -167,8 +190,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
 
     pos = positions.expand(cfg.n_layers, b, s)
     cache = {"k": grow(torch.stack(ks)), "v": grow(torch.stack(vs)),
-             "pos": grow(pos, _SENTINEL),
-             "len": torch.tensor(s, dtype=torch.int32, device=x.device)}
+             "pos": grow(pos, _SENTINEL), "len": length}
     return logits, cache
 
 
@@ -176,9 +198,16 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
 # decode
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device=None) -> dict:
-    """An empty decode cache for ``batch`` sequences (default ``cuda``)."""
+    """An empty decode cache for ``batch`` sequences (default ``cuda``);
+    for the ssm family zero states, as ``prefill`` shapes them."""
     _check_supported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        st = ssm.init_mamba_state(batch, cfg, _dtype(cfg), device=dev)
+        c = {k: v.expand(cfg.n_layers, *v.shape).contiguous()
+             for k, v in st.items()}
+        c["len"] = torch.zeros((), dtype=torch.int32, device=dev)
+        return c
     shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
             "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
@@ -196,13 +225,25 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
 
     ``step_mask`` (S,) bool freezes masked slots: their position does not
     advance.  Attention writes at a frozen position are idempotent, so
-    K/V are written for every slot, as in the JAX package.  The K/V/pos
-    tensors of ``cache`` are updated in place; the returned cache holds
-    them and the new ``len``.  Returns logits (S, 1, V)."""
+    K/V are written for every slot, as in the JAX package.  A recurrent
+    update is not idempotent: a masked slot's ssm ``h`` and ``conv`` keep
+    their bits (JAX's ``keep``), so a slot that resumes continues
+    exactly.  The cache's K/V/pos, or h/conv, tensors are updated in
+    place; the returned cache holds them and the new ``len``.  Returns
+    logits (S, 1, V)."""
     _check_supported(cfg)
     x = params["embed"][batch["tokens"].long()]
     lens = cache["len"]
     for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        if cfg.family == "ssm":
+            hs, cs = cache["h"][i], cache["conv"][i]
+            h = rms_norm(x, bp["ln"]["scale"], cfg.norm_eps)
+            h, new = ssm.mamba_decode(bp["mixer"], h, {"h": hs, "conv": cs},
+                                      cfg)
+            x = x + h
+            _keep(hs, new["h"], step_mask)
+            _keep(cs, new["conv"], step_mask)
+            continue
         lc = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"][i],
               "lens": lens}
         h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
@@ -214,6 +255,17 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
         else torch.where(step_mask, lens + 1, lens)
     logits = _head(params, _final(params, x, cfg), cfg)
     return logits, dict(cache, len=new_lens.to(torch.int32))
+
+
+def _keep(old: torch.Tensor, new: torch.Tensor,
+          step_mask: Optional[torch.Tensor]) -> None:
+    """Write ``new`` over the state ``old`` (slot axis 0) in place; a slot
+    masked out of ``step_mask`` keeps its old values."""
+    if step_mask is None:
+        old.copy_(new)
+    else:
+        m = step_mask.reshape((-1,) + (1,) * (old.dim() - 1))
+        torch.where(m, new.to(old.dtype), old, out=old)
 
 
 __all__ = ["init_params", "forward", "pooled", "prefill", "init_cache",

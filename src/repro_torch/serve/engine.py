@@ -1,6 +1,7 @@
 """Continuous-batching decode engine over a slot-stacked cache pool.
 
-The port of ``repro.serve.engine.ServeEngine`` for the dense family:
+The port of ``repro.serve.engine.ServeEngine`` for the dense and ssm
+families:
 
   - the S request slots live in ONE device-resident cache pool
     (``serve.pool``) with per-slot positions, ``active`` / ``stopped``
@@ -11,18 +12,21 @@ The port of ``repro.serve.engine.ServeEngine`` for the dense family:
     buffer, and the host reads back ONCE per block -- one packed tensor
     with the tokens, the emission mask and the stop and fault flags;
   - new requests are admitted between blocks: prefill (through the flash
-    kernel), first-token sampling and a scatter into a free slot, with no
-    host readback;
+    kernel, or the selective-scan kernel for ssm), first-token sampling
+    and a scatter into a free slot, with no host readback;
   - stopped slots keep riding the batched step at a frozen position
     (``step_mask``), so no gather / compact is needed;
   - the host side -- deadlines, load shedding, the stall watchdog and the
     retry lane -- is the scheduler's, unchanged from the JAX package.
 
-On the card every decode step launches the decode-attention kernel once
-per layer and every admission the flash kernel once per layer; there is
-no other attention path.  Greedy decoding is the parity target with the
-JAX engine; ``temperature > 0`` samples with ``torch.Generator``s seeded
-from ``ServeConfig.seed`` (JAX's PRNG draws other numbers).  Chaos
+On the card, for the dense family, every decode step launches the
+decode-attention kernel once per layer and every admission the flash
+kernel once per layer; there is no other attention path.  For the ssm
+family every admission launches the selective-scan kernel once per
+layer, and a decode step's O(1) state update is plain PyTorch.
+Greedy decoding is the parity target with the JAX engine;
+``temperature > 0`` samples with ``torch.Generator``s seeded from
+``ServeConfig.seed`` (JAX's PRNG draws other numbers).  Chaos
 injection (``fault_plan``) and snapshot / resume are a later slice.
 
 ``naive_generate`` keeps the legacy per-token loop as the in-package
@@ -87,7 +91,7 @@ def _sample(logits: torch.Tensor, temperature: float,
 
 
 class ServeEngine:
-    """Continuous-batching engine for the dense family.
+    """Continuous-batching engine for the dense and ssm families.
 
     Usage::
 
@@ -218,9 +222,10 @@ class ServeEngine:
         if req.extras:
             raise NotImplementedError(
                 f"request {req.rid} carries modality extras: the port "
-                f"serves the dense (token) family only")
+                f"serves the token families (dense, ssm) only")
         need = len(req.tokens) + max_new + 1
-        if need > scfg.cache_len:
+        # a recurrent state has no length, so ssm has no cache-length limit
+        if self.cfg.family != "ssm" and need > scfg.cache_len:
             raise ValueError(f"request {req.rid}: prompt+max_new {need} "
                              f"exceeds cache_len {scfg.cache_len}")
         first = self._admit(req, rec.slot, max_new)

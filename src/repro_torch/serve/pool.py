@@ -4,10 +4,10 @@ The pool holds S request slots whose per-layer caches are stacked on the
 slot axis, with one position per slot (``len`` (S,)) instead of the
 single-batch scalar, as in ``repro.serve.pool``.  Admitting a request is a
 scatter of its prefilled single-request cache into a free slot; the
-in-flight slots are not touched.  For the dense family every cache leaf
-is layer-stacked (L, S, ...), so the slot axis is axis 1.  The port
-writes the slot in place (the JAX package returns a new pool and donates
-the old one's buffers).
+in-flight slots are not touched.  Every cache leaf of the families the
+port serves is layer-stacked (L, S, ...) -- dense K/V/pos, ssm h/conv --
+so the slot axis is axis 1.  The port writes the slot in place (the JAX
+package returns a new pool and donates the old one's buffers).
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ def init_pool_cache(cfg: ModelConfig, n_slots: int, cache_len: int,
     ``device`` defaults to ``cuda`` and raises without a GPU."""
     c = T.init_cache(cfg, n_slots, cache_len, device=device)
     c["len"] = torch.zeros((n_slots,), dtype=torch.int32,
-                           device=c["k"].device)
+                           device=c["len"].device)
     return c
 
 

@@ -210,7 +210,7 @@ def test_bf16_prefill_and_decode_close(tiny):
 @pytest.mark.parametrize("arch,over", [
     ("mistral-nemo-12b", {"sliding_window": 64}),
     ("mistral-nemo-12b", {"attention_chunk": 64}),
-    ("falcon-mamba-7b", {}), ("deepseek-v2-236b", {}),
+    ("recurrentgemma-9b", {}), ("deepseek-v2-236b", {}),
     ("phi-3-vision-4.2b", {})])
 def test_later_slices_raise(arch, over):
     """Windowed and chunked attention, other families and MLA are not

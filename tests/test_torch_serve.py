@@ -54,10 +54,11 @@ def _jreqs(reqs):
     return [JRequest(**dataclasses.asdict(r)) for r in reqs]
 
 
-def _explain_mismatch(tiny, req, got, want):
+def _explain_mismatch(model, req, got, want):
     """Tokens differ: hold the logits of both packages over prompt + the
-    common prefix.  Passes only for a genuine near-tie at the split."""
-    jcfg, tcfg, jp, tp = tiny
+    common prefix.  Passes only for a genuine near-tie at the split.
+    ``model`` is a fixture's (jcfg, tcfg, jax params, port params)."""
+    jcfg, tcfg, jp, tp = model
     n = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b) \
         if got[:len(want)] != want[:len(got)] else min(len(got), len(want))
     assert n < min(len(got), len(want)), \
@@ -225,3 +226,165 @@ def test_poisson_requests_match_jax_copy(rate, seed, max_new):
                     max_new=max_new)
     assert [dataclasses.asdict(r) for r in got] == \
         [dataclasses.asdict(r) for r in want]
+
+
+# ----------------------------------------------------------------------
+# the ssm family: reduced(falcon-mamba-7b), JAX weights carried across
+@pytest.fixture(scope="module")
+def mamba():
+    from repro.configs import reduced as jreduced
+    from repro_torch.configs import reduced
+    jcfg = jreduced(jget_config("falcon-mamba-7b"))
+    tcfg = reduced(get_config("falcon-mamba-7b"))
+    jp = jax.jit(JT.init_params, static_argnums=1)(jax.random.PRNGKey(0),
+                                                   jcfg)
+    return jcfg, tcfg, jp, bridge.params_from_numpy(jax.device_get(jp),
+                                                    "cpu")
+
+
+def _forward_argmax(model, req, tokens):
+    """Greedy tokens of the port's full-sequence forward over prompt +
+    ``tokens``: the token after the prompt, then after each of
+    ``tokens[:-1]``."""
+    _, tcfg, _, tp = model
+    seq = torch.tensor([list(req.tokens) + tokens[:-1]], dtype=torch.int32)
+    logits, _ = TT.forward(tp, {"tokens": seq}, tcfg)
+    return logits[0, len(req.tokens) - 1:].argmax(-1).tolist(), logits[0]
+
+
+def test_ssm_streamed_admission_matches_jax_engine_and_naive(mamba):
+    """Falcon-Mamba states stream through the pool: admissions land
+    mid-decode, slots are re-used, and the port decodes token-identically
+    to the JAX engine and the JAX legacy loop, as the dense family does."""
+    jcfg, tcfg, jp, tp = mamba
+    scfg = ServeConfig(n_slots=3, cache_len=64, block_steps=4,
+                       max_new_tokens=8)
+    reqs = poisson_requests(6, 0.0, prompt_len=8, vocab_size=512, seed=3)
+    reqs = [dataclasses.replace(r, arrival_s=0.02 * i)
+            for i, r in enumerate(reqs)]
+    eng = ServeEngine(tp, tcfg, scfg, device="cpu")
+    recs = eng.serve(reqs)
+    jrecs = JServeEngine(jp, jcfg, _jscfg(scfg)).serve(_jreqs(reqs))
+    _assert_tokens(mamba, reqs, recs, jrecs, _jax_oracle(mamba, reqs, scfg))
+    assert all(len(recs[r.rid].tokens) == 8 for r in reqs)
+    assert all(recs[r.rid].state == "completed" for r in reqs)
+    assert eng.stats["admit_dispatches"] == 6
+    assert len({recs[r.rid].slot for r in reqs}) <= scfg.n_slots
+
+
+def test_ssm_admits_past_cache_len_like_jax(mamba):
+    """A recurrent state has no length: prompt + max_new beyond cache_len
+    is admitted and decodes as in JAX (the dense family refuses it)."""
+    jcfg, tcfg, jp, tp = mamba
+    scfg = ServeConfig(n_slots=2, cache_len=8, block_steps=4,
+                       max_new_tokens=9)
+    reqs = poisson_requests(2, 0.0, prompt_len=12, vocab_size=512, seed=6)
+    recs = ServeEngine(tp, tcfg, scfg, device="cpu").serve(reqs)
+    jrecs = JServeEngine(jp, jcfg, _jscfg(scfg)).serve(_jreqs(reqs))
+    assert all(recs[r.rid].state == "completed"
+               and len(recs[r.rid].tokens) == 9 for r in reqs)
+    _assert_tokens(mamba, reqs, recs, jrecs)
+
+
+def test_ssm_masked_slot_resumes_bit_identically(mamba):
+    """A slot frozen by ``step_mask`` for three steps (as a deadline
+    cancel or a chaos freeze holds it) and then resumed continues exactly
+    where it stopped: its tokens and state equal an unfrozen run's, in the
+    port and in JAX alike."""
+    jcfg, tcfg, jp, tp = mamba
+    from repro.serve.pool import init_pool_cache as jinit_pool
+    from repro.serve.pool import scatter_slot as jscatter
+    from repro_torch.serve import init_pool_cache, scatter_slot
+    j_decode = jax.jit(JT.decode_step_slots, static_argnums=3)
+    prompts = np.random.default_rng(21).integers(0, 512, (2, 6)).astype(
+        np.int32)
+
+    def run(frozen):
+        tpool = init_pool_cache(tcfg, 2, 32, device="cpu")
+        jpool = jinit_pool(jcfg, 2, 32)
+        last = []
+        for s in range(2):
+            tl, tc = TT.prefill(tp, {"tokens": torch.from_numpy(
+                prompts[s:s + 1])}, tcfg)
+            _, jc = JT.prefill(jp, {"tokens": jnp.asarray(prompts[s:s + 1])},
+                               jcfg)
+            scatter_slot(tpool, tc, s)
+            jpool = jscatter(jpool, jc, s)
+            last.append(int(tl[0, -1].argmax()))
+        tok = np.asarray(last, np.int32)
+        seqs = {"port": [[], []], "jax": [[], []]}
+        jtok = tok.copy()
+        for step in range(10):
+            mask = np.array([step not in frozen, True])
+            tl, tpool = TT.decode_step_slots(
+                tp, tpool, {"tokens": torch.from_numpy(tok[:, None])}, tcfg,
+                step_mask=torch.from_numpy(mask))
+            jl, jpool = j_decode(jp, jpool, {"tokens": jnp.asarray(
+                jtok[:, None])}, jcfg, step_mask=jnp.asarray(mask))
+            new = tl[:, 0].argmax(-1).numpy().astype(np.int32)
+            jnew = np.asarray(jnp.argmax(jl[:, 0], -1), np.int32)
+            tok = np.where(mask, new, tok)
+            jtok = np.where(mask, jnew, jtok)
+            for s in np.flatnonzero(mask):
+                seqs["port"][s].append(int(tok[s]))
+                seqs["jax"][s].append(int(jtok[s]))
+        return seqs, tpool
+
+    clean, clean_pool = run(frozen=())
+    held, held_pool = run(frozen=(3, 4, 5))
+    assert held["port"][0] == clean["port"][0][:7]
+    assert held["port"][1] == clean["port"][1]
+    assert held["port"] == held["jax"]
+    assert clean["port"] == clean["jax"]
+    # slot 0's position advanced on its 7 running steps only
+    assert held_pool["len"].tolist() == [13, 16]
+    assert clean_pool["len"].tolist() == [16, 16]
+
+
+@pytest.mark.parametrize("plen", [1, 2])
+def test_ssm_short_prompt_decodes_like_forward(mamba, plen):
+    """A prompt shorter than conv_kernel - 1 = 3, admitted into a slot that
+    last held a longer request, decodes the tokens of the port's own
+    full-sequence forward: the conv state is the causal conv's zero
+    padding then the prompt, never the slot's stale rows.  (The JAX
+    package keeps only the prompt's rows here; this is not compared with
+    it.)"""
+    _, tcfg, _, tp = mamba
+    scfg = ServeConfig(n_slots=1, cache_len=64, block_steps=4,
+                       max_new_tokens=8)
+    long_req, short = poisson_requests(2, 0.0, prompt_len=9, vocab_size=512,
+                                       seed=30 + plen)
+    short = dataclasses.replace(short, tokens=short.tokens[:plen])
+    recs = ServeEngine(tp, tcfg, scfg, device="cpu").serve([long_req, short])
+    assert recs[long_req.rid].slot == recs[short.rid].slot == 0
+    for req in (long_req, short):
+        got = recs[req.rid].tokens
+        want, logits = _forward_argmax(mamba, req, got)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                top2 = np.sort(logits[len(req.tokens) - 1 + i].numpy())[-2:]
+                assert top2[1] - top2[0] < NEAR_TIE, \
+                    f"rid {req.rid} token {i}: {g} vs forward's {w}"
+
+
+def test_ssm_pool_scatter_gather_roundtrip(mamba):
+    """The ssm pool holds h (L, S, d_inner, N) f32 and conv (L, S, K - 1,
+    d_inner) with the slot on axis 1; a prefilled state lands in its slot
+    and comes back out bit for bit, the other slots untouched."""
+    from repro_torch.serve import gather_slot, init_pool_cache, scatter_slot
+    _, tcfg, _, tp = mamba
+    pool = init_pool_cache(tcfg, 3, 16, device="cpu")
+    assert set(pool) == {"h", "conv", "len"}
+    assert pool["h"].dtype == torch.float32
+    assert tuple(pool["conv"].shape) == (2, 3, 3, 512)
+    toks = torch.arange(1, 3, dtype=torch.int32)[None]      # 2 < K - 1
+    _, req = TT.prefill(tp, {"tokens": toks}, tcfg)
+    assert scatter_slot(pool, req, 1) is pool
+    back = gather_slot(pool, 1)
+    for name, leaf in req.items():
+        assert back[name].shape == leaf.shape, name
+        assert torch.equal(back[name], leaf), name
+    for s in (0, 2):
+        other = gather_slot(pool, s)
+        assert int(other["len"]) == 0
+        assert not other["h"].any() and not other["conv"].any()
