@@ -6,14 +6,19 @@ Phases, each of which raises on a mismatch (the script then exits
 non-zero and prints no result):
 
 1. build: ``nvcc`` compiles every CUDA source of the port for sm_90a,
-   one process per source, all at once;
+   one process per source, all at once; ptxas's registers and spills of
+   each kernel, and the count of tensor-core instructions (HMMA / HGMMA)
+   in each flash kernel's SASS where ``cuobjdump`` exists, are printed;
 2. kernels: each kernel is held against its plain PyTorch version on the
    card, in bf16 and f32, at the shapes its paths give it -- decode
-   (fedmm-base: S 8, C 1024, KV 8, rep 2, dh 64, plus the GQA groupings
-   of smollm-135m and yi-6b), flash (T 512 and a ragged 300 for
-   prefill; B 32, T 16, H 12, KV 4 for the federated round, with its
-   gradient), gram (the loss's (32, 768), the server's (4, 32, 768), a
-   ragged (37, 100); forward and gradient) and lora_matmul (the round's
+   (fedmm-base: S 8, C 1024, KV 8, rep 2, dh 64, split in 8 chunks; the
+   GQA groupings of smollm-135m and yi-6b; a slot whose visible entries
+   lie in one chunk only; S 64, C 128, which runs one chunk), flash
+   (T 512 and a ragged 300 for prefill; T 16 with rep 3, T 1, a ragged
+   T 65, T 100 against S 300, dh 128 and B 4; B 32, T 16, H 12, KV 4 for
+   the federated round, with its gradient), gram (the loss's (32, 768),
+   the server's (4, 32, 768), a ragged (37, 100); forward and gradient)
+   and lora_matmul (the round's
    M 512, K 768, N 768 and 256, rank 8, and a ragged case; output, dx
    and dB) and selective_scan (Falcon-Mamba's prefill, B 1, S 512 and
    128, C = d_inner * N = 131,072; a ragged (3, 37, 1000) and S 1 from a
@@ -69,6 +74,8 @@ import copy
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -84,7 +91,8 @@ from repro_torch.core.federation import (FederationConfig,  # noqa: E402
                                          SequentialFederation)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, split_bounds, split_plan)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gram import cosine_gram  # noqa: E402
 from repro_torch.kernels.lora_matmul import lora_matmul  # noqa: E402
@@ -165,6 +173,60 @@ def nbytes(*ts) -> int:
 
 
 # ----------------------------------------------------------------------
+# build report: registers and spills by kernel; tensor-core instructions
+def demangle(names):
+    """Kernel names without return type, namespace and arguments
+    (``flash_mma_kernel<64>``), through ``c++filt`` where it exists."""
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    if len(out) != len(names):
+        return list(names)
+    return [n.replace("(anonymous namespace)::", "").removeprefix(
+        "void ").split("(")[0] for n in out]
+
+
+def build_report() -> None:
+    """ptxas's registers and spills of every kernel, and the count of
+    tensor-core instructions (HMMA / HGMMA) in each flash kernel's SASS
+    where ``cuobjdump`` is on the machine.  A report: it decides nothing."""
+    for src, report in sorted(_build.ptxas_report.items()):
+        entries, name = [], "?"
+        for line in report.splitlines():
+            hit = re.search(r"Compiling entry function '([^']+)'", line)
+            if hit:
+                name = hit.group(1)
+            elif "registers" in line or "spill" in line:
+                entries.append((name, line.split(":", 1)[-1].strip()))
+        names = sorted({n for n, _ in entries})
+        short = dict(zip(names, demangle(names)))
+        for n, line in entries:
+            log(f"  ptxas {src} {short[n]}: {line}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("  cuobjdump: not found (tensor-core instruction count not "
+            "reported)")
+        return
+    sass = subprocess.run([tool, "-sass", str(_build._target(
+        "flash_attention"))], capture_output=True, text=True,
+        timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            name = hit.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bHG?MMA\b", line):
+            counts[name] += 1
+    names = sorted(counts)
+    for n, short in zip(names, demangle(names)):
+        log(f"  SASS flash_attention {short}: {counts[n]} "
+            f"HMMA / HGMMA instructions")
+
+
+# ----------------------------------------------------------------------
 # kernel phase: decode attention
 def decode_inputs(s, c, n_kv, rep, dh, lens, dtype, window=0, seed=0):
     """A serving-style pool on the card: slot j holds lens[j] tokens (as a
@@ -230,9 +292,43 @@ def decode_phase() -> dict:
         check_decode(f"yi-6b rep 8 dh 128 {dtype}", decode_inputs(
             4, 520, 4, 8, 128, [520, 0, 77, 300], dtype, seed=3),
             zero_slots=(1,))
+        # slot 3 sees only entries [400, 450): one chunk of the split holds
+        # them, every other chunk of the slot is empty
+        q, k, v, q_pos, pos = decode_inputs(8, 1024, 8, 2, 64, lens, dtype,
+                                            seed=4)
+        pos[3] = SENTINEL
+        pos[3, 400:450] = torch.arange(50, dtype=torch.int32, device="cuda")
+        q_pos[3] = 49
+        bounds = split_bounds(1024, *split_plan(8, 8, 1024, 64))
+        seen = [bool((pos[3, a:b] <= q_pos[3]).any())
+                for a, b in zip(bounds[:-1], bounds[1:])]
+        if sum(seen) != 1 or len(seen) < 2:
+            raise AssertionError(f"one-chunk case: chunks seen {seen}")
+        check_decode(f"visible in one of {len(seen)} chunks {dtype}",
+                     (q, k, v, q_pos, pos), zero_slots=(4,))
+        # 64 slots x 8 KV heads fill the card: one chunk, no combine pass
+        if split_plan(64, 8, 128, 64)[0] != 1:
+            raise AssertionError("S 64, KV 8 should run one chunk")
+        check_decode(f"n_split 1 (S 64, C 128) {dtype}", decode_inputs(
+            64, 128, 8, 2, 64, [(37 * i) % 129 for i in range(64)], dtype,
+            seed=5), zero_slots=(0,))
+    n_split, split_len = split_plan(8, 8, 1024, 64)
+    log(f"  decode_attention split at fedmm-base: {n_split} chunks of "
+        f"{split_len} positions, {n_split * 8 * 8} blocks of (chunk, KV head,"
+        f" slot), then the combine's 64")
+    if n_split * 8 * 8 < 264:
+        raise AssertionError("the split pass does not fill the card")
 
-    # timing at the serving shape (bf16)
-    q, k, v, q_pos, pos = decode_inputs(8, 1024, 8, 2, 64, lens,
+    timings = [decode_timing("serve", 8, 1024, lens),
+               decode_timing("n_split 1 case", 64, 128,
+                             [(37 * i) % 129 for i in range(64)])]
+    return dict(max_abs_err=errs[torch.bfloat16], timings=timings)
+
+
+def decode_timing(path, s_slots, c, lens) -> dict:
+    """Kernel, plain and SDPA times (bf16, KV 8, rep 2, dh 64) and the
+    bound of this pool's visible entries."""
+    q, k, v, q_pos, pos = decode_inputs(s_slots, c, 8, 2, 64, lens,
                                         torch.bfloat16)
     sets = copies((q, k, v, q_pos, pos))
     ms = time_ms(lambda *x: decode_attention(*x), sets)
@@ -259,23 +355,35 @@ def decode_phase() -> dict:
     moved = 2 * nbytes(q) + nbytes(q_pos, pos) + 2 * n_vis * entry
     ops = 4 * n_vis * h * dh                           # q.k and p.v per head
     b_ms, b_by = bound_ms(moved, ops, torch.bfloat16)
-    log(f"  decode_attention timing (bf16, S 8, C 1024): kernel {ms:.4f} ms"
+    shape = f"S {s_slots}, C {c}, KV 8, rep 2, dh 64"
+    log(f"  decode_attention timing ({path}, bf16, {shape}, "
+        f"{split_plan(s_slots, 8, c, 64)[0]} chunks): kernel {ms:.4f} ms"
         f" on the device ({issue_ms:.4f} ms to issue on the host), plain "
         f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} flops)")
-    return dict(max_abs_err=errs[torch.bfloat16], timings=[dict(
-        path="serve", shape="S 8, C 1024, KV 8, rep 2, dh 64", ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms)])
+    return dict(path=path, shape=shape, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
 
 # ----------------------------------------------------------------------
 # kernel phase: flash attention
-def flash_inputs(t, h, n_kv, dh, dtype, seed=0):
+def flash_inputs(t, h, n_kv, dh, dtype, seed=0, b=1, s=None):
     g = torch.Generator(device="cuda").manual_seed(seed)
+    s = t if s is None else s
     return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
-                 for shape in ((1, t, h, dh), (1, t, n_kv, dh),
-                               (1, t, n_kv, dh)))
+                 for shape in ((b, t, h, dh), (b, s, n_kv, dh),
+                               (b, s, n_kv, dh)))
+
+
+#: forward checks of the block shapes and masks of the bf16 kernel (and of
+#: the f32 one): name -> (B, T, S, H, KV, dh)
+FLASH_CASES = {"T 16 rep 3 (heads packed)": (2, 16, 16, 12, 4, 64),
+               "T 1": (2, 1, 1, 16, 8, 64),
+               "T 1, S 77": (1, 1, 77, 16, 8, 64),
+               "ragged T 65": (1, 65, 65, 16, 8, 64),
+               "T 100, S 300 (bottom-right)": (1, 100, 300, 16, 8, 64),
+               "T 100, S 300, dh 128": (1, 100, 300, 16, 4, 128),
+               "B 4, T 200": (4, 200, 200, 16, 8, 64)}
 
 
 def flash_phase() -> dict:
@@ -295,6 +403,13 @@ def flash_phase() -> dict:
                 raise AssertionError(f"flash_attention T {t}: {err}")
             if t == 512:
                 errs[dtype] = err
+        for what, (b, t, sk, h, n_kv, dh) in FLASH_CASES.items():
+            a = flash_inputs(t, h, n_kv, dh, dtype, seed=t + sk, b=b, s=sk)
+            err = (flash_attention(*a).float()
+                   - ref.flash_attention_ref(*a).float()).abs().max().item()
+            log(f"  flash_attention {what} {dtype}: max_abs_err {err:.3g}")
+            if not err <= TOL[dtype]:
+                raise AssertionError(f"flash_attention {what}: {err}")
         a = flash_inputs(200, 16, 4, 128, dtype, seed=9)   # dh 128, rep 4
         err = (flash_attention(*a).float()
                - ref.flash_attention_ref(*a).float()).abs().max().item()
@@ -698,8 +813,18 @@ def device_summary(prof, wall_us: float, title: str) -> None:
         f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), idle "
         f"{100 - 100 * busy / wall_us:.1f}%, {len(kern)} kernel launches, "
         f"{host_ops} aten ops on the host (nested calls included)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for name, us in ranked[:10]:
         log(f"  {us / 1e3:9.2f} ms  {100 * us / busy:5.1f}%  {name[:90]}")
+    # the port's own kernels below the first ten, with their launch counts
+    ours = set(re.findall(r"^(\w+_kernel)\(", "".join(
+        f.read_text() for f in _build.CSRC.glob("*.cu")), re.M))
+    for name, us in ranked[10:]:
+        base = re.search(r"::(\w+_kernel)<", name)
+        if base and base.group(1) in ours:
+            n = sum(1 for e in kern if e.name == name)
+            log(f"  {us / 1e3:9.2f} ms  {100 * us / busy:5.1f}%  {name[:90]} "
+                f"({n} launches)")
 
 
 # ----------------------------------------------------------------------
@@ -939,10 +1064,7 @@ def main() -> int:
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, all "
         f"sources at once)")
-    for src, report in sorted(_build.ptxas_report.items()):
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+    build_report()
 
     rows = {"decode_attention": decode_phase(),
             "flash_attention": flash_phase(),

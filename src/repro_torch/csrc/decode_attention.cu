@@ -1,44 +1,67 @@
-// Single-token decode attention over the packed serving KV pool.
+// Single-token decode attention over the packed serving KV pool, split
+// along the pool (flash-decoding).
 //
-// Replaces: repro/kernels/decode_attention.py, decode_attention_pallas.
+// Replaces: repro/kernels/decode_attention.py, decode_attention_pallas
+// (`_decode_kernel`).
 //
 // q (S, H, dh), k / v (S, C, KV, dh), q_pos (S,) and kv_pos (S, C) int32;
 // out (S, H, dh) in q's dtype (bf16 or f32).  Query head h reads KV head
 // h / rep.  Entry c of slot s is visible when
 //     kv_pos <= q_pos  and  q_pos - kv_pos < window
 // which covers causality, empty (sentinel-position) entries, padded tails
-// and ring-buffer windows in one rule.  A slot with no visible entry gets 0
-// (p is masked explicitly and l clamped), as the Pallas kernel does.
+// and ring-buffer windows in one rule.  A slot with no visible entry gets
+// exactly 0, as the Pallas kernel does.
 //
 // What bounds it: memory.  Each output row needs the K and V of its slot's
 // visible entries for its KV head and does 4 flops per byte of bf16 K/V --
 // far below the ~295 flop/byte the H100 needs before its tensor cores are
-// the limit.  The bound is the visible entries' K/V (the kernel skips
-// masked tiles): 7.44 MB, about 2.2 us at 3.35 TB/s, for the lens of
+// the limit.  The bound is the visible entries' K/V (masked tiles are
+// skipped): 7.44 MB, about 2.2 us at 3.35 TB/s, for the lens of
 // chip_smoke.py's fedmm-base case (S 8, C 1024, KV 8, dh 64, bf16), which
 // is the bound chip_smoke.py reports.  A full pool would be 16.8 MB, 5 us.
 //
-// Design: one block per (KV head, slot).  The rep query rows of the group
-// are staged once in shared memory, pre-scaled by dh^-0.5, so K and V are
-// read once for all rep heads and never repeated in memory.  The Pallas
-// grid's sequential KV axis becomes a loop inside the block over tiles of
-// TC positions.  Each tile first stages its kv_pos mask; a tile with no
-// visible entry is skipped without touching its K/V (a half-empty pool
-// costs half the bytes).  Otherwise K and V are staged in shared memory as
-// f32 (K rows padded by one word, so the score loop is free of bank
-// conflicts), scores and the online softmax run in f32 with one warp per
-// query row, and each thread keeps its share of the (rep, dh) accumulator
-// in registers.  The output is acc / max(l, 1e-30), cast to q's dtype.
+// Before (the first port): one block per (KV head, slot) walked its slot's
+// whole pool serially: 8 x 8 = 64 blocks at fedmm-base, so 68 of the 132
+// SMs sat idle, and the slots of 1,000 entries took 16 tiles of one
+// global round trip each (~3 us a tile, 51.7 us in all).
 //
-// Each thread issues all of its 16-byte K/V loads for a tile before it
-// widens any of them, so a tile costs one memory round trip (K, V and the
-// pool must be 16-byte aligned; the wrapper checks).
+// Design: two passes, both launched from decode_attention_launch, so the
+// host pays one ctypes call per layer and step.
+//   * Split pass: the pool axis C is cut into n_split contiguous chunks of
+//     split_len positions (whole tiles; the last chunk also takes the
+//     ragged tail); the wrapper picks n_split for about two blocks per SM
+//     (kernels/decode_attention.py, split_plan: 8 chunks of 128 at
+//     fedmm-base, 512 blocks).  One block per (chunk, KV head, slot).  The
+//     rep query rows of the group are staged once in shared memory,
+//     pre-scaled by dh^-0.5, so K and V are read once for all rep heads.
+//     A loop runs over the chunk's tiles of TC positions.  Each tile's
+//     kv_pos mask is staged first (from positions loaded two tiles ahead)
+//     and a tile with no visible entry is skipped without touching its
+//     K/V.  Otherwise each thread loads 16-byte chunks of K and V straight
+//     into registers, one tile ahead: tile t + 1's K/V is in flight while
+//     tile t computes.  Thread t holds chunk t % CPR of the rows t / CPR +
+//     KPS j.  The scores are its chunk's partial dots with the staged q,
+//     summed over the CPR lanes of a row by shuffles; the online softmax
+//     runs in f32 with one warp per query row; and each thread adds p V
+//     for its own chunk of dh and its own rows into a (rep, chunk)
+//     accumulator in registers (sized by a compile-time bound on rep).  No
+//     K or V goes through shared memory; the partial accumulators are
+//     summed over threads once, at the end of the chunk.
+//     The block writes its chunk's row max m, row sum l and un-normalised
+//     accumulator (rep x dh) in f32 to the wrapper's scratch; a chunk with
+//     no visible entry writes m = -inf, l = 0.  With n_split 1 the split
+//     pass writes the output itself and the combine is not launched.
+//   * Combine pass: one block per (KV head, slot) merges the chunks:
+//     m* = max m_i, l* = sum l_i e^(m_i - m*), out = sum acc_i e^(m_i - m*)
+//     / max(l*, 1e-30), in one pass that reads 8 chunks at once and
+//     rescales its running sums when m* grows.  Empty chunks are skipped
+//     explicitly, so a slot with no visible entry anywhere gets exactly 0;
+//     cast to q's dtype.
 //
-// Known limits, left for later work: 8 x 8 = 64 blocks at fedmm-base
-// underfill 132 SMs (split-KV / flash-decoding would fix that), and there is
-// no copy pipeline (cp.async / TMA) overlapping one tile's loads with the
-// previous tile's math.
+// K, V and the pool must be 16-byte aligned (the wrapper checks).
 #include "common.cuh"
+
+#include <cmath>
 
 namespace {
 
@@ -47,150 +70,316 @@ using namespace repro;
 constexpr int kThreads = 128;
 constexpr int kMaxRep = 16;
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ q_pos,
-                        const int* __restrict__ kv_pos, T* __restrict__ out,
-                        int C, int KV, int rep, int window, float scale) {
-  constexpr int TC = 4096 / DH;                        // 64 positions at dh 64, 32 at dh 128
-  constexpr int PER = kMaxRep * DH / kThreads;         // accumulator slots per thread
-  constexpr int VEC = kVec<T>;
-  constexpr int NV = TC * DH / VEC / kThreads;         // 16-byte loads of K (and V) per thread
-  static_assert(NV * VEC * kThreads == TC * DH, "a tile must split into whole 16-byte loads");
-  __shared__ float sq[kMaxRep][DH];
-  __shared__ float sk[TC][DH + 1];
-  __shared__ float sv[TC][DH];
-  __shared__ float ss[kMaxRep][TC];
-  __shared__ int sok[TC];
-  __shared__ float sm[kMaxRep], sl[kMaxRep], scorr[kMaxRep];
+template <int DH>
+constexpr int kTile = 4096 / DH;                       // 64 positions at dh 64, 32 at dh 128
 
-  const int g = blockIdx.x, s = blockIdx.y, tid = threadIdx.x;
+// 4 blocks an SM (<= 128 registers a thread, no spills) for bf16 at rep <= 2:
+// the split pass of a fedmm-base pool (512 blocks) then runs in one wave
+template <typename T, int DH, int MAXREP>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && MAXREP <= 2 ? 4 : 1)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ q_pos,
+                    const int* __restrict__ kv_pos, T* __restrict__ out,
+                    float* __restrict__ part, int C, int KV, int rep, int window,
+                    float scale, int split_len) {
+  constexpr int TC = kTile<DH>;
+  constexpr int VEC = kVec<T>;                         // elements per 16-byte chunk
+  constexpr int CPR = DH / VEC;                        // chunks per key row
+  constexpr int KPS = kThreads / CPR;                  // key rows per sweep of the block
+  constexpr int NV = TC / KPS;                         // K (and V) chunks per thread per tile
+  constexpr int NW = kThreads / 32;
+  static_assert(NV * KPS == TC && CPR <= 32 && 32 % CPR == 0 && VEC % 4 == 0,
+                "a tile must split into whole 16-byte chunks per thread");
+  __shared__ __align__(16) float sq[MAXREP][DH];
+  __shared__ float ss[MAXREP][TC];
+  __shared__ float sred[NW][MAXREP][DH];
+  __shared__ int sok[2][TC];                           // the masks of this tile and the next
+  __shared__ float sm[MAXREP], sl[MAXREP], scorr[MAXREP];
+
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int g = blockIdx.y, s = blockIdx.z, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
+  const int ch = tid % CPR, key0 = tid / CPR;          // my chunk of a row; my keys key0 + KPS j
   const int H = KV * rep, nq = rep * DH;
+  const int c_begin = split * split_len;
+  const int c_end = split + 1 == n_split ? C : c_begin + split_len;
+  const int ntiles = (c_end - c_begin + TC - 1) / TC;
+  const int* pos = kv_pos + static_cast<size_t>(s) * C;
   const int qp = q_pos[s];
   const size_t row0 = (static_cast<size_t>(s) * H + static_cast<size_t>(g) * rep) * DH;
 
-  for (int i = tid; i < nq; i += kThreads) sq[i / DH][i % DH] = to_f(q[row0 + i]) * scale;
-  if (tid < kMaxRep) {
-    sm[tid] = kNegInf;
-    sl[tid] = 0.f;
-  }
-  float acc[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) acc[j] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += TC) {
-    __syncthreads();                                   // last tile's shared reads are done
+  // thread tid < TC stages entry tid of each tile's mask from kv_pos it
+  // loaded two tiles ahead
+  auto load_pos = [&](int tile) {
+    const int c = c_begin + tile * TC + tid;
+    return tid < TC && tile < ntiles && c < c_end ? pos[c] : 0;
+  };
+  auto stage_mask = [&](int tile, int kp) {            // 1 where my entry is visible
     int ok = 0;
     if (tid < TC) {
-      const int c = c0 + tid;
-      if (c < C) {
-        const int kp = kv_pos[static_cast<size_t>(s) * C + c];
-        ok = (kp <= qp) && (qp - kp < window);
-      }
-      sok[tid] = ok;
+      ok = c_begin + tile * TC + tid < c_end && kp <= qp && qp - kp < window;
+      sok[tile & 1][tid] = ok;
     }
-    if (!__syncthreads_or(ok)) continue;               // nothing visible: skip this tile's K/V
-
-    uint4 kr[NV], vr[NV];                              // all loads in flight, then widen
+    return ok;
+  };
+  auto load_kv = [&](int tile, uint4 (&kr)[NV], uint4 (&vr)[NV]) {
+    const int c0 = c_begin + tile * TC;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
-      const int i = (tid + j * kThreads) * VEC, cc = i / DH;
-      kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);       // masked entries stage as 0
-      if (sok[cc]) {
-        const size_t off = ((static_cast<size_t>(s) * C + c0 + cc) * KV + g) * DH + i % DH;
+      const int cc = key0 + KPS * j;
+      kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);       // masked entries stay 0
+      if (sok[tile & 1][cc]) {
+        const size_t off = ((static_cast<size_t>(s) * C + c0 + cc) * KV + g) * DH + ch * VEC;
         kr[j] = *reinterpret_cast<const uint4*>(k + off);
         vr[j] = *reinterpret_cast<const uint4*>(v + off);
       }
     }
+  };
+
+  int kp0 = load_pos(0), kp1 = load_pos(1);
+  for (int i = tid; i < nq; i += kThreads) sq[i / DH][i % DH] = to_f(q[row0 + i]) * scale;
+  if (tid < MAXREP) {
+    sm[tid] = kNegInf;
+    sl[tid] = 0.f;
+  }
+  float acc[MAXREP][VEC];                              // my chunk of each row, my keys only
+#pragma unroll
+  for (int r = 0; r < MAXREP; ++r)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+
+  // a tile with no visible entry is skipped before its K/V load; the K/V
+  // of tile t + 1 is in flight while tile t computes
+  uint4 kr[NV], vr[NV];
+  int any = __syncthreads_or(stage_mask(0, kp0));
+  if (any) load_kv(0, kr, vr);
+  for (int t = 0; t < ntiles; ++t) {
+    // also the barrier between tile t - 1's reads of ss and tile t's writes
+    const int any_next = __syncthreads_or(t + 1 < ntiles ? stage_mask(t + 1, kp1) : 0);
+    kp1 = load_pos(t + 2);
+    uint4 kn[NV], vn[NV];
+    if (any_next) load_kv(t + 1, kn, vn);
+    if (any) {
+      const int* ok = sok[t & 1];
+
+      // scores: each thread dots its chunk, the CPR lanes of a key sum by shuffles
+      float kf[NV][VEC];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) widen16<T>(kr[j], kf[j]);
+#pragma unroll
+      for (int r = 0; r < MAXREP; ++r) {
+        if (r >= rep) break;
+        float qv[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4)
+          *reinterpret_cast<float4*>(&qv[e]) =
+              *reinterpret_cast<const float4*>(&sq[r][ch * VEC + e]);
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) dot += qv[e] * kf[j][e];
+          dot = group_sum<CPR>(dot);
+          const int cc = key0 + KPS * j;
+          if (ch == 0) ss[r][cc] = ok[cc] ? dot : kNegInf;
+        }
+      }
+      __syncthreads();
+
+      for (int r = warp; r < rep; r += NW) {           // one warp per query row
+        float mx = kNegInf;
+        for (int cc = lane; cc < TC; cc += 32) mx = fmaxf(mx, ss[r][cc]);
+        const float m_prev = sm[r];
+        const float m_new = fmaxf(m_prev, group_max<32>(mx));
+        float sum = 0.f;
+        for (int cc = lane; cc < TC; cc += 32) {
+          const float p = ok[cc] ? expf(ss[r][cc] - m_new) : 0.f;
+          ss[r][cc] = p;
+          sum += p;
+        }
+        sum = group_sum<32>(sum);
+        if (lane == 0) {
+          const float corr = expf(m_prev - m_new);
+          sl[r] = sl[r] * corr + sum;
+          sm[r] = m_new;
+          scorr[r] = corr;
+        }
+      }
+      __syncthreads();
+
+      float vf[NV][VEC];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) widen16<T>(vr[j], vf[j]);
+#pragma unroll
+      for (int r = 0; r < MAXREP; ++r) {
+        if (r >= rep) break;
+        const float corr = scorr[r];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[r][e] *= corr;
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          const float p = ss[r][key0 + KPS * j];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[r][e] += p * vf[j][e];
+        }
+      }
+    }
+    any = any_next;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
-      const int i = (tid + j * kThreads) * VEC, cc = i / DH, d = i % DH;
-      widen16<T>(kr[j], &sk[cc][d]);
-      widen16<T>(vr[j], &sv[cc][d]);
+      kr[j] = kn[j];
+      vr[j] = vn[j];
     }
-    __syncthreads();
+  }
+  __syncthreads();                                     // sl and sm are final
 
-    for (int i = tid; i < rep * TC; i += kThreads) {
-      const int r = i / TC, cc = i % TC;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) dot += sq[r][d] * sk[cc][d];
-      ss[r][cc] = sok[cc] ? dot : kNegInf;
-    }
-    __syncthreads();
-
-    for (int r = warp; r < rep; r += kThreads / 32) {  // one warp per query row
-      float mx = kNegInf;
-      for (int cc = lane; cc < TC; cc += 32) mx = fmaxf(mx, ss[r][cc]);
-      const float m_prev = sm[r];
-      const float m_new = fmaxf(m_prev, group_max<32>(mx));
-      float sum = 0.f;
-      for (int cc = lane; cc < TC; cc += 32) {
-        const float p = sok[cc] ? expf(ss[r][cc] - m_new) : 0.f;
-        ss[r][cc] = p;
-        sum += p;
-      }
-      sum = group_sum<32>(sum);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        sl[r] = sl[r] * corr + sum;
-        sm[r] = m_new;
-        scorr[r] = corr;
-      }
-    }
-    __syncthreads();
-
+  // sum each chunk's accumulator over the threads that hold it: the lanes
+  // ch + CPR i of a warp by shuffles, then the warps through shared memory
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int e = tid + j * kThreads;
-      if (e < nq) {
-        const int r = e / DH, d = e % DH;
-        float a = acc[j] * scorr[r];
-        for (int cc = 0; cc < TC; ++cc) a += ss[r][cc] * sv[cc][d];
-        acc[j] = a;
-      }
+  for (int r = 0; r < MAXREP; ++r) {
+    if (r >= rep) break;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      float x = acc[r][e];
+#pragma unroll
+      for (int o = CPR; o < 32; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+      if (lane < CPR) sred[warp][r][ch * VEC + e] = x;
     }
   }
   __syncthreads();
 
+  // scratch: acc (S, KV, n_split, rep, DH), then (m, l) (S, KV, n_split, rep, 2)
+  const size_t prow = ((static_cast<size_t>(s) * KV + g) * n_split + split) * rep;
+  for (int e = tid; e < nq; e += kThreads) {
+    const int r = e / DH, d = e % DH;
+    float a = 0.f;
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int e = tid + j * kThreads;
-    if (e < nq) out[row0 + e] = from_f<T>(acc[j] / fmaxf(sl[e / DH], 1e-30f));
+    for (int w = 0; w < NW; ++w) a += sred[w][r][d];
+    if (part == nullptr)                               // one chunk: the output itself
+      out[row0 + e] = from_f<T>(a / fmaxf(sl[r], 1e-30f));
+    else
+      part[prow * DH + e] = a;
+  }
+  if (part != nullptr && tid < rep) {
+    float* pml = part + static_cast<size_t>(gridDim.z) * KV * n_split * rep * DH + prow * 2;
+    pml[2 * tid] = sl[tid] > 0.f ? sm[tid] : -INFINITY;
+    pml[2 * tid + 1] = sl[tid];
   }
 }
 
 template <typename T, int DH>
-void launch(const void* q, const void* k, const void* v, const void* q_pos,
-            const void* kv_pos, void* out, int S, int C, int KV, int rep,
-            int window, float scale, cudaStream_t stream) {
-  decode_attention_kernel<T, DH><<<dim3(KV, S), kThreads, 0, stream>>>(
+__global__ void __launch_bounds__(kThreads)
+decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out, int KV,
+                      int rep, int n_split) {
+  constexpr int NB = 8;                                // chunks read together
+  const int g = blockIdx.x, s = blockIdx.y, S = gridDim.y;
+  const size_t prow = (static_cast<size_t>(s) * KV + g) * n_split * rep;
+  const float* pacc = part + prow * DH;
+  const float* pml = part + static_cast<size_t>(S) * KV * n_split * rep * DH + prow * 2;
+  const size_t row0 = (static_cast<size_t>(s) * KV * rep + static_cast<size_t>(g) * rep) * DH;
+  for (int e = threadIdx.x; e < rep * DH; e += kThreads) {
+    const int r = e / DH, d = e % DH;
+    // a running (m*, l*, out) over the chunks, NB of them loaded at once;
+    // an empty chunk (l = 0) is skipped, never weighted by e^(-inf + inf)
+    float m_star = -INFINITY, l_star = 0.f, a = 0.f;
+    for (int i0 = 0; i0 < n_split; i0 += NB) {
+      float m[NB], l[NB], x[NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        m[i] = -INFINITY;
+        l[i] = x[i] = 0.f;
+        if (i0 + i < n_split) {
+          const int row = (i0 + i) * rep + r;
+          m[i] = pml[2 * row];
+          l[i] = pml[2 * row + 1];
+          x[i] = pacc[row * DH + d];
+        }
+      }
+      float m_new = m_star;
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+        if (l[i] > 0.f) m_new = fmaxf(m_new, m[i]);
+      if (m_new == -INFINITY) continue;                // nothing visible yet
+      const float corr = expf(m_star - m_new);         // 0 while m* is -inf
+      l_star *= corr;
+      a *= corr;
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        if (!(l[i] > 0.f)) continue;
+        const float w = expf(m[i] - m_new);
+        l_star += l[i] * w;
+        a += x[i] * w;
+      }
+      m_star = m_new;
+    }
+    out[row0 + e] = from_f<T>(a / fmaxf(l_star, 1e-30f));
+  }
+}
+
+template <typename T, int DH, int MAXREP>
+void launch_split(const void* q, const void* k, const void* v, const void* q_pos,
+                  const void* kv_pos, void* out, float* part, int S, int C, int KV,
+                  int rep, int window, float scale, int n_split, int split_len,
+                  cudaStream_t stream) {
+  decode_split_kernel<T, DH, MAXREP><<<dim3(n_split, KV, S), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos),
-      static_cast<T*>(out), C, KV, rep, window, scale);
+      static_cast<T*>(out), part, C, KV, rep, window, scale, split_len);
+}
+
+template <typename T, int DH>
+int launch(const void* q, const void* k, const void* v, const void* q_pos,
+           const void* kv_pos, void* out, void* part, int S, int C, int KV, int rep,
+           int window, float scale, int n_split, int split_len, cudaStream_t stream) {
+  if (split_len < 1 || split_len % kTile<DH> != 0 ||
+      static_cast<long long>(n_split - 1) * split_len >= C ||
+      (n_split > 1) != (part != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* scratch = static_cast<float*>(part);
+  // the accumulators are registers: size them by rep
+  if (rep <= 2)
+    launch_split<T, DH, 2>(q, k, v, q_pos, kv_pos, out, scratch, S, C, KV, rep, window,
+                           scale, n_split, split_len, stream);
+  else if (rep <= 4)
+    launch_split<T, DH, 4>(q, k, v, q_pos, kv_pos, out, scratch, S, C, KV, rep, window,
+                           scale, n_split, split_len, stream);
+  else if (rep <= 8)
+    launch_split<T, DH, 8>(q, k, v, q_pos, kv_pos, out, scratch, S, C, KV, rep, window,
+                           scale, n_split, split_len, stream);
+  else
+    launch_split<T, DH, kMaxRep>(q, k, v, q_pos, kv_pos, out, scratch, S, C, KV, rep,
+                                 window, scale, n_split, split_len, stream);
+  if (n_split > 1)
+    decode_combine_kernel<T, DH><<<dim3(KV, S), kThreads, 0, stream>>>(
+        scratch, static_cast<T*>(out), KV, rep, n_split);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns a cudaError_t: 0 when the launch was accepted.
+// Returns a cudaError_t: 0 when both launches were accepted.  `part` is
+// the f32 scratch of S * KV * n_split * rep * (dh + 2) values, null when
+// n_split is 1.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* q_pos, const void* kv_pos, void* out,
-                                       int S, int C, int KV, int rep, int dh, int window,
-                                       float scale, int is_bf16, void* stream) {
-  if (rep < 1 || rep > kMaxRep || S < 1 || C < 1 || KV < 1 || S > 65535)
+                                       void* part, int S, int C, int KV, int rep, int dh,
+                                       int window, float scale, int is_bf16, int n_split,
+                                       int split_len, void* stream) {
+  if (rep < 1 || rep > kMaxRep || S < 1 || C < 1 || KV < 1 || S > 65535 || KV > 65535 ||
+      n_split < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dh == 64 && is_bf16)
-    launch<__nv_bfloat16, 64>(q, k, v, q_pos, kv_pos, out, S, C, KV, rep, window, scale, st);
-  else if (dh == 64)
-    launch<float, 64>(q, k, v, q_pos, kv_pos, out, S, C, KV, rep, window, scale, st);
-  else if (dh == 128 && is_bf16)
-    launch<__nv_bfloat16, 128>(q, k, v, q_pos, kv_pos, out, S, C, KV, rep, window, scale, st);
-  else if (dh == 128)
-    launch<float, 128>(q, k, v, q_pos, kv_pos, out, S, C, KV, rep, window, scale, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch<__nv_bfloat16, 64>(q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep,
+                                     window, scale, n_split, split_len, st);
+  if (dh == 64)
+    return launch<float, 64>(q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep, window,
+                             scale, n_split, split_len, st);
+  if (dh == 128 && is_bf16)
+    return launch<__nv_bfloat16, 128>(q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep,
+                                      window, scale, n_split, split_len, st);
+  if (dh == 128)
+    return launch<float, 128>(q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep, window,
+                              scale, n_split, split_len, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,45 +1,432 @@
-// Causal full-sequence (prefill) attention with an online softmax, forward
-// only.
+// Causal full-sequence (prefill and training) attention with an online
+// softmax, forward only.
 //
-// Replaces: repro/kernels/flash_attention.py, flash_attention_pallas (whose
-// jnp twin blockwise_attention is what the JAX prefill runs).
+// Replaces: repro/kernels/flash_attention.py, flash_attention_pallas
+// (`_flash_kernel`; its jnp twin blockwise_attention is what the JAX
+// prefill runs).
 //
 // q (B, T, H, dh), k / v (B, S, KV, dh) -- the blockwise_attention layout,
 // so gqa_forward passes its projections without a transpose copy; out
 // (B, T, H, dh) in q's dtype (bf16 or f32).  Query head h reads KV head
 // h / (H / KV).  Causal masking is aligned bottom-right, k <= q + (S - T),
 // as in the JAX oracle; with S == T (prefill) it is the Pallas rule.  A
-// row with no visible key gets 0.  The Pallas kernel's full (non-causal)
-// mask serves the encoder families and is ported with them.
+// row with no visible key gets 0.  Key tiles above the diagonal of a
+// block's last row are never loaded.  The Pallas kernel's full
+// (non-causal) mask serves the encoder families and is ported with them.
 //
 // What bounds it: causal attention does ~2 T^2 dh H flops on
 // ~4 T (H + KV) dh bytes of bf16 input and output, so its flops per byte
 // grow with T.  At fedmm-base prefill (T = S = 512, H 16, KV 8, dh 64) that
 // is ~170 flop/byte, under the H100's ~295 bf16 ridge: the bound is bytes
-// (~0.9 us); from T ~ 900 on it is the tensor cores.  This first kernel runs
-// its products as f32 FMAs on the CUDA cores (67 TFLOP/s, ~8 us at T 512),
-// so arithmetic limits it long before either bound; wgmma with TMA-fed
-// tiles is later work.
+// (~0.9 us); from T ~ 900 on it is the tensor cores.  At these sizes the
+// time is set by latency and instruction issue on the SMs that hold the
+// longest causal rows, not by either bound.
 //
-// Design: one block of 256 threads per (64-row query tile, head, batch).
-// The Pallas grid's sequential KV axis becomes a loop inside the block
-// over 64-key tiles, stopping at the causal limit of the tile's last row
-// (tiles above the diagonal are never loaded).  Q (pre-scaled by dh^-0.5),
-// K, V and the probability tile live in shared memory as f32 (K and Q rows
-// padded by one word against bank conflicts).  Each thread owns a 4 x 4
-// score micro-tile (rows ty + 16 i, keys tx + 16 j) and the matching
-// 4 x (dh / 16) output accumulator in registers; the row max and row sum
-// of the online softmax are reduced across the 16 lanes that share a row
-// with warp shuffles.  p is masked explicitly, so masked keys and the
-// ragged tail add nothing.  Each thread issues all of its 16-byte loads of
-// a tile before it widens any of them, so a tile costs one memory round
-// trip (q, k and v must be 16-byte aligned; the wrapper checks).
+// Before (the first port): one block of 256 threads per 64-row query tile ran
+// both products as f32 FMAs on the CUDA cores, every FMA pair fed by two
+// shared-memory loads, with no overlap of a tile's load and the previous
+// tile's math.  The last tile at T 512 walks 8 key tiles, 8 x 2 x 64^3 ~
+// 4.2 M FMAs on one SM's 128 f32 lanes: ~18 us of FMAs alone, ~79 us in
+// all.  At the round's T 16 three quarters of each 64-row tile was padding.
+//
+// bf16 design (FlashAttention-2 in shape, mma.sync on the tensor cores):
+//   * A warp owns 16 query rows of one head and keeps their Q fragments in
+//     registers for the whole key loop (loaded once from global memory).
+//   * S = Q K^T runs as mma.sync.m16n8k16 bf16 -> f32, K fragments by
+//     ldmatrix.  The online softmax runs in registers on the f32
+//     accumulator fragments; the row max and row sum reduce over the 4
+//     lanes of a row.  The max is kept in raw-score units and the dh^-0.5
+//     log2(e) scale is applied in f32 inside one FFMA before ex2.approx,
+//     so Q is never scaled in bf16 (at dh 128 the scale is not a power of
+//     two and Q would be rounded twice).
+//   * P is rounded to bf16 in registers and is the A operand of P V
+//     directly; V fragments come by ldmatrix.trans.  The row sum l takes
+//     the f32 p before rounding.
+//   * K and V tiles of 64 keys are staged as bf16 in a two-stage ring
+//     filled by cp.async (16 bytes a thread, zero-fill past S), so the
+//     next tiles load while these compute.  Each 16-byte chunk c of key
+//     row r lies at chunk c ^ (r & 7) of its row: the 8 rows an ldmatrix
+//     phase reads hit 8 distinct bank groups.
+//   * Rows: a block holds HB heads of one KV group (one K/V tile serves all
+//     of them) x RQ query rows per head, one row warp per 16 rows, at most
+//     4 row warps.  RQ = 16 ceil(T / 16) capped at 64; HB is the largest
+//     divisor of rep = H / KV with HB RQ / 16 <= 4.  The 16-row segments
+//     of a head are dealt to its P blocks in pairs, segment j with 2P-1-j
+//     (then 2P+j with 4P-1-j), so every block holds a short and a long
+//     causal row range: at T 512 each block does 18 warp-tiles of work
+//     instead of 1 to 32.
+//   * Keys: while the grid is short of 4 blocks an SM, the row warps are
+//     repeated in KS = 2 or 4 key groups (4 only at dh 64, where a thread
+//     fits in 128 registers); group kg takes key tiles kg, kg + KS, ...
+//     with its own (m, l, o), and the groups merge through shared memory
+//     at the end.  This shortens the serial key loop and gives each SM
+//     more warps to hide latency with.
+//   * The serve prefill (T 512, H 16, KV 8) runs 128 blocks of 4 row warps
+//     x 4 key groups; the round (T 16, rep 3) runs 128 blocks of 3 warps,
+//     the 3 heads of a group in one block with no padded rows.
+//
+// The f32 instantiations keep the FMA body of the first port (the second kernel
+// below).  They exist for chip_smoke.py's f32 checks (TOL 1e-4) and its
+// f32 serve oracle (1e-3 of max |logit|); TF32 tensor cores keep ~3
+// decimal digits and would not hold those tolerances.  In it one block of
+// 256 threads per (64-row query tile, head, batch) holds Q (pre-scaled by
+// dh^-0.5), K, V and the probability tile in shared memory as f32; each
+// thread owns a 4 x 4 score micro-tile and a 4 x (dh / 16) accumulator.
+//
+// q, k and v must be 16-byte aligned (the wrapper checks).
 #include "common.cuh"
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
 
 namespace {
 
 using namespace repro;
+using bf16 = __nv_bfloat16;
 
+// ---------------------------------------------------------------- bf16 path
+constexpr int kBK = 64;                               // keys per tile
+constexpr int kMaxWarps = 4;                          // row warps per key group
+constexpr int kStages = 2;                            // the cp.async ring
+
+// key groups per block at most: 16 warps of <= 128 registers at dh 64, 8
+// warps at dh 128 (more registers a thread)
+template <int DH>
+constexpr int kMaxKS = DH == 64 ? 4 : 2;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, in flight until cp_async_wait; zero-filled
+// when !valid (src is then never read, but must be a mapped address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (exp2f adds range handling around it)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// offset (in elements) of 16-byte chunk c of key row r in a swizzled tile
+template <int DH>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * DH + ((c ^ (r & 7)) << 3);
+}
+
+template <int DH>
+constexpr size_t mma_smem_bytes(int ks) {
+  return sizeof(bf16) * kStages * ks * 2 /*K, V*/ * kBK * DH;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(32 * kMaxWarps * kMaxKS<DH>)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, int Tq,
+                 int S, int H, int KV, int RQ, int HB, int KS, float scale_log2) {
+  constexpr int CH = DH / 8;                          // 16-byte chunks per key row
+  constexpr int KC = DH / 16;                         // k-steps of Q K^T
+  constexpr int NO = DH / 8;                          // 8-column tiles of the output
+  constexpr int TILE = kBK * DH;                      // elements of one K (or V) tile
+  constexpr int NS = kStages;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);       // [NS stages][KS][kBK][DH], swizzled
+  bf16* sV = sK + NS * KS * TILE;                     // the same for V
+
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, gr = lane / 4, tq = lane % 4;
+  const int nw = HB * (RQ / 16);                      // warps per key group
+  const int kg = warp / nw, rw = warp % nw;           // key group, row warp
+  const int wph = RQ / 16;                            // row warps per head
+  const int h = blockIdx.y * HB + rw / wph;
+  // the 16-row segments of a head are dealt to its gridDim.x blocks so that
+  // each holds a cheap and a dear one under the causal mask: row warp w of
+  // block j takes segment j (w = 0), 2P - 1 - j (w = 1), 2P + j (w = 2), ...
+  const int P = gridDim.x, j = blockIdx.x;
+  auto segment = [&](int w) { return (w / 2) * 2 * P + (w % 2 ? 2 * P - 1 - j : j); };
+  const int t0 = segment(rw % wph) * 16;              // this warp's first row
+  const int b = blockIdx.z;
+  const int g = blockIdx.y * HB / (H / KV);
+  const int shift = S - Tq;                           // bottom-right causal alignment
+  // keys past kend are masked for every row of the block; past wend for
+  // every row of this warp (0 when the warp holds no row)
+  int last = -1;                                      // the block's last row
+  for (int w = 0; w < wph; ++w)
+    if (segment(w) * 16 < Tq) last = max(last, min(Tq - 1, segment(w) * 16 + 15));
+  const int kend = min(S, last + 1 + shift);
+  const int ntiles = kend > 0 ? (kend + kBK - 1) / kBK : 0;
+  const int nsteps = (ntiles + KS - 1) / KS;          // key group kg takes tile step * KS + kg
+  const int wend = t0 < Tq ? min(S, min(t0 + 15, Tq - 1) + 1 + shift) : 0;
+
+  auto load_step = [&](int step) {                    // the KS tiles of one step
+    const int stage = step % NS;
+    for (int i = tid; i < KS * kBK * CH; i += nthreads) {
+      const int j = i / (kBK * CH), r = i / CH % kBK, c = i % CH;
+      const int tile = step * KS + j, s = tile * kBK + r;
+      if (tile >= ntiles) break;                      // j only grows along i
+      const size_t off =
+          ((static_cast<size_t>(b) * S + min(s, S - 1)) * KV + g) * DH + c * 8;
+      const int dst = (stage * KS + j) * TILE + swz<DH>(r, c);
+      cp_async16(sK + dst, k + off, s < S);
+      cp_async16(sV + dst, v + off, s < S);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {               // NS - 1 steps ahead
+    if (st < nsteps) load_step(st);
+    cp_async_commit();
+  }
+
+  // Q fragments (A operand, 16 rows x DH) straight from global memory
+  const int ra = t0 + gr, rb = ra + 8;                // this lane's two rows
+  uint32_t qf[KC][4];
+  {
+    const bf16* qa = q + ((static_cast<size_t>(b) * Tq + ra) * H + h) * DH + 2 * tq;
+    const bf16* qb = q + ((static_cast<size_t>(b) * Tq + rb) * H + h) * DH + 2 * tq;
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      qf[kk][0] = ra < Tq ? ld32(qa + 16 * kk) : 0u;
+      qf[kk][1] = rb < Tq ? ld32(qb + 16 * kk) : 0u;
+      qf[kk][2] = ra < Tq ? ld32(qa + 16 * kk + 8) : 0u;
+      qf[kk][3] = rb < Tq ? ld32(qb + 16 * kk + 8) : 0u;
+    }
+  }
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int step = 0; step < nsteps; ++step) {
+    if (step + NS - 1 < nsteps) load_step(step + NS - 1);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();                          // this step's tiles have landed
+    __syncthreads();
+    const int k0 = (step * KS + kg) * kBK;
+    if (k0 < wend) {                                  // warp-uniform
+      const bf16* Ks = sK + ((step % NS) * KS + kg) * TILE;
+      const bf16* Vs = sV + ((step % NS) * KS + kg) * TILE;
+
+      float sc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {                   // 8 keys each
+#pragma unroll
+        for (int p = 0; p < KC / 2; ++p) {            // 32 dh each
+          uint32_t kb[4];
+          const int r = 8 * j + (lane & 7);
+          ldsm_x4(kb, Ks + swz<DH>(r, 4 * p + (lane >> 3)));
+          mma_bf16(sc[j], qf[2 * p], kb[0], kb[1]);
+          mma_bf16(sc[j], qf[2 * p + 1], kb[2], kb[3]);
+        }
+      }
+
+      // every key of the tile visible to every row of the warp?  Else
+      // mask; m is kept in units of raw scores (the scale is positive)
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (k0 + kBK <= S && k0 + kBK - 1 <= t0 + shift) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * tq + (e & 1);
+            if (key >= S || key > (e < 2 ? ra : rb) + shift) sc[j][e] = -INFINITY;
+            mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+          }
+      }
+      float base[2], corr[2];                         // base: the row max, scaled
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], group_max<4>(mx[i]));
+        base[i] = m_new == -INFINITY ? 0.f : m_new * scale_log2;  // none seen: p = 0
+        corr[i] = fast_exp2(fmaf(m[i], scale_log2, -base[i]));
+        m[i] = m_new;
+      }
+
+      float rs[2] = {0.f, 0.f};
+      uint32_t pf[4][4];                              // P as A operand, 16 keys each
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p0 = fast_exp2(fmaf(sc[j][0], scale_log2, -base[0]));
+        const float p1 = fast_exp2(fmaf(sc[j][1], scale_log2, -base[0]));
+        const float p2 = fast_exp2(fmaf(sc[j][2], scale_log2, -base[1]));
+        const float p3 = fast_exp2(fmaf(sc[j][3], scale_log2, -base[1]));
+        rs[0] += p0 + p1;
+        rs[1] += p2 + p3;
+        pf[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
+        pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + group_sum<4>(rs[i]);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {                // 16 keys each
+#pragma unroll
+        for (int n2 = 0; n2 < NO / 2; ++n2) {         // 16 output columns each
+          uint32_t vb[4];
+          const int r = 16 * kc + (lane & 7) + 8 * ((lane >> 3) & 1);
+          ldsm_x4_trans(vb, Vs + swz<DH>(r, 2 * n2 + (lane >> 4)));
+          mma_bf16(o[2 * n2], pf[kc], vb[0], vb[1]);
+          mma_bf16(o[2 * n2 + 1], pf[kc], vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();                                  // stage step % NS is free again
+  }
+
+  if (KS > 1) {
+    // key groups 1 .. KS-1 hand their (m, l, o) to group 0 through shared
+    // memory (the K/V ring is free: every copy has landed and every read is
+    // done); each lane of a row warp holds the same fragment positions in
+    // every group
+    constexpr int W = NO * 4 + 4;                     // floats per lane
+    cp_async_wait<0>();
+    float* xch = reinterpret_cast<float*>(smem_raw) + (rw * 32 + lane) * W;
+    const int gstride = nw * 32 * W;                  // floats per key group
+    if (kg > 0) {
+      float* x = xch + (kg - 1) * gstride;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[4 * n + e] = o[n][e];
+      x[4 * NO] = m[0];
+      x[4 * NO + 1] = m[1];
+      x[4 * NO + 2] = l[0];
+      x[4 * NO + 3] = l[1];
+    }
+    __syncthreads();
+    if (kg != 0) return;
+    for (int from = 1; from < KS; ++from) {
+      const float* x = xch + (from - 1) * gstride;
+      float c0[2], c1[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m1 = x[4 * NO + i], m_new = fmaxf(m[i], m1);
+        const float base = m_new == -INFINITY ? 0.f : m_new;
+        c0[i] = fast_exp2((m[i] - base) * scale_log2);
+        c1[i] = fast_exp2((m1 - base) * scale_log2);
+        l[i] = l[i] * c0[i] + x[4 * NO + 2 + i] * c1[i];
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = o[n][e] * c0[e >> 1] + x[4 * n + e] * c1[e >> 1];
+    }
+  }
+
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i ? rb : ra;
+    if (row >= Tq) continue;
+    bf16* dst = out + ((static_cast<size_t>(b) * Tq + row) * H + h) * DH + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+          pack_bf16(o[n][2 * i] * inv[i], o[n][2 * i + 1] * inv[i]);
+  }
+}
+
+template <int DH>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Tq,
+               int S, int H, int KV, float scale, cudaStream_t stream) {
+  static int n_sm = 0;                                // set on the first launch
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_mma_kernel<DH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(mma_smem_bytes<DH>(kMaxKS<DH>)));
+    if (err != cudaSuccess) {
+      n_sm = 0;
+      return static_cast<int>(err);
+    }
+  }
+  // block shape: RQ query rows per head x HB heads of one KV group, one
+  // warp per 16 rows, at most kMaxWarps warps, times KS key groups (see
+  // the note at the top)
+  const int rep = H / KV;
+  const int rq = std::min(64, (Tq + 15) / 16 * 16);
+  int hb = 1;
+  for (int d = 1; d <= rep; ++d)
+    if (rep % d == 0 && d * (rq / 16) <= kMaxWarps) hb = d;
+  const dim3 grid((Tq + rq - 1) / rq, H / hb, B);
+  // key groups: split the key tiles while the grid leaves the card short
+  // of 4 blocks' worth per SM, never past the number of key tiles
+  const long long blocks = static_cast<long long>(grid.x) * grid.y * grid.z;
+  int ks = 1;
+  while (2 * ks <= kMaxKS<DH> && 2 * ks <= (S + kBK - 1) / kBK &&
+         blocks * 2 * ks <= 4LL * n_sm)
+    ks *= 2;
+  const size_t bytes = mma_smem_bytes<DH>(ks);
+  flash_mma_kernel<DH><<<grid, 32 * hb * (rq / 16) * ks, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, S, H, KV, rq, hb, ks,
+      scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ----------------------------------------------------------------- f32 path
 constexpr int kThreads = 256;
 constexpr int BQ = 64, BK = 64;
 
@@ -48,11 +435,12 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (DH + 1) + BK * (DH + 1) + BK * DH + BQ * (BK + 1));
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       int Tq, int S, int H, int KV, float scale) {
+flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int Tq, int S,
+                 int H, int KV, float scale) {
+  using T = float;
   constexpr int CPT = DH / 16;                        // output columns per thread
   constexpr int VEC = kVec<T>;
   constexpr int NV = BQ * DH / VEC / kThreads;        // 16-byte loads per tile per thread
@@ -191,18 +579,22 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Tq,
-           int S, int H, int KV, float scale, cudaStream_t stream) {
+template <int DH>
+int launch_fma(const void* q, const void* k, const void* v, void* out, int B, int Tq,
+               int S, int H, int KV, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DH>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Tq, S, H, KV, scale);
+  flash_fma_kernel<DH><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Tq, S, H, KV, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -216,11 +608,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (B < 1 || Tq < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh == 64 && is_bf16)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, B, Tq, S, H, KV, scale, st);
-  if (dh == 64) return launch<float, 64>(q, k, v, out, B, Tq, S, H, KV, scale, st);
+  if (dh == 64 && is_bf16) return launch_mma<64>(q, k, v, out, B, Tq, S, H, KV, scale, st);
+  if (dh == 64) return launch_fma<64>(q, k, v, out, B, Tq, S, H, KV, scale, st);
   if (dh == 128 && is_bf16)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, B, Tq, S, H, KV, scale, st);
-  if (dh == 128) return launch<float, 128>(q, k, v, out, B, Tq, S, H, KV, scale, st);
+    return launch_mma<128>(q, k, v, out, B, Tq, S, H, KV, scale, st);
+  if (dh == 128) return launch_fma<128>(q, k, v, out, B, Tq, S, H, KV, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,8 +5,17 @@
 q (S, H, dh), k / v (S, C, KV, dh), q_pos (S,) and kv_pos (S, C) int32
 and returns (S, H, dh) in q's dtype.  A tensor on the CPU goes to the
 plain version ``ref.decode_attention_ref``; a CUDA tensor launches the
-kernel or raises -- there is no fallback.  ``decode_attention.launches``
-counts kernel launches (never the plain path).
+kernel or raises -- there is no fallback.
+
+On the card the pool axis is split across blocks (flash-decoding):
+``split_plan`` cuts C into chunks of whole tiles for about two blocks per
+SM, a split pass writes each chunk's (m, l, acc) to an f32 scratch, and a
+combine pass merges them; both launch from one C call.  With one chunk
+the split pass writes the output and no combine runs.
+
+``decode_attention.launches`` counts wrapper calls that reached the card
+(one per layer per decode step, whatever the number of chunks); the
+plain path never counts.
 """
 from __future__ import annotations
 
@@ -16,6 +25,37 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
+#: blocks the split pass aims at: two per SM of the H100's 132
+TARGET_BLOCKS = 264
+
+
+def tile_len(dh: int) -> int:
+    """Pool positions per tile of the kernel (TC in the source)."""
+    return 4096 // dh
+
+
+def split_len_for(c: int, dh: int, want: int) -> tuple:
+    """(n_split, split_len) for about ``want`` chunks of whole tiles: every
+    chunk but the last holds split_len // tile_len(dh) whole tiles, the
+    last holds at least one whole tile and the ragged tail (a pool shorter
+    than one tile is one chunk)."""
+    full = max(1, c // tile_len(dh))               # whole tiles (at least 1)
+    per = -(-full // max(1, min(want, full)))      # tiles per chunk
+    return -(-full // per), per * tile_len(dh)
+
+
+def split_plan(s_slots: int, n_kv: int, c: int, dh: int) -> tuple:
+    """(n_split, split_len) the kernel runs with: the chunk count that
+    gives at least ``TARGET_BLOCKS`` blocks of (chunk, KV head, slot),
+    rounded up to a power of two and capped by the pool's whole tiles;
+    1 when the S x KV blocks already fill the card."""
+    want = -(-TARGET_BLOCKS // (s_slots * n_kv))
+    return split_len_for(c, dh, 1 << (want - 1).bit_length())
+
+
+def split_bounds(c: int, n_split: int, split_len: int) -> list:
+    """The chunk boundaries [0, split_len, ..., C] the kernel uses."""
+    return [i * split_len for i in range(n_split)] + [c]
 
 
 def _check(q, k, v, q_pos, kv_pos) -> None:
@@ -69,13 +109,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, q_pos, kv_pos)
     s_slots, h, dh = q.shape
     c, n_kv = k.shape[1], k.shape[2]
+    rep = h // n_kv
+    n_split, split_len = split_plan(s_slots, n_kv, c, dh)
     out = torch.empty_like(q)
+    part = None                    # f32 (m, l, acc) of every chunk
+    if n_split > 1:
+        part = torch.empty(s_slots * n_kv * n_split * rep * (dh + 2),
+                           dtype=torch.float32, device=q.device)
     lib = _build.load("decode_attention")
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        kv_pos.data_ptr(), out.data_ptr(), s_slots, c, n_kv, h // n_kv, dh,
+        kv_pos.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), s_slots, c, n_kv, rep, dh,
         window or c, float(dh ** -0.5), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        n_split, split_len, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("decode_attention", err)
     decode_attention.launches += 1
     return out
@@ -83,4 +130,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 decode_attention.launches = 0
 
-__all__ = ["decode_attention", "decode_attention_ref"]
+__all__ = ["decode_attention", "decode_attention_ref", "split_plan",
+           "split_len_for", "split_bounds", "tile_len", "TARGET_BLOCKS"]

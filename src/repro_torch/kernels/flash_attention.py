@@ -16,8 +16,10 @@ PyTorch by design: it recomputes the attention through
 of that (a hand-written backward kernel is queued in ROADMAP.md).
 
 A tensor on the CPU goes to the plain version ``ref.flash_attention_ref``;
-a CUDA tensor launches the kernel or raises.  ``flash_attention.launches``
-counts kernel launches (forward only; the backward launches none).
+a CUDA tensor launches the kernel or raises.  On the card bf16 runs both
+products on the tensor cores and f32 on the CUDA cores' FMAs (the source
+note says why).  ``flash_attention.launches`` counts kernel launches
+(forward only; the backward launches none).
 """
 from __future__ import annotations
 
