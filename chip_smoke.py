@@ -8,7 +8,8 @@ non-zero and prints no result):
 1. build: ``nvcc`` compiles every CUDA source of the port for sm_90a,
    one process per source, all at once; ptxas's registers and spills of
    each kernel, and the count of tensor-core instructions (HMMA / HGMMA)
-   in each flash kernel's SASS where ``cuobjdump`` exists, are printed;
+   in each flash and lora_matmul kernel's SASS where ``cuobjdump``
+   exists, are printed;
 2. kernels: each kernel is held against its plain PyTorch version on the
    card, in bf16 and f32, at the shapes its paths give it -- decode
    (fedmm-base: S 8, C 1024, KV 8, rep 2, dh 64, split in 8 chunks; the
@@ -18,9 +19,10 @@ non-zero and prints no result):
    T 65, T 100 against S 300, dh 128 and B 4; B 32, T 16, H 12, KV 4 for
    the federated round, with its gradient), gram (the loss's (32, 768),
    the server's (4, 32, 768), a ragged (37, 100); forward and gradient)
-   and lora_matmul (the round's
-   M 512, K 768, N 768 and 256, rank 8, and a ragged case; output, dx
-   and dB) and selective_scan (Falcon-Mamba's prefill, B 1, S 512 and
+   and lora_matmul (the round's M 512, K 768, N 768 and 256, rank 8, a
+   ragged case, unaligned rows, r 1 and 32, M 1, odd N and transposed
+   W / A / B; output, dx and dB; timed beside ``torch.matmul(x, W)``
+   too) and selective_scan (Falcon-Mamba's prefill, B 1, S 512 and
    128, C = d_inner * N = 131,072; a ragged (3, 37, 1000) and S 1 from a
    nonzero h0; h_all and h_last).  Each is timed, in bf16 at each path's
    shapes (the scan in f32, as the prefill gives it), beside its
@@ -95,7 +97,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, split_bounds, split_plan)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gram import cosine_gram  # noqa: E402
-from repro_torch.kernels.lora_matmul import lora_matmul  # noqa: E402
+from repro_torch.kernels.lora_matmul import (  # noqa: E402
+    lora_matmul, n_blocks as lora_blocks, tile_plan)
 from repro_torch.kernels.selective_scan import selective_scan  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import (ServeConfig, ServeEngine,  # noqa: E402
@@ -190,14 +193,17 @@ def demangle(names):
 
 def build_report() -> None:
     """ptxas's registers and spills of every kernel, and the count of
-    tensor-core instructions (HMMA / HGMMA) in each flash kernel's SASS
-    where ``cuobjdump`` is on the machine.  A report: it decides nothing."""
+    tensor-core instructions (HMMA / HGMMA) in each kernel of the sources
+    with a tensor-core path (flash_attention, lora_matmul) where
+    ``cuobjdump`` is on the machine.  A report: it decides nothing."""
     for src, report in sorted(_build.ptxas_report.items()):
         entries, name = [], "?"
         for line in report.splitlines():
-            hit = re.search(r"Compiling entry function '([^']+)'", line)
+            # a kernel, or a device function kept out of line
+            hit = re.search(r"Compiling entry function '([^']+)'|"
+                            r"Function properties for (\S+)", line)
             if hit:
-                name = hit.group(1)
+                name = hit.group(1) or hit.group(2)
             elif "registers" in line or "spill" in line:
                 entries.append((name, line.split(":", 1)[-1].strip()))
         names = sorted({n for n, _ in entries})
@@ -209,21 +215,22 @@ def build_report() -> None:
         log("  cuobjdump: not found (tensor-core instruction count not "
             "reported)")
         return
-    sass = subprocess.run([tool, "-sass", str(_build._target(
-        "flash_attention"))], capture_output=True, text=True,
-        timeout=120).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        hit = re.search(r"Function : (\S+)", line)
-        if hit:
-            name = hit.group(1)
-            counts[name] = 0
-        elif name and re.search(r"\bHG?MMA\b", line):
-            counts[name] += 1
-    names = sorted(counts)
-    for n, short in zip(names, demangle(names)):
-        log(f"  SASS flash_attention {short}: {counts[n]} "
-            f"HMMA / HGMMA instructions")
+    for src in ("flash_attention", "lora_matmul"):
+        sass = subprocess.run([tool, "-sass", str(_build._target(src))],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        counts, name = {}, None
+        for line in sass.splitlines():
+            hit = re.search(r"Function : (\S+)", line)
+            if hit:
+                name = hit.group(1)
+                counts[name] = 0
+            elif name and re.search(r"\bHG?MMA\b", line):
+                counts[name] += 1
+        names = sorted(counts)
+        for n, short in zip(names, demangle(names)):
+            log(f"  SASS {src} {short}: {counts[n]} HMMA / HGMMA "
+                f"instructions")
 
 
 # ----------------------------------------------------------------------
@@ -569,6 +576,15 @@ def lora_inputs(m, k, n, r, dtype, seed=0):
     return tuple(t.to(dtype) for t in (x, w, a, b))
 
 
+#: forward, dx and dB checks beyond the round's shapes: name -> (M, K, N, r)
+LORA_CASES = {"unaligned (37, 100, 50, r 3)": (37, 100, 50, 3),
+              "r 1 (64, 256, 128)": (64, 256, 128, 1),
+              "r 32 (128, 192, 96)": (128, 192, 96, 32),
+              "M 1 (1, 768, 768, r 8)": (1, 768, 768, 8),
+              "ragged, one K range (1000, 100, 500, r 5)": (1000, 100, 500, 5),
+              "odd N (1000, 104, 499, r 8)": (1000, 104, 499, 8)}
+
+
 def lora_phase() -> dict:
     log("kernel phase: lora_matmul (forward and dx: the kernel; dB: "
         "torch.matmul on the kernel's x @ A)")
@@ -584,6 +600,18 @@ def lora_phase() -> dict:
             err = check_vjp(f"lora_matmul {what} {dtype}", lora_matmul,
                             ref.lora_matmul_ref, args, (0, 3), TOL[dtype])
             errs.setdefault(dtype, err)
+        for what, shape in LORA_CASES.items():
+            args = lora_inputs(*shape, dtype, seed=sum(shape))
+            check_vjp(f"lora_matmul {what} {dtype}", lora_matmul,
+                      ref.lora_matmul_ref, args, (0, 3), TOL[dtype])
+        # dx's orientation in the forward: W, A and B as transposed views
+        # (their loop axis contiguous); the backward then reads W^T, B^T
+        # and A^T with the n / r axis contiguous
+        x, w, a, b = lora_inputs(96, 160, 136, 16, dtype, seed=96)
+        check_vjp(f"lora_matmul transposed W, A, B (96, 160, 136, r 16) "
+                  f"{dtype}", lora_matmul, ref.lora_matmul_ref,
+                  (x, *(t.t().contiguous().t() for t in (w, a, b))), (0, 3),
+                  TOL[dtype])
 
     def composition(x, w, a, b):
         return torch.addmm(x @ w, x @ a, b)
@@ -599,6 +627,7 @@ def lora_phase() -> dict:
         issue_ms = host_ms(lambda *t: lora_matmul(*t), sets)
         plain_ms = time_ms(lambda *t: ref.lora_matmul_ref(*t), sets)
         composition_ms = time_ms(composition, sets)
+        matmul_ms = time_ms(lambda x, w, a, b: torch.matmul(x, w), sets)
         dy_sets = [(torch.randn((512, n), device="cuda").to(torch.bfloat16),
                     *t[1:]) for t in sets]
         dx_ms = time_ms(dx_kernel, dy_sets)
@@ -607,15 +636,19 @@ def lora_phase() -> dict:
         ops = 2 * m_ * k_ * n + 2 * m_ * k_ * r_ + 2 * m_ * r_ * n
         moved = nbytes(x, w, a, b) + m_ * n * x.element_size()
         b_ms, b_by = bound_ms(moved, ops, torch.bfloat16)
+        plans = {what: (tile_plan(*mkn), lora_blocks(*mkn)) for what, mkn in
+                 (("forward", (m_, k_, n)), ("dx", (m_, n, k_)))}
         log(f"  lora_matmul timing (bf16, M 512, K 768, N {n}, r 8): kernel "
             f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), dx "
             f"kernel {dx_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"addmm(x @ W, x @ A, B) {composition_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} flops)")
+            f"addmm(x @ W, x @ A, B) {composition_ms:.4f} ms, "
+            f"torch.matmul(x, W) {matmul_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} flops); "
+            f"(bn, k_split) and blocks {plans}")
         out.append(dict(path="federation", shape=f"M 512, K 768, N {n}, r 8",
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                         library_ms=None, composition_ms=composition_ms,
-                        dx_ms=dx_ms))
+                        matmul_ms=matmul_ms, dx_ms=dx_ms))
     return dict(max_abs_err=errs[torch.bfloat16], timings=out)
 
 

@@ -1,0 +1,74 @@
+// PTX building blocks of the port's tensor-core kernels (flash_attention's
+// and lora_matmul's bf16 paths): cp.async copies into shared memory,
+// ldmatrix fragment loads, the m16n8k16 bf16 mma, and the XOR swizzle of
+// shared-memory tiles that keeps ldmatrix free of bank conflicts.
+#pragma once
+
+#include "common.cuh"
+
+#include <cstdint>
+
+namespace repro {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, in flight until cp_async_wait; zero-filled
+// when !valid (src is then never read, but must be a mapped address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Offset (in elements) of 16-byte chunk c of row r in a swizzled bf16 tile
+// whose rows hold ROW elements (ROW / 8 chunks).  Chunk c is stored at
+// chunk c ^ f(r), with f chosen so that the 8 rows one ldmatrix phase reads
+// at one logical chunk land in 8 distinct 16-byte bank groups: f(r) = r & 7
+// for rows of 128 bytes or more, and for a row of 64 or 32 bytes the rows
+// that share a 128-byte line are told apart by the bits above them.  A
+// 16-byte row needs no swizzle: 8 rows already span all 32 banks.
+template <int ROW>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int CH = ROW / 8;
+  static_assert(ROW % 8 == 0 && (CH & (CH - 1)) == 0, "rows of 2^n 16-byte chunks");
+  constexpr int MASK = (CH < 8 ? CH : 8) - 1;
+  constexpr int SHIFT = CH >= 8 ? 0 : CH == 4 ? 1 : CH == 2 ? 2 : 3;
+  return (r * CH + (c ^ ((r >> SHIFT) & MASK))) * 8;
+}
+
+}  // namespace repro

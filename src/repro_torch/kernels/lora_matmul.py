@@ -16,9 +16,17 @@ trains and ships only B):
 A tensor on the CPU goes to the plain version ``ref.lora_matmul_ref``; a
 CUDA tensor launches the kernel or raises.  ``lora_matmul.launches``
 counts kernel launches, forward and dx alike.
+
+The bf16 kernel runs on the tensor cores.  Two choices of it are made
+here, in plain Python, so the CPU tests pin them: ``tile_plan`` picks the
+output tile and the split of the K loop from the shape, and
+``layout_flags`` tells the kernel, from strides and addresses, which
+orientation each of W and A has and which operands load in 16-byte
+chunks.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -28,6 +36,72 @@ from repro_torch.kernels.ref import lora_matmul_ref
 
 MAX_RANK = 32                     # kMaxRank of csrc/lora_matmul.cu
 _DTYPES = (torch.bfloat16, torch.float32)
+
+BM, BK = 64, 64                   # kBM, kBK of csrc/lora_matmul.cu
+#: output tile widths the bf16 kernel is built for, widest first
+TILE_NS = (64, 32)
+TARGET_BLOCKS = 132               # one block per SM of the H100
+MAX_SPLITS = 8                    # kMaxSplits: a portable cluster
+# a K range shorter than this loses more to its prologue and the cluster's
+# reduction than the extra blocks gain (A/B on the H100, PERF.md PR 15)
+MIN_RANGE_STEPS = 4
+# bits of the kernel's ``flags`` (kVecX .. kRowA of csrc/lora_matmul.cu)
+VEC_X, VEC_W, VEC_A, ROW_W, ROW_A = 1, 2, 4, 8, 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(m: int, k: int, n: int) -> Tuple[int, int]:
+    """(bn, k_split) of the bf16 kernel for x (m, k) @ W (k, n): the widest
+    BM x bn tile of ``TILE_NS`` whose grid gives every SM a block once the
+    K loop is cut into ranges of ``k_split`` (whole BK-wide steps, each
+    range a block of the tile's cluster), with as few ranges as that
+    needs, at most ``MAX_SPLITS`` and none shorter than ``MIN_RANGE_STEPS``
+    steps.  Where no tile gets there (small shapes), the narrowest tile
+    with as many ranges as allowed, one step or more each."""
+    steps = _cdiv(k, BK)
+    for bn in TILE_NS:
+        tiles = _cdiv(m, BM) * _cdiv(n, bn)
+        for want in range(1, min(steps, MAX_SPLITS) + 1):
+            per = _cdiv(steps, want)
+            if want > 1 and per < MIN_RANGE_STEPS:
+                break
+            if tiles * _cdiv(steps, per) >= TARGET_BLOCKS:
+                return bn, per * BK
+    return TILE_NS[-1], _cdiv(steps, min(steps, MAX_SPLITS)) * BK
+
+
+def n_blocks(m: int, k: int, n: int) -> int:
+    """Blocks of the bf16 kernel's grid under ``tile_plan``."""
+    bn, k_split = tile_plan(m, k, n)
+    return _cdiv(m, BM) * _cdiv(n, bn) * _cdiv(k, k_split)
+
+
+def _chunked(t: torch.Tensor, row_dim: int, extent: int) -> bool:
+    """Whether t's rows along ``row_dim`` (the other axis contiguous, with
+    ``extent`` elements) are whole 16-byte chunks at 16-byte addresses."""
+    pitch = t.stride(row_dim)
+    return (t.stride(1 - row_dim) == 1 and pitch % 8 == 0 and pitch >= extent
+            and extent % 8 == 0 and t.data_ptr() % 16 == 0)
+
+
+def layout_flags(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor) -> int:
+    """The kernel's ``flags``: ROW_W / ROW_A when W's n axis / A's r axis is
+    the contiguous one (the forward; dx's transposed views have the loop
+    axis contiguous), VEC_* for each operand that cp.async can copy in
+    16-byte chunks (the others load element by element).  An operand with
+    neither axis contiguous takes the row orientation."""
+    k, n, r = x.shape[1], w.shape[1], a.shape[1]
+    flags = VEC_X if k % 8 == 0 and x.data_ptr() % 16 == 0 else 0
+    for t, extent_n, row, vec in ((w, n, ROW_W, VEC_W), (a, r, ROW_A, VEC_A)):
+        if t.stride(1) == 1 or t.stride(0) != 1:          # [k][n] tile
+            flags |= row | (vec if _chunked(t, 0, extent_n) else 0)
+        elif _chunked(t, 1, k):                           # [n][k] tile
+            flags |= vec
+    return flags
 
 
 def _check(x, w, a, b) -> None:
@@ -71,11 +145,14 @@ def _apply(x, w, a, b, want_xa: bool
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     xa = (torch.empty((m, r), dtype=torch.float32, device=x.device)
           if want_xa else None)
+    bf16 = x.dtype == torch.bfloat16
+    flags, (bn, k_split) = ((layout_flags(x, w, a), tile_plan(m, k, n))
+                            if bf16 else (0, (0, 0)))
     lib = _build.load("lora_matmul")
     err = lib.lora_matmul_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
         None if xa is None else xa.data_ptr(), m, k, n, r, *w.stride(),
-        *a.stride(), *b.stride(), int(x.dtype == torch.bfloat16),
+        *a.stride(), *b.stride(), flags, bn, k_split, int(bf16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch("lora_matmul", err)
     lora_matmul.launches += 1
@@ -113,4 +190,5 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 lora_matmul.launches = 0
 
-__all__ = ["lora_matmul", "lora_matmul_ref", "MAX_RANK"]
+__all__ = ["lora_matmul", "lora_matmul_ref", "MAX_RANK", "tile_plan",
+           "n_blocks", "layout_flags"]
