@@ -8,7 +8,7 @@ non-zero and prints no result):
 1. build: ``nvcc`` compiles every CUDA source of the port for sm_90a,
    one process per source, all at once; ptxas's registers and spills of
    each kernel, and the count of tensor-core instructions (HMMA / HGMMA)
-   in each flash and lora_matmul kernel's SASS where ``cuobjdump``
+   in each flash, lora_matmul and gram kernel's SASS where ``cuobjdump``
    exists, are printed;
 2. kernels: each kernel is held against its plain PyTorch version on the
    card, in bf16 and f32, at the shapes its paths give it -- decode
@@ -18,13 +18,16 @@ non-zero and prints no result):
    (T 512 and a ragged 300 for prefill; T 16 with rep 3, T 1, a ragged
    T 65, T 100 against S 300, dh 128 and B 4; B 32, T 16, H 12, KV 4 for
    the federated round, with its gradient), gram (the loss's (32, 768),
-   the server's (4, 32, 768), a ragged (37, 100); forward and gradient)
-   and lora_matmul (the round's M 512, K 768, N 768 and 256, rank 8, a
-   ragged case, unaligned rows, r 1 and 32, M 1, odd N and transposed
-   W / A / B; output, dx and dB; timed beside ``torch.matmul(x, W)``
-   too) and selective_scan (Falcon-Mamba's prefill, B 1, S 512 and
-   128, C = d_inner * N = 131,072; a ragged (3, 37, 1000) and S 1 from a
-   nonzero h0; h_all and h_last).  Each is timed, in bf16 at each path's
+   the upload's (4, 32, 768), a ragged (37, 100), B 1, (128, 5120), a
+   stack of 16 nodes and rows off 16 bytes; the output to 1e-5 in both
+   dtypes, the gradient to 1e-3 in bf16 and 1e-5 in f32; timed beside
+   the launch floor, a one-element ``add_``) and lora_matmul (the round's M 512, K 768, N
+   768 and 256, rank 8, a ragged case, unaligned rows, r 1, 32, 33 and
+   64, M 1, odd N and transposed W / A / B; output, dx and dB; timed
+   beside ``torch.matmul(x, W)`` too, and at ranks 33 and 64) and
+   selective_scan (Falcon-Mamba's prefill, B 1, S 512 and 128, C =
+   d_inner * N = 131,072; a ragged (3, 37, 1000) and S 1 from a nonzero
+   h0; h_all and h_last).  Each is timed, in bf16 at each path's
    shapes (the scan in f32, as the prefill gives it), beside its
    plain version, its bound and a PyTorch yardstick the port never
    calls: one call where one computes the same function (SDPA;
@@ -56,7 +59,9 @@ non-zero and prints no result):
    and dx, in the task and anchor passes of 40 steps), 960 flash and 44
    gram kernels, with finite records and weights summing to 1.  One
    local step under ``torch.profiler`` reports the device's busy share
-   and the host's op count;
+   and the host's op count.  Then one round at rank 64, the top of the
+   kernel's range, on fedmm-small at full width cut to 2 layers, with
+   exact launch counts and finite records;
 7. federation oracle: one local step from the state the rounds left,
    on the card in bf16 and f32 and through the plain versions on the
    CPU in f32: losses, pooled activations and every gradient must
@@ -96,7 +101,8 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, split_bounds, split_plan)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.gram import cosine_gram  # noqa: E402
+from repro_torch.kernels.gram import (  # noqa: E402
+    cosine_gram, gram_plan, n_blocks as gram_blocks)
 from repro_torch.kernels.lora_matmul import (  # noqa: E402
     lora_matmul, n_blocks as lora_blocks, tile_plan)
 from repro_torch.kernels.selective_scan import selective_scan  # noqa: E402
@@ -194,7 +200,7 @@ def demangle(names):
 def build_report() -> None:
     """ptxas's registers and spills of every kernel, and the count of
     tensor-core instructions (HMMA / HGMMA) in each kernel of the sources
-    with a tensor-core path (flash_attention, lora_matmul) where
+    with a tensor-core path (flash_attention, lora_matmul, gram) where
     ``cuobjdump`` is on the machine.  A report: it decides nothing."""
     for src, report in sorted(_build.ptxas_report.items()):
         entries, name = [], "?"
@@ -215,7 +221,7 @@ def build_report() -> None:
         log("  cuobjdump: not found (tensor-core instruction count not "
             "reported)")
         return
-    for src in ("flash_attention", "lora_matmul"):
+    for src in ("flash_attention", "lora_matmul", "gram"):
         sass = subprocess.run([tool, "-sass", str(_build._target(src))],
                               capture_output=True, text=True,
                               timeout=120).stdout
@@ -472,10 +478,11 @@ def flash_phase() -> dict:
 
 # ----------------------------------------------------------------------
 # the training kernels: forward and backward against the plain versions
-def check_vjp(name, fn, plain, args, live, tol):
+def check_vjp(name, fn, plain, args, live, tol, grad_tol=None):
     """``fn`` (the kernel's autograd Function) and ``plain`` (its plain
     version under autograd) on the same inputs and the same random
-    cotangent: the output and the gradient of every argument in ``live``.
+    cotangent: the output (held to ``tol``) and the gradient of every
+    argument in ``live`` (held to ``grad_tol``, by default ``tol``).
     Errors are max |got - want| over max(1, max |want|): the outputs run up
     to a few units, where one bf16 step is 2^-7 of the value.  Returns
     the forward error."""
@@ -496,12 +503,31 @@ def check_vjp(name, fn, plain, args, live, tol):
             (f"d{i}", gl[i].grad, wl[i].grad) for i in live]:
         scale = max(1.0, b.float().abs().max().item())
         errs[what] = (a.float() - b.float()).abs().max().item() / scale
+    grad_tol = tol if grad_tol is None else grad_tol
+    limits = {k: tol if k == "out" else grad_tol for k in errs}
     log(f"  {name}: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-        + f" (of max(1, max |value|); tol {tol})")
-    bad = {k: v for k, v in errs.items() if not v <= tol}
+        + f" (of max(1, max |value|); tol {tol}"
+        + ("" if grad_tol == tol else f", gradient {grad_tol}") + ")")
+    bad = {k: (v, limits[k]) for k, v in errs.items() if not v <= limits[k]}
     if bad:
-        raise AssertionError(f"{name}: {bad} > {tol}")
+        raise AssertionError(f"{name}: (error, limit) {bad}")
     return errs["out"]
+
+
+#: gram checks: name -> shape of x, (B, D) or (K, B, D)
+GRAM_CASES = {"loss (32, 768)": (32, 768),
+              "upload (4, 32, 768)": (4, 32, 768),
+              "ragged (37, 100)": (37, 100),
+              "B 1 (1, 768)": (1, 768),
+              "d_model 5120 (128, 5120)": (128, 5120),
+              "16 nodes (16, 32, 768)": (16, 32, 768)}
+#: gram limits: dtype -> (output, gradient).  The kernel and the plain
+#: version take f32 sums of the same exact products (bf16 values too), so
+#: the output is held to 1e-5 in both dtypes: a cosine off the diagonal is
+#: ~D^-0.5 (0.014 at D 5120), and a looser limit would pass a wrong kernel.
+#: The gradient is plain PyTorch either way, rounded to x's dtype: bf16
+#: steps of dx set its limit.
+GRAM_TOL = {torch.bfloat16: (1e-5, 1e-3), torch.float32: (1e-5, 1e-5)}
 
 
 def gram_phase() -> dict:
@@ -509,14 +535,20 @@ def gram_phase() -> dict:
     errs = {}
     g = torch.Generator(device="cuda").manual_seed(7)
     for dtype in (torch.bfloat16, torch.float32):
-        for what, shape in (("loss (32, 768)", (32, 768)),
-                            ("server (4, 32, 768)", (4, 32, 768)),
-                            ("ragged (37, 100)", (37, 100))):
+        for what, shape in GRAM_CASES.items():
             x = torch.randn(shape, generator=g, device="cuda").to(dtype)
-            x[..., 3, :] = 0.0                       # the eps clamp
-            err = check_vjp(f"gram {what} {dtype}", cosine_gram,
-                            ref.cosine_gram_ref, (x,), (0,), TOL[dtype])
+            if shape[-2] > 3:
+                x[..., 3, :] = 0.0                   # the eps clamp
+            kbd = shape if len(shape) == 3 else (1, *shape)
+            err = check_vjp(f"gram {what} {dtype} (plan {gram_plan(*kbd)}, "
+                            f"{gram_blocks(*kbd)} CTAs)", cosine_gram,
+                            ref.cosine_gram_ref, (x,), (0,), *GRAM_TOL[dtype])
             errs.setdefault(dtype, err)
+        # rows off 16 bytes: the element path
+        x = torch.randn(32 * 768 + 1, generator=g, device="cuda").to(dtype)
+        x = x[1:].view(32, 768)
+        check_vjp(f"gram rows off 16 bytes (32, 768) {dtype}", cosine_gram,
+                  ref.cosine_gram_ref, (x,), (0,), *GRAM_TOL[dtype])
 
     def composition(x):
         xn = F.normalize(x.float(), dim=-1, eps=1e-4)   # max(|x|, sqrt(eps))
@@ -526,8 +558,12 @@ def gram_phase() -> dict:
         return F.cosine_similarity(x.unsqueeze(-2), x.unsqueeze(-3), dim=-1,
                                    eps=1e-4)
 
+    # the least a launch costs, timed the same way: a one-element add_
+    floor_ms = time_ms(lambda t: t.add_(1.0),
+                       copies((torch.zeros(1, device="cuda"),)))
+    log(f"  launch floor: one-element add_ {floor_ms:.4f} ms on the device")
     out = []
-    for what, shape in (("loss", (32, 768)), ("server", (4, 32, 768))):
+    for what, shape in (("loss", (32, 768)), ("upload", (4, 32, 768))):
         x = torch.randn(shape, generator=g, device="cuda")
         x[..., 5, :] *= 1e-6                         # a norm under the clamp
         for dtype in (torch.float32, torch.bfloat16):
@@ -552,16 +588,18 @@ def gram_phase() -> dict:
         k = x.numel() // (b * d)
         ops = k * (2 * b * b * d + 3 * b * d)       # products and row norms
         b_ms, b_by = bound_ms(nbytes(x) + 4 * k * b * b, ops, torch.bfloat16)
-        log(f"  gram timing ({what}, bf16, {tuple(shape)}): kernel "
+        log(f"  gram timing ({what}, bf16, {tuple(shape)}, plan "
+            f"{gram_plan(k, b, d)}, {gram_blocks(k, b, d)} CTAs): kernel "
             f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), plain "
             f"{plain_ms:.4f} ms, F.cosine_similarity {library_ms:.4f} ms, "
-            f"F.normalize + @ {composition_ms:.4f} ms, "
-            f"bound {b_ms:.6f} ms ({b_by}; {nbytes(x) + 4 * k * b * b} bytes, "
-            f"{ops} flops); inputs stay in L2")
+            f"F.normalize + @ {composition_ms:.4f} ms, launch floor "
+            f"{floor_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; "
+            f"{nbytes(x) + 4 * k * b * b} bytes, {ops} flops); inputs stay "
+            f"in L2")
         out.append(dict(path=f"federation ({what})", shape=str(shape),
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=library_ms,
-                        composition_ms=composition_ms))
+                        composition_ms=composition_ms, floor_ms=floor_ms))
     return dict(max_abs_err=errs[torch.bfloat16], timings=out)
 
 
@@ -580,6 +618,11 @@ def lora_inputs(m, k, n, r, dtype, seed=0):
 LORA_CASES = {"unaligned (37, 100, 50, r 3)": (37, 100, 50, 3),
               "r 1 (64, 256, 128)": (64, 256, 128, 1),
               "r 32 (128, 192, 96)": (128, 192, 96, 32),
+              "r 33, 64 x 32 tiles in 3 K ranges (512, 768, 256)":
+                  (512, 768, 256, 33),
+              "r 64, 64 x 64 tiles in 2 K ranges (512, 768, 768)":
+                  (512, 768, 768, 64),
+              "r 64 ragged (100, 200, 72)": (100, 200, 72, 64),
               "M 1 (1, 768, 768, r 8)": (1, 768, 768, 8),
               "ragged, one K range (1000, 100, 500, r 5)": (1000, 100, 500, 5),
               "odd N (1000, 104, 499, r 8)": (1000, 104, 499, 8)}
@@ -607,11 +650,12 @@ def lora_phase() -> dict:
         # dx's orientation in the forward: W, A and B as transposed views
         # (their loop axis contiguous); the backward then reads W^T, B^T
         # and A^T with the n / r axis contiguous
-        x, w, a, b = lora_inputs(96, 160, 136, 16, dtype, seed=96)
-        check_vjp(f"lora_matmul transposed W, A, B (96, 160, 136, r 16) "
-                  f"{dtype}", lora_matmul, ref.lora_matmul_ref,
-                  (x, *(t.t().contiguous().t() for t in (w, a, b))), (0, 3),
-                  TOL[dtype])
+        for r in (16, 33, 64):
+            x, w, a, b = lora_inputs(96, 160, 136, r, dtype, seed=96 + r)
+            check_vjp(f"lora_matmul transposed W, A, B (96, 160, 136, r {r})"
+                      f" {dtype}", lora_matmul, ref.lora_matmul_ref,
+                      (x, *(t.t().contiguous().t() for t in (w, a, b))),
+                      (0, 3), TOL[dtype])
 
     def composition(x, w, a, b):
         return torch.addmm(x @ w, x @ a, b)
@@ -620,8 +664,8 @@ def lora_phase() -> dict:
         return lora_matmul(dy, w.t(), b.t(), a.t())
 
     out = []
-    for n in (768, 256):
-        args = lora_inputs(512, 768, n, 8, torch.bfloat16, seed=n)
+    for n, r_ in ((768, 8), (256, 8), (768, 33), (768, 64)):
+        args = lora_inputs(512, 768, n, r_, torch.bfloat16, seed=n + r_)
         sets = copies(args)
         ms = time_ms(lambda *t: lora_matmul(*t), sets)
         issue_ms = host_ms(lambda *t: lora_matmul(*t), sets)
@@ -632,20 +676,22 @@ def lora_phase() -> dict:
                     *t[1:]) for t in sets]
         dx_ms = time_ms(dx_kernel, dy_sets)
         x, w, a, b = args
-        m_, k_, r_ = 512, 768, 8
+        m_, k_ = 512, 768
         ops = 2 * m_ * k_ * n + 2 * m_ * k_ * r_ + 2 * m_ * r_ * n
         moved = nbytes(x, w, a, b) + m_ * n * x.element_size()
         b_ms, b_by = bound_ms(moved, ops, torch.bfloat16)
         plans = {what: (tile_plan(*mkn), lora_blocks(*mkn)) for what, mkn in
                  (("forward", (m_, k_, n)), ("dx", (m_, n, k_)))}
-        log(f"  lora_matmul timing (bf16, M 512, K 768, N {n}, r 8): kernel "
-            f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), dx "
-            f"kernel {dx_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log(f"  lora_matmul timing (bf16, M 512, K 768, N {n}, r {r_}): "
+            f"kernel {ms:.4f} ms on the device ({issue_ms:.4f} ms to "
+            f"issue), dx kernel {dx_ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"addmm(x @ W, x @ A, B) {composition_ms:.4f} ms, "
             f"torch.matmul(x, W) {matmul_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} flops); "
             f"(bn, k_split) and blocks {plans}")
-        out.append(dict(path="federation", shape=f"M 512, K 768, N {n}, r 8",
+        out.append(dict(path="federation" if r_ == 8 else
+                        f"federation at rank {r_}",
+                        shape=f"M 512, K 768, N {n}, r {r_}",
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                         library_ms=None, composition_ms=composition_ms,
                         matmul_ms=matmul_ms, dx_ms=dx_ms))
@@ -944,10 +990,16 @@ def ssm_phases() -> dict:
 
 # ----------------------------------------------------------------------
 # federation phases: the paper's round on fedmm-small at full width
-def federation_phase(rounds: int = 2):
+def federation_phase(rounds: int = 2, lora_rank: int = 8,
+                     n_layers: int = 0):
+    """``rounds`` rounds of fedmm-small at full width (at full depth, or cut
+    to ``n_layers``), geodora at ``lora_rank``; exact launch counts and
+    finite records each round."""
     cfg = get_config("fedmm-small")
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
     fcfg = FederationConfig(method="geodora", aggregation="precision",
-                            rounds=rounds)
+                            rounds=rounds, lora_rank=lora_rank)
     log(f"federation phase: fedmm-small ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, "
         f"{cfg.dtype}), geodora, precision aggregation, {fcfg.n_nodes} "
@@ -1118,6 +1170,8 @@ def main() -> int:
     fed, rounds = federation_phase()
     federation_trace_phase(fed)
     federation_oracle_phase(fed)
+    del fed
+    _, rank64 = federation_phase(rounds=1, lora_rank=64, n_layers=2)
 
     sources = {"decode_attention": "src/repro/kernels/decode_attention.py:77",
                "flash_attention": "src/repro/kernels/flash_attention.py:69",
@@ -1126,7 +1180,9 @@ def main() -> int:
                "selective_scan": "src/repro/kernels/selective_scan.py:49"}
     by_path = {k: {"serve": served["launches"][k],
                    "ssm serve": ssm_served["launches"][k],
-                   "federation": rounds["launches"][k]} for k in rows}
+                   "federation": rounds["launches"][k],
+                   "federation at rank 64 (2 layers)":
+                       rank64["launches"][k]} for k in rows}
     # the top-level times are the first timed shape's; ``timings`` holds
     # every timed shape with its path
     kernels = [dict(name=k, route="cuda",
@@ -1142,7 +1198,8 @@ def main() -> int:
     for what, run in (("serve", served), ("ssm serve", ssm_served)):
         log(f"{what}: {run['tokens'] / run['wall_s']} tokens/s, wall "
             f"{run['wall_s']} s, peak memory {run['peak_gib']} GiB")
-    log(f"federation: round wall {rounds['walls']} s")
+    log(f"federation: round wall {rounds['walls']} s; at rank 64 (2 "
+        f"layers) {rank64['walls']} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

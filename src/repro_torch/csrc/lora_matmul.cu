@@ -36,7 +36,7 @@
 //     fragments (x) by ldmatrix.
 //     The fragments of k16 step kk + 1 load while step kk's mma run.
 //   * The K loop is fed by a 3-stage ring of bf16 tiles (x: 64 x 64, W:
-//     64 x BN, A: 64 x 32) that cp.async fills 16 bytes a thread.  Each
+//     64 x BN, A: 64 x 32 RT) that cp.async fills 16 bytes a thread.  Each
 //     tile keeps the global layout of its operand, so rows copy straight,
 //     and its 16-byte chunks are XOR-swizzled (repro::swz) so the 8 rows
 //     of an ldmatrix phase hit 8 distinct bank groups.
@@ -47,8 +47,11 @@
 //     gives the fragments.  The orientation of W and of A is each a
 //     template parameter, chosen by the wrapper from the strides.
 //   * The bottleneck x @ A on the tensor cores in the same K loop: A's
-//     tile holds 32 ranks, zero past r, and each k16 step adds one mma per
-//     8 ranks (at most 4) per 16 rows to the bottleneck's f32 fragments.
+//     tile holds RT rank tiles of 32 (RT = 1 up to rank 32, 2 up to 64,
+//     the Pallas kernel's range; a template parameter, so ranks <= 32
+//     carry no registers, shared memory or loads for a second tile), zero
+//     past r, and each k16 step adds one mma per 8 ranks (at most 4 RT)
+//     per 16 rows to the bottleneck's f32 fragments.
 //     After the loop the fragments go to shared memory with B's r x BN
 //     tile, and each thread adds r f32 FMAs per output element to its
 //     accumulator fragments: the bottleneck stays f32, as in the plain
@@ -91,7 +94,8 @@ namespace cg = cooperative_groups;
 using namespace repro;
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxRank = 32;
+constexpr int kRankTile = 32;                         // ranks a tile of A holds
+constexpr int kMaxRank = 2 * kRankTile;               // the Pallas kernel's r <= 64
 
 struct Strides {
   long long w0, w1, a0, a1, b0, b1;
@@ -102,62 +106,15 @@ constexpr int kBK = 64;                               // K per ring stage
 constexpr int kStages = 3;                            // the cp.async ring
 constexpr int kBM = 64;                               // rows of an output tile
 constexpr int kWarps = kBM / 16, kMmaThreads = 32 * kWarps;  // 16 rows a warp
-constexpr int kRP = kMaxRank;                         // columns of A's tile
-constexpr int kXaPitch = kMaxRank + 1;                // f32 row of the bottleneck
 constexpr int kMaxSplits = 8;                         // K ranges: a portable cluster
 
 // bits of `flags`, set by the wrapper from the strides and addresses
 constexpr int kVecX = 1, kVecW = 2, kVecA = 4, kRowW = 8, kRowA = 16;
 
-template <int BN>
-constexpr int mma_smem_bytes() {
-  return static_cast<int>(sizeof(bf16)) * kStages * (kBM * kBK + kBK * BN + kBK * kRP);
-}
-
-// Stage ROWS x COLS of a bf16 matrix into a swizzled shared tile: tile
-// element (i, j) is element (r0 + i, c0 + j) of an nrows x ncols matrix
-// with row stride s_row and unit column stride, 0 past its edge.  Whole
-// 16-byte chunks by cp.async (the wrapper checks that every row is 16-byte
-// aligned and ncols % 8 == 0); a fixed number a thread, so the loop
-// unrolls into straight-line code.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void stage_chunks(bf16* __restrict__ dst,
-                                             const bf16* __restrict__ src, int r0, int c0,
-                                             int nrows, int ncols, long long s_row,
-                                             int tid) {
-  constexpr int CH = COLS / 8, PER = ROWS * CH / kMmaThreads;
-  static_assert(PER * kMmaThreads == ROWS * CH, "whole chunks a thread");
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int i = tid + j * kMmaThreads, rr = i / CH, c = i % CH;
-    const int gr = r0 + rr, gc = c0 + 8 * c;
-    const bool ok = gr < nrows && gc < ncols;
-    cp_async16(dst + swz<COLS>(rr, c), ok ? src + gr * s_row + gc : src, ok);
-  }
-}
-
-// The same tile element by element, with strides (s_row, s_col): for an
-// operand whose rows are not whole aligned chunks.  Out of line, so the
-// K loop's code stays small.
-template <int ROWS, int COLS>
-__device__ __noinline__ void stage_elems(bf16* dst, const bf16* src, int r0, int c0,
-                                         int nrows, int ncols, long long s_row,
-                                         long long s_col, int tid) {
-  for (int i = tid; i < ROWS * COLS; i += kMmaThreads) {
-    const int rr = i / COLS, cc = i % COLS, gr = r0 + rr, gc = c0 + cc;
-    dst[swz<COLS>(rr, cc / 8) + cc % 8] =
-        gr < nrows && gc < ncols ? src[gr * s_row + gc * s_col] : __float2bfloat16(0.f);
-  }
-}
-
-template <int ROWS, int COLS>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int r0, int c0,
-                                           int nrows, int ncols, long long s_row,
-                                           long long s_col, bool vec, int tid) {
-  if (vec)
-    stage_chunks<ROWS, COLS>(dst, src, r0, c0, nrows, ncols, s_row, tid);
-  else
-    stage_elems<ROWS, COLS>(dst, src, r0, c0, nrows, ncols, s_row, s_col, tid);
+template <int BN, int RT>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return static_cast<int>(sizeof(bf16)) * kStages *
+         (kBM * kBK + kBK * BN + kBK * kRankTile * RT);
 }
 
 // B fragments of two n8 tiles (columns 16 p .. 16 p + 15) at k16 step kk of
@@ -179,8 +136,8 @@ __device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const bf16* tile, int k
 // One 64 x BN output tile over the K range [z k_split, (z + 1) k_split) of
 // blockIdx.z = z; the blocks of one tile form a cluster along z, and its
 // rank 0 sums their ranges and finishes the tile (bottleneck product,
-// rounding, store).
-template <int BN, bool WROW, bool AROW>
+// rounding, store).  RT: rank tiles of 32 in A's tile.
+template <int BN, int RT, bool WROW, bool AROW>
 __global__ void __launch_bounds__(kMmaThreads)
 lora_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                 const bf16* __restrict__ a, const bf16* __restrict__ b,
@@ -188,7 +145,13 @@ lora_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                 int r, Strides st, int flags, int k_split) {
   constexpr int FN = BN / 8;                          // n8 tiles of a warp's row
   static_assert(FN % 2 == 0, "unsupported tile");
-  constexpr int XT = kBM * kBK, WT = kBK * BN, AT = kBK * kRP;  // elements a stage
+  constexpr int RP = kRankTile * RT;                  // columns of A's tile
+  constexpr int XN = 4 * RT;                          // n8 tiles of the bottleneck
+  constexpr int XA_PITCH = RP + 1;                    // f32 row of the bottleneck
+  constexpr int XT = kBM * kBK, WT = kBK * BN, AT = kBK * RP;  // elements a stage
+  static_assert(4 * (kBM * XA_PITCH + RP * BN) <= mma_smem_bytes<BN, RT>() &&
+                    4 * (FN * 4 + XN * 4) * kMmaThreads <= mma_smem_bytes<BN, RT>(),
+                "the epilogue and the cluster exchange fit in the ring");
   constexpr int STAGE = XT + WT + AT;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* const ring = reinterpret_cast<bf16*>(smem_raw);
@@ -206,22 +169,22 @@ lora_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     bf16* sW = sX + XT;
     bf16* sA = sW + WT;
     const int k0 = kbeg + step * kBK;
-    stage_tile<kBM, kBK>(sX, x, m0, k0, M, K, K, 1, vx, tid);
+    stage_tile<kBM, kBK, kMmaThreads>(sX, x, m0, k0, M, K, K, 1, vx, tid);
     if (WROW)
-      stage_tile<kBK, BN>(sW, w, k0, n0, K, N, st.w0, st.w1, vw, tid);
+      stage_tile<kBK, BN, kMmaThreads>(sW, w, k0, n0, K, N, st.w0, st.w1, vw, tid);
     else
-      stage_tile<BN, kBK>(sW, w, n0, k0, N, K, st.w1, st.w0, vw, tid);
+      stage_tile<BN, kBK, kMmaThreads>(sW, w, n0, k0, N, K, st.w1, st.w0, vw, tid);
     if (AROW)
-      stage_tile<kBK, kRP>(sA, a, k0, 0, K, r, st.a0, st.a1, va, tid);
+      stage_tile<kBK, RP, kMmaThreads>(sA, a, k0, 0, K, r, st.a0, st.a1, va, tid);
     else
-      stage_tile<kRP, kBK>(sA, a, 0, k0, r, K, st.a1, st.a0, va, tid);
+      stage_tile<RP, kBK, kMmaThreads>(sA, a, 0, k0, r, K, st.a1, st.a0, va, tid);
   };
 
-  float acc[FN][4], xacc[4][4];
+  float acc[FN][4], xacc[XN][4];
 #pragma unroll
   for (int j = 0; j < FN; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) xacc[j][0] = xacc[j][1] = xacc[j][2] = xacc[j][3] = 0.f;
+  for (int j = 0; j < XN; ++j) xacc[j][0] = xacc[j][1] = xacc[j][2] = xacc[j][3] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {             // kStages - 1 steps ahead
@@ -237,15 +200,15 @@ lora_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const bf16* sW = sX + XT;
     const bf16* sA = sW + WT;
     // the fragments of k16 step kk + 1 load while step kk's mma run
-    uint32_t fa[2][4], fw[2][FN / 2][4], fx[2][2][4];
+    uint32_t fa[2][4], fw[2][FN / 2][4], fx[2][XN / 2][4];
     auto load_frags = [&](int kk, int buf) {
       ldsm_x4(fa[buf], sX + swz<kBK>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
 #pragma unroll
       for (int p = 0; p < FN / 2; ++p)
         ldsm_b<WROW, WROW ? BN : kBK>(fw[buf][p], sW, kk, p, lane);
 #pragma unroll
-      for (int p = 0; p < 2; ++p)
-        if (2 * p < nr8) ldsm_b<AROW, AROW ? kRP : kBK>(fx[buf][p], sA, kk, p, lane);
+      for (int p = 0; p < XN / 2; ++p)
+        if (2 * p < nr8) ldsm_b<AROW, AROW ? RP : kBK>(fx[buf][p], sA, kk, p, lane);
     };
     load_frags(0, 0);
 #pragma unroll
@@ -258,7 +221,7 @@ lora_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         mma_bf16(acc[2 * p + 1], fa[buf], fw[buf][p][2], fw[buf][p][3]);
       }
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
+      for (int p = 0; p < XN / 2; ++p) {
         if (2 * p < nr8) mma_bf16(xacc[2 * p], fa[buf], fx[buf][p][0], fx[buf][p][1]);
         if (2 * p + 1 < nr8)
           mma_bf16(xacc[2 * p + 1], fa[buf], fx[buf][p][2], fx[buf][p][3]);
@@ -277,7 +240,7 @@ lora_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     // its f32 sums in its shared memory, fragment by fragment; rank 0 adds
     // them in rank order through distributed shared memory and finishes.
     cg::cluster_group cluster = cg::this_cluster();
-    float* xch = reinterpret_cast<float*>(smem_raw);  // [FN * 4 + 16][kMmaThreads]
+    float* xch = reinterpret_cast<float*>(smem_raw);  // [(FN + XN) * 4][kMmaThreads]
     const unsigned rank = cluster.block_rank();
     if (rank > 0) {
 #pragma unroll
@@ -285,7 +248,7 @@ lora_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
         for (int e = 0; e < 4; ++e) xch[(4 * j + e) * kMmaThreads + tid] = acc[j][e];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < XN; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           xch[(4 * (FN + j) + e) * kMmaThreads + tid] = xacc[j][e];
@@ -299,7 +262,7 @@ lora_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[j][e] += peer[(4 * j + e) * kMmaThreads + tid];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < XN; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             xacc[j][e] += peer[(4 * (FN + j) + e) * kMmaThreads + tid];
@@ -309,15 +272,15 @@ lora_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     if (rank > 0) return;
   }
 
-  float* sXA = reinterpret_cast<float*>(smem_raw);    // [kBM][kXaPitch]
-  float* sB = sXA + kBM * kXaPitch;                   // [kMaxRank][BN]
+  float* sXA = reinterpret_cast<float*>(smem_raw);    // [kBM][XA_PITCH]
+  float* sB = sXA + kBM * XA_PITCH;                   // [RP][BN]
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < XN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = row0 + 8 * (e >> 1), s = 8 * j + 2 * tq + (e & 1);
       if (s < r) {
-        sXA[row * kXaPitch + s] = xacc[j][e];
+        sXA[row * XA_PITCH + s] = xacc[j][e];
         if (xa_out != nullptr && blockIdx.x == 0 && m0 + row < M)
           xa_out[static_cast<size_t>(m0 + row) * r + s] = xacc[j][e];
       }
@@ -332,7 +295,7 @@ lora_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
 #pragma unroll 1
   for (int s = 0; s < r; ++s) {                       // rank by rank, as the plain sum
-    const float xa0 = sXA[row0 * kXaPitch + s], xa1 = sXA[(row0 + 8) * kXaPitch + s];
+    const float xa0 = sXA[row0 * XA_PITCH + s], xa1 = sXA[(row0 + 8) * XA_PITCH + s];
 #pragma unroll
     for (int j = 0; j < FN; ++j) {
       const float b0 = sB[s * BN + col0 + 8 * j], b1 = sB[s * BN + col0 + 8 * j + 1];
@@ -368,13 +331,14 @@ struct Args {
   Strides st;
 };
 
-template <int BN, bool WROW, bool AROW>
+template <int BN, int RT, bool WROW, bool AROW>
 int launch_mma(const Args& g, cudaStream_t stream) {
-  constexpr int bytes = mma_smem_bytes<BN>();
+  constexpr int bytes = mma_smem_bytes<BN, RT>();
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lora_mma_kernel<BN, WROW, AROW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        lora_mma_kernel<BN, RT, WROW, AROW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
@@ -392,17 +356,24 @@ int launch_mma(const Args& g, cudaStream_t stream) {
   cluster[0].val.clusterDim.z = cfg.gridDim.z;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, lora_mma_kernel<BN, WROW, AROW>, g.x, g.w,
-                                             g.a, g.b, g.y, g.xa, g.M, g.K, g.N, g.r, g.st,
-                                             g.flags, g.k_split));
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, lora_mma_kernel<BN, RT, WROW, AROW>, g.x,
+                                             g.w, g.a, g.b, g.y, g.xa, g.M, g.K, g.N, g.r,
+                                             g.st, g.flags, g.k_split));
 }
 
-template <int BN>
+template <int BN, int RT>
 int launch_tile(const Args& g, cudaStream_t stream) {
   const bool wrow = g.flags & kRowW, arow = g.flags & kRowA;
   if (wrow)
-    return arow ? launch_mma<BN, true, true>(g, stream) : launch_mma<BN, true, false>(g, stream);
-  return arow ? launch_mma<BN, false, true>(g, stream) : launch_mma<BN, false, false>(g, stream);
+    return arow ? launch_mma<BN, RT, true, true>(g, stream)
+                : launch_mma<BN, RT, true, false>(g, stream);
+  return arow ? launch_mma<BN, RT, false, true>(g, stream)
+              : launch_mma<BN, RT, false, false>(g, stream);
+}
+
+template <int BN>
+int launch_ranks(const Args& g, cudaStream_t stream) {
+  return g.r <= kRankTile ? launch_tile<BN, 1>(g, stream) : launch_tile<BN, 2>(g, stream);
 }
 
 int launch_bf16(const Args& g, int bn, cudaStream_t stream) {
@@ -410,8 +381,8 @@ int launch_bf16(const Args& g, int bn, cudaStream_t stream) {
   if (g.k_split < 1 || g.k_split % kBK != 0 || splits > kMaxSplits ||
       (g.M + kBM - 1) / kBM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bn == 64) return launch_tile<64>(g, stream);
-  if (bn == 32) return launch_tile<32>(g, stream);
+  if (bn == 64) return launch_ranks<64>(g, stream);
+  if (bn == 32) return launch_ranks<32>(g, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -424,20 +395,22 @@ int launch_bf16(const Args& g, int bn, cudaStream_t stream) {
 // together into registers, and the next step's loads before it computes on
 // the current tiles, so a step costs one memory round trip and that trip
 // overlaps the arithmetic.  Each thread owns a 4 x 4 micro-tile of the
-// output (rows ty + 16 i, columns tx + 16 j) and up to 8 of the tile's 64 x
-// r bottleneck sums in registers (row tid / 4, ranks tid % 4 + 4 q), so no
-// index inside the K loop divides by the runtime rank.  After the loop the
-// bottleneck goes to shared memory, B's r x 64 tile takes W's place, and
-// each thread adds its rank-r product before the store.  Edges past M, N,
+// output (rows ty + 16 i, columns tx + 16 j) and up to 8 RT of the tile's
+// 64 x r bottleneck sums in registers (row tid / 4, ranks tid % 4 + 4 q),
+// so no index inside the K loop divides by the runtime rank; RT, the rank
+// tiles of 32, is a template parameter as in the bf16 path.  After the
+// loop the bottleneck goes to shared memory, and B's rows take W's place
+// one rank tile of BK = 32 at a time (W's tile holds BK rows): each thread
+// adds the tile's rank product before the next is staged, then stores.
+// Static shared memory stays under 48 KB (41.7 KB at RT 2).  Edges past M, N,
 // K are zero-filled on load and masked on store.  TF32 tensor cores keep
 // ~3 decimal digits and would not hold chip_smoke.py's f32 checks (1e-4
 // on the kernel, 1e-3 on the federation oracle).
 constexpr int BM = 64, BN = 64, BK = 32, kThreads = 256;
-constexpr int kXaPerThread = kMaxRank / 4;              // bottleneck sums a thread owns
 static_assert(BM * 4 == kThreads, "four threads share each row of the bottleneck");
+static_assert(BK == kRankTile, "a rank tile of B fills W's tile");
 constexpr int kXLoads = BM * BK / kThreads;              // per thread per K step
 constexpr int kWLoads = BK * BN / kThreads;
-constexpr int kALoads = BK * kMaxRank / kThreads;
 
 // Element e of a thread's share of each tile sits at (row, col): the order
 // follows the operand's unit stride, so neighbouring threads load
@@ -449,12 +422,13 @@ __device__ __forceinline__ void x_at(int e, int& row, int& col) {
 __device__ __forceinline__ void w_at(int e, const Strides& st, int& row, int& col) {
   if (st.w1 == 1) { row = e / BN; col = e % BN; } else { col = e / BK; row = e % BK; }
 }
-// A's tile is walked as BK x kMaxRank, so no index needs a division by the
+// A's tile is walked as BK x RP, so no index needs a division by the
 // runtime rank; the lanes past r load nothing and store zeros.
+template <int RP>
 __device__ __forceinline__ void a_at(int e, const Strides& st, int& row, int& s) {
   if (st.a1 == 1) {
-    row = e / kMaxRank;
-    s = e % kMaxRank;
+    row = e / RP;
+    s = e % RP;
   } else {
     s = e / BK;
     row = e % BK;
@@ -462,6 +436,7 @@ __device__ __forceinline__ void a_at(int e, const Strides& st, int& row, int& s)
 }
 
 // One K step's loads, all in flight together.
+template <int RT>
 __device__ __forceinline__ void load_step(const float* __restrict__ x,
                                           const float* __restrict__ w,
                                           const float* __restrict__ a, int m0, int n0,
@@ -483,23 +458,27 @@ __device__ __forceinline__ void load_step(const float* __restrict__ x,
     wr[j] = (k < K && n < N) ? w[k * st.w0 + n * st.w1] : 0.f;
   }
 #pragma unroll
-  for (int j = 0; j < kALoads; ++j) {
+  for (int j = 0; j < BK * kRankTile * RT / kThreads; ++j) {
     int row, s;
-    a_at(tid + j * kThreads, st, row, s);
+    a_at<kRankTile * RT>(tid + j * kThreads, st, row, s);
     const int k = k0 + row;
     ar[j] = (s < r && k < K) ? a[k * st.a0 + s * st.a1] : 0.f;
   }
 }
 
+template <int RT>
 __global__ void __launch_bounds__(kThreads)
 lora_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ a, const float* __restrict__ b,
                 float* __restrict__ y, float* __restrict__ xa_out, int M, int K, int N,
                 int r, Strides st) {
+  constexpr int RP = kRankTile * RT;                // columns of A's tile
+  constexpr int kXaPerThread = RP / 4;              // bottleneck sums a thread owns
+  constexpr int kALoads = BK * RP / kThreads;
   __shared__ float sX[BM][BK + 1];
-  __shared__ float sW[BK][BN + 1];                  // after the K loop: B's r x BN tile
-  __shared__ float sA[BK][kMaxRank + 1];
-  __shared__ float sXA[BM][kMaxRank + 1];
+  __shared__ float sW[BK][BN + 1];                  // after the K loop: B's rank tiles
+  __shared__ float sA[BK][RP + 1];
+  __shared__ float sXA[BM][RP + 1];
 
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -515,7 +494,7 @@ lora_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int q = 0; q < kXaPerThread; ++q) xa[q] = 0.f;
 
   float xr[kXLoads], wr[kWLoads], ar[kALoads];
-  load_step(x, w, a, m0, n0, 0, M, K, N, r, st, tid, xr, wr, ar);
+  load_step<RT>(x, w, a, m0, n0, 0, M, K, N, r, st, tid, xr, wr, ar);
   for (int k0 = 0; k0 < K; k0 += BK) {
 #pragma unroll
     for (int j = 0; j < kXLoads; ++j) {
@@ -532,12 +511,12 @@ lora_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < kALoads; ++j) {
       int row, s;
-      a_at(tid + j * kThreads, st, row, s);
+      a_at<RP>(tid + j * kThreads, st, row, s);
       sA[row][s] = ar[j];
     }
     __syncthreads();
     if (k0 + BK < K)                      // the next step's loads overlap this step's math
-      load_step(x, w, a, m0, n0, k0 + BK, M, K, N, r, st, tid, xr, wr, ar);
+      load_step<RT>(x, w, a, m0, n0, k0 + BK, M, K, N, r, st, tid, xr, wr, ar);
 
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
@@ -573,24 +552,31 @@ lora_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
         xa_out[static_cast<size_t>(m0 + xa_row) * r + s] = xa[q];
     }
   }
-  for (int e = tid; e < r * BN; e += kThreads) {
-    int s, col;
-    if (st.b1 == 1) { s = e / BN; col = e % BN; } else { col = e / r; s = e % r; }
-    const int n = n0 + col;
-    sW[s][col] = n < N ? b[s * st.b0 + n * st.b1] : 0.f;
-  }
-  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < RT; ++t) {                    // B's rank tiles, in W's place
+    const int s0 = t * BK;
+    if (s0 >= r) break;
+    const int rt = RT == 1 ? r : min(r - s0, BK);
+    if (t > 0) __syncthreads();                      // the previous tile is read
+    for (int e = tid; e < rt * BN; e += kThreads) {
+      int s, col;
+      if (st.b1 == 1) { s = e / BN; col = e % BN; } else { col = e / rt; s = e % rt; }
+      const int n = n0 + col;
+      sW[s][col] = n < N ? b[(s0 + s) * st.b0 + n * st.b1] : 0.f;
+    }
+    __syncthreads();
 
-  for (int s = 0; s < r; ++s) {
-    float xv[4], bv[4];
+    for (int s = 0; s < rt; ++s) {
+      float xv[4], bv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) xv[i] = sXA[ty + 16 * i][s];
+      for (int i = 0; i < 4; ++i) xv[i] = sXA[ty + 16 * i][s0 + s];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = sW[s][tx + 16 * j];
+      for (int j = 0; j < 4; ++j) bv[j] = sW[s][tx + 16 * j];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += xv[i] * bv[j];
+        for (int j = 0; j < 4; ++j) acc[i][j] += xv[i] * bv[j];
+    }
   }
 
 #pragma unroll
@@ -609,16 +595,21 @@ int launch_f32(const Args& g, const void* x, const void* w, const void* a, const
                void* y, cudaStream_t stream) {
   if ((g.M + BM - 1) / BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
-  lora_fma_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(y),
-      g.xa, g.M, g.K, g.N, g.r, g.st);
+  const float *xf = static_cast<const float*>(x), *wf = static_cast<const float*>(w),
+              *af = static_cast<const float*>(a), *bf = static_cast<const float*>(b);
+  float* yf = static_cast<float*>(y);
+  if (g.r <= kRankTile)
+    lora_fma_kernel<1><<<grid, kThreads, 0, stream>>>(xf, wf, af, bf, yf, g.xa, g.M, g.K,
+                                                      g.N, g.r, g.st);
+  else
+    lora_fma_kernel<2><<<grid, kThreads, 0, stream>>>(xf, wf, af, bf, yf, g.xa, g.M, g.K,
+                                                      g.N, g.r, g.st);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Strides are in elements.  bf16 only: `flags` (kVec* / kRow* bits), the
+// Strides are in elements; ranks 1..64.  bf16 only: `flags` (kVec* / kRow* bits), the
 // tile width bn (64 or 32) and k_split (a multiple of 64; K / k_split
 // rounded up is the number of K ranges, at most 8) come from the wrapper.
 // Returns a cudaError_t: 0 when the launch was accepted.

@@ -1,7 +1,8 @@
-// PTX building blocks of the port's tensor-core kernels (flash_attention's
-// and lora_matmul's bf16 paths): cp.async copies into shared memory,
-// ldmatrix fragment loads, the m16n8k16 bf16 mma, and the XOR swizzle of
-// shared-memory tiles that keeps ldmatrix free of bank conflicts.
+// PTX building blocks of the port's tensor-core kernels (the bf16 paths of
+// flash_attention, lora_matmul and gram): cp.async copies into shared
+// memory, ldmatrix fragment loads, the m16n8k16 bf16 mma, the XOR swizzle
+// of shared-memory tiles that keeps ldmatrix free of bank conflicts, and
+// the loaders that stage a bf16 tile into that swizzled layout.
 #pragma once
 
 #include "common.cuh"
@@ -69,6 +70,53 @@ __device__ __forceinline__ int swz(int r, int c) {
   constexpr int MASK = (CH < 8 ? CH : 8) - 1;
   constexpr int SHIFT = CH >= 8 ? 0 : CH == 4 ? 1 : CH == 2 ? 2 : 3;
   return (r * CH + (c ^ ((r >> SHIFT) & MASK))) * 8;
+}
+
+// Stage ROWS x COLS of a bf16 matrix into a swizzled shared tile, with
+// THREADS threads: tile element (i, j) is element (r0 + i, c0 + j) of an
+// nrows x ncols matrix with row stride s_row and unit column stride, 0 past
+// its edge.  Whole 16-byte chunks by cp.async (the caller checks that every
+// row is 16-byte aligned and ncols % 8 == 0); a fixed number a thread, so
+// the loop unrolls into straight-line code.
+template <int ROWS, int COLS, int THREADS>
+__device__ __forceinline__ void stage_chunks(__nv_bfloat16* __restrict__ dst,
+                                             const __nv_bfloat16* __restrict__ src, int r0,
+                                             int c0, int nrows, int ncols, long long s_row,
+                                             int tid) {
+  constexpr int CH = COLS / 8, PER = ROWS * CH / THREADS;
+  static_assert(PER * THREADS == ROWS * CH, "whole chunks a thread");
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = tid + j * THREADS, rr = i / CH, c = i % CH;
+    const int gr = r0 + rr, gc = c0 + 8 * c;
+    const bool ok = gr < nrows && gc < ncols;
+    cp_async16(dst + swz<COLS>(rr, c), ok ? src + gr * s_row + gc : src, ok);
+  }
+}
+
+// The same tile element by element, with strides (s_row, s_col): for a
+// matrix whose rows are not whole aligned chunks.  Out of line, so the
+// caller's main loop stays small.
+template <int ROWS, int COLS, int THREADS>
+__device__ __noinline__ void stage_elems(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                                         int c0, int nrows, int ncols, long long s_row,
+                                         long long s_col, int tid) {
+  for (int i = tid; i < ROWS * COLS; i += THREADS) {
+    const int rr = i / COLS, cc = i % COLS, gr = r0 + rr, gc = c0 + cc;
+    dst[swz<COLS>(rr, cc / 8) + cc % 8] =
+        gr < nrows && gc < ncols ? src[gr * s_row + gc * s_col] : __float2bfloat16(0.f);
+  }
+}
+
+template <int ROWS, int COLS, int THREADS>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           int r0, int c0, int nrows, int ncols,
+                                           long long s_row, long long s_col, bool vec,
+                                           int tid) {
+  if (vec)
+    stage_chunks<ROWS, COLS, THREADS>(dst, src, r0, c0, nrows, ncols, s_row, tid);
+  else
+    stage_elems<ROWS, COLS, THREADS>(dst, src, r0, c0, nrows, ncols, s_row, s_col, tid);
 }
 
 }  // namespace repro

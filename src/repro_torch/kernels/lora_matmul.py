@@ -3,7 +3,8 @@ port of ``lora_matmul_pallas``), with its gradient.
 
 ``lora_matmul(x, w, a, b)`` computes y = x @ W + (x @ A) @ B for x (M, K),
 W (K, N), A (K, r) and B (r, N) in one dtype (bf16 or f32); both products
-accumulate in float32 and y comes back in x's dtype.  It is a
+accumulate in float32 and y comes back in x's dtype.  The kernel takes
+ranks 1 to 64, the Pallas kernel's range, and raises above.  It is a
 ``torch.autograd.Function`` in which W and A are frozen (the federation
 trains and ships only B):
 
@@ -34,7 +35,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import lora_matmul_ref
 
-MAX_RANK = 32                     # kMaxRank of csrc/lora_matmul.cu
+MAX_RANK = 64                     # kMaxRank of csrc/lora_matmul.cu
 _DTYPES = (torch.bfloat16, torch.float32)
 
 BM, BK = 64, 64                   # kBM, kBK of csrc/lora_matmul.cu
@@ -115,8 +116,9 @@ def _check(x, w, a, b) -> None:
                          f"{tuple(w.shape)}, a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)} do not chain")
     if not 1 <= r <= MAX_RANK:
-        raise ValueError(f"lora_matmul kernel takes rank 1..{MAX_RANK}; "
-                         f"got {r}")
+        raise ValueError(f"lora_matmul kernel takes rank 1..{MAX_RANK}, the "
+                         f"range of the Pallas kernel it ports "
+                         f"(repro/kernels/lora_matmul.py); got {r}")
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (w, a, b)):
         raise TypeError(f"lora_matmul: x, w, a, b must share one dtype of "
                         f"{_DTYPES}; got {x.dtype}, {w.dtype}, {a.dtype}, "

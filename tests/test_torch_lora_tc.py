@@ -13,11 +13,14 @@ arithmetic is checked here, against the JAX oracle and the Pallas kernel
   the rank-r product added in f32 and one rounding at the store.  It must
   lie within the bf16 tolerance chip_smoke.py uses (3e-2 of max(1,
   |value|)) of JAX, and within one bf16 step of the plain version;
-- the same emulation on the dx call's transposed, strided views;
+- the same emulation on the dx call's transposed, strided views, at
+  ranks up to 64 (the kernel's two rank tiles of 32, the Pallas kernel's
+  range);
 - the wrapper's choices: ``tile_plan`` fills the H100's 132 SMs at every
   shape of the federated round, its tiles cover M x N once and its K
   ranges (the blocks of one cluster) cover K once; ``layout_flags`` reads
-  the orientations and the 16-byte loads from strides and addresses.
+  the orientations and the 16-byte loads from strides and addresses; the
+  wrapper's check takes ranks 1..64 and names that range when it raises.
 """
 import numpy as np
 import pytest
@@ -31,8 +34,8 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.lora_matmul import lora_matmul_pallas  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.lora_matmul import (  # noqa: E402
-    BK, BM, MAX_SPLITS, MIN_RANGE_STEPS, ROW_A, ROW_W, TARGET_BLOCKS, TILE_NS,
-    VEC_A, VEC_W, VEC_X, layout_flags, n_blocks, tile_plan)
+    BK, BM, MAX_RANK, MAX_SPLITS, MIN_RANGE_STEPS, ROW_A, ROW_W, TARGET_BLOCKS,
+    TILE_NS, VEC_A, VEC_W, VEC_X, _check, layout_flags, n_blocks, tile_plan)
 
 TOL = 3e-2                                        # bf16, of max(1, |value|)
 ALL_VEC = VEC_X | VEC_W | VEC_A
@@ -96,11 +99,14 @@ def _one_step(got, want):
 
 SHAPES = [(64, 96, 80, 8),          # aligned
           (37, 100, 50, 3),         # ragged edges, rows off 16 bytes, r < 8
-          (48, 200, 72, 32)]        # the largest rank
+          (48, 200, 72, 32)]        # the largest rank of one rank tile
+# two rank tiles: r 33 (A's rows off 16 bytes, 5 n8 tiles of the
+# bottleneck) and 64, the top of the range
+HIGH_RANKS = [(40, 136, 48, 33), (32, 128, 64, 64)]
 
 
 @pytest.mark.parametrize("ranges", ["tile_plan", "one range"])
-@pytest.mark.parametrize("mknr", SHAPES)
+@pytest.mark.parametrize("mknr", SHAPES + HIGH_RANKS)
 def test_emulation_matches_jax(mknr, ranges):
     m, k, n, r = mknr
     k_split = tile_plan(m, k, n)[1] if ranges == "tile_plan" else k
@@ -115,7 +121,7 @@ def test_emulation_matches_jax(mknr, ranges):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("mknr", SHAPES[:2])
+@pytest.mark.parametrize("mknr", SHAPES[:2] + HIGH_RANKS)
 def test_emulation_on_the_dx_views_matches_jax(mknr):
     """dx = dy @ W^T + (dy @ B^T) @ A^T is the kernel on (dy, W^T, B^T,
     A^T), strided views with the loop axis contiguous: against the
@@ -216,3 +222,15 @@ def test_layout_flags_for_an_operand_with_no_contiguous_axis():
     assert w.stride() == (256, 2)
     flags = layout_flags(x, w, a)
     assert flags & ROW_W and not flags & VEC_W
+
+
+@pytest.mark.parametrize("r", [1, 8, 32, 33, 64])
+def test_check_takes_ranks_up_to_64(r):
+    _check(*_inputs(16, 64, 32, r))
+
+
+@pytest.mark.parametrize("r", [65, 128])
+def test_check_refuses_ranks_past_64_naming_the_range(r):
+    assert MAX_RANK == 64
+    with pytest.raises(ValueError, match=r"rank 1\.\.64.*Pallas"):
+        _check(*_inputs(16, 64, 32, r))
