@@ -65,11 +65,30 @@ non-zero and prints no result):
 7. federation oracle: one local step from the state the rounds left,
    on the card in bf16 and f32 and through the plain versions on the
    CPU in f32: losses, pooled activations and every gradient must
-   agree.
+   agree;
+8. engine: the node-stacked ``Federation`` on the same model and
+   configuration.  Before it, the node axis of ``lora_matmul`` (x (K,
+   512, 768), W and A shared, B per node; K 1, 4 and 16, N 768 and 256,
+   r 8 and 64, bf16 and f32; output, dx and dB) is held against its
+   plain version and timed beside K launches of the single-node kernel
+   and ``torch.baddbmm`` (``per_node_ms``, ``composition_ms``).  The
+   round graph and the 2-round block graph are captured (one eager
+   warm-up each, outside the counted window), then 2 single rounds and
+   one block of 2 rounds are replayed: each must launch exactly what the
+   design gives (per round, with the trunk over all nodes' rows: 10
+   steps x 2 passes x 48 linears x 2 = 1,920 lora_matmul, 240 flash and
+   11 gram), with one replay and one readback, finite records and
+   weights summing to 1.  One replayed round under ``torch.profiler``
+   reports its device busy share and launches;
+9. engine oracle: from one seed, one round through ``Federation``
+   (replayed) and one through ``SequentialFederation`` on the card, in
+   bf16 and f32, records and trainables within ``ENGINE_TOL``; then one
+   eager round of the engine against its replay from the same state.
 
 Launch counters are set to 0 just before each path (serve, ssm serve,
-federation) and read just after; the kernel checks' own launches never
-count.  It prints the card's name and power limit, one JSON line with every
+federation, engine) and read just after; the kernel checks' own
+launches never count.  A graph replay adds the launches its capture
+recorded.  It prints the card's name and power limit, one JSON line with every
 kernel's numbers (the top-level times are its first timed shape's;
 ``timings`` lists every timed shape with its path), and last
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback: without
@@ -79,6 +98,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -94,7 +114,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.federation import (FederationConfig,  # noqa: E402
+from repro_torch.core.federation import (Federation,  # noqa: E402
+                                         FederationConfig,
                                          SequentialFederation)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -104,7 +125,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gram import (  # noqa: E402
     cosine_gram, gram_plan, n_blocks as gram_blocks)
 from repro_torch.kernels.lora_matmul import (  # noqa: E402
-    lora_matmul, n_blocks as lora_blocks, tile_plan)
+    _apply as lora_apply, lora_matmul, n_blocks as lora_blocks, tile_plan)
 from repro_torch.kernels.selective_scan import selective_scan  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import (ServeConfig, ServeEngine,  # noqa: E402
@@ -699,6 +720,85 @@ def lora_phase() -> dict:
 
 
 # ----------------------------------------------------------------------
+# kernel phase: lora_matmul's node axis (the node-stacked round's calls)
+def lora_node_inputs(nodes, m, k, n, r, dtype, seed=0):
+    """x (K, M, k), shared W and A, B (K, r, n) per node, as the stacked
+    round has them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((nodes, m, k), generator=g, device="cuda")
+    w = torch.randn((k, n), generator=g, device="cuda") * k ** -0.5
+    a = torch.randn((k, r), generator=g, device="cuda") * r ** -0.5
+    b = torch.randn((nodes, r, n), generator=g, device="cuda") * 0.02
+    return tuple(t.to(dtype) for t in (x, w, a, b))
+
+
+def lora_nodes_phase() -> list:
+    """The node axis against the plain version at K 1, 4 and 16 (M 512,
+    K 768, N 768 and 256, r 8 and 64, bf16 and f32; output, dx and dB),
+    then timed at the stacked round's shapes beside K launches of the
+    single-node kernel and a ``torch.baddbmm`` composition."""
+    log("kernel phase: lora_matmul's node axis (x (K, 512, 768), W and A "
+        "shared, B per node; forward and dx: one launch for all nodes)")
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for nodes in (1, 4, 16):
+            for n in (768, 256):
+                for r in (8, 64):
+                    args = lora_node_inputs(nodes, 512, 768, n, r, dtype,
+                                            seed=nodes * 1000 + n + r)
+                    err = check_vjp(
+                        f"lora_matmul K {nodes} (512, 768, {n}, r {r}) "
+                        f"{dtype}", lora_matmul, ref.lora_matmul_ref, args,
+                        (0, 3), TOL[dtype])
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+    log(f"  node axis: worst forward error {worst} (of max(1, |value|))")
+
+    def per_node(x, w, a, b):                 # K launches of today's kernel
+        return [lora_matmul(x[k], w, a, b[k]) for k in range(x.shape[0])]
+
+    def composition(x, w, a, b):
+        return torch.baddbmm(x @ w, x @ a, b)
+
+    def dx_kernel(dy, w, a, b):               # what backward launches
+        return lora_apply(dy, w.t(), b.transpose(-1, -2), a.t(), False)[0]
+
+    out = []
+    for nodes in (4, 16):
+        for n in (768, 256):
+            args = lora_node_inputs(nodes, 512, 768, n, 8, torch.bfloat16,
+                                    seed=nodes + n)
+            sets = copies(args)
+            ms = time_ms(lambda *t: lora_matmul(*t), sets)
+            per_node_ms = time_ms(per_node, sets)
+            plain_ms = time_ms(lambda *t: ref.lora_matmul_ref(*t), sets)
+            composition_ms = time_ms(composition, sets)
+            dy_sets = [(torch.randn((nodes, 512, n), device="cuda").to(
+                torch.bfloat16), *t[1:]) for t in sets]
+            dx_ms = time_ms(dx_kernel, dy_sets)
+            x, w, a, b = args
+            ops = nodes * (2 * 512 * 768 * n + 2 * 512 * 768 * 8
+                           + 2 * 512 * 8 * n)
+            moved = nbytes(x, w, a, b) + nodes * 512 * n * x.element_size()
+            b_ms, b_by = bound_ms(moved, ops, torch.bfloat16)
+            plan = (tile_plan(512, 768, n, nodes),
+                    lora_blocks(512, 768, n, nodes))
+            log(f"  lora_matmul node-axis timing (bf16, K {nodes}, M 512, "
+                f"K 768, N {n}, r 8): kernel {ms:.4f} ms, dx kernel "
+                f"{dx_ms:.4f} ms, {nodes} launches of the single-node kernel "
+                f"{per_node_ms:.4f} ms, plain {plain_ms:.4f} ms, baddbmm(x @ "
+                f"W, x @ A, B) {composition_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}; {moved} bytes, {ops} flops); (bn, k_split), "
+                f"blocks {plan}")
+            out.append(dict(path=f"engine (node axis, K {nodes})",
+                            shape=f"K {nodes}, M 512, K 768, N {n}, r 8",
+                            ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None,
+                            composition_ms=composition_ms,
+                            per_node_ms=per_node_ms, dx_ms=dx_ms))
+    return out
+
+
+# ----------------------------------------------------------------------
 # kernel phase: selective scan
 MAMBA_C = 8192 * 16                    # falcon-mamba-7b: d_inner x state
 
@@ -1132,6 +1232,239 @@ def federation_oracle_phase(fed) -> dict:
 
 
 # ----------------------------------------------------------------------
+# engine phases: the node-stacked round (Federation), replayed
+def engine_launches(fed, rounds: int = 1) -> dict:
+    """Launches of ``rounds`` stacked rounds by the design: per local step
+    the task and anchor passes each run the trunk once over all K nodes'
+    rows -- every GeoLoRA linear one forward and one dx launch, every layer
+    one flash launch -- and the loss one gram launch over (K, Ba, D); the
+    server one more gram launch."""
+    cfg, fcfg = fed.cfg, fed.fed
+    attn = fed.frozen["blocks"]["attn"]
+    n_lin = cfg.n_layers * sum(1 for lin in attn.values()
+                               if lin.get("lora_A") is not None)
+    steps, passes = fcfg.local_steps, 2 + fed._has_bridges
+    return {"decode_attention": 0,
+            "lora_matmul": rounds * steps * passes * n_lin * 2,
+            "flash_attention": rounds * steps * passes * cfg.n_layers,
+            "gram": rounds * (steps + 1), "selective_scan": 0}
+
+
+def check_record(what: str, rec: dict) -> None:
+    values = [rec[k] for k in ("task_loss", "geo_loss", "acc",
+                               "cross_node_cka")] + rec["weights"]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{what}: non-finite record {rec}")
+    if not abs(sum(rec["weights"]) - 1.0) <= 1e-5:
+        raise AssertionError(f"{what}: weights sum to {sum(rec['weights'])}")
+
+
+def engine_phase(rounds: int = 2, block: int = 2):
+    """``Federation`` (the node-stacked round) on fedmm-small at full width
+    and depth, geodora, precision aggregation, 4 nodes x 10 local steps:
+    the round and the M-round block captured once each, then ``rounds``
+    single rounds and one block replayed, each with exact launch counts,
+    finite records, weights summing to 1 and one readback."""
+    cfg = get_config("fedmm-small")
+    fcfg = FederationConfig(method="geodora", aggregation="precision",
+                            rounds=rounds)
+    t0 = time.perf_counter()
+    fed = Federation(fcfg, cfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"engine phase: Federation on fedmm-small ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.dtype}), geodora, precision, "
+        f"{fcfg.n_nodes} nodes x {fcfg.local_steps} local steps, batch "
+        f"{fcfg.local_batch} x {fcfg.n_tokens}, rank {fcfg.lora_rank}; "
+        f"buckets {[len(b) for b in fed._buckets]} of widths "
+        f"{fed._bucket_widths}; set-up {time.perf_counter() - t0:.3f} s")
+    want = engine_launches(fed)
+    for m in (1, block):
+        t0 = time.perf_counter()
+        fed.capture(m)
+        torch.cuda.synchronize()
+        recorded = fed.engine.captured_launches(m)
+        got = {name: recorded[fn.__name__] for name, fn in WRAPPERS.items()}
+        log(f"  captured the {m}-round graph in "
+            f"{time.perf_counter() - t0:.3f} s (one eager warm-up, then the "
+            f"capture); one replay launches {got}")
+        if got != {k: m * v for k, v in want.items()}:
+            raise AssertionError(f"{m}-round graph records {got}, want "
+                                 f"{m} x {want}")
+    total = dict.fromkeys(want, 0)
+    walls = []
+    stats = fed.engine.stats
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        reset_counts()
+        reads, replays = stats["readbacks"], stats["replays"]
+        t0 = time.perf_counter()
+        rec = fed.run_round()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = read_counts()
+        log(f"  round {r} (replayed): wall {walls[-1]:.3f} s, task "
+            f"{rec['task_loss']:.4f}, geo {rec['geo_loss']:.4f}, acc "
+            f"{rec['acc']:.3f}, cross-node CKA {rec['cross_node_cka']:.4f}, "
+            f"weights {[round(w, 4) for w in rec['weights']]}; launches "
+            f"{got}")
+        if got != want:
+            raise AssertionError(f"engine round {r}: launches {got}, want "
+                                 f"{want}")
+        if (stats["readbacks"] - reads, stats["replays"] - replays) != (1, 1):
+            raise AssertionError(f"engine round {r}: {stats} (one replay "
+                                 f"and one readback expected)")
+        check_record(f"engine round {r}", rec)
+        for k in total:
+            total[k] += got[k]
+    torch.cuda.synchronize()
+    reset_counts()
+    reads, replays = stats["readbacks"], stats["replays"]
+    t0 = time.perf_counter()
+    recs = fed.run_rounds(block, block_size=block)
+    torch.cuda.synchronize()
+    block_wall = time.perf_counter() - t0
+    got = read_counts()
+    want_block = {k: block * v for k, v in want.items()}
+    log(f"  block of {block} rounds (one replay): wall {block_wall:.3f} s, "
+        f"task {[round(x['task_loss'], 4) for x in recs]}, launches {got}")
+    if got != want_block:
+        raise AssertionError(f"engine block: launches {got}, want "
+                             f"{want_block}")
+    if (stats["readbacks"] - reads, stats["replays"] - replays) != (1, 1):
+        raise AssertionError(f"engine block: {stats} (one replay and one "
+                             f"readback expected)")
+    for i, x in enumerate(recs):
+        check_record(f"engine block round {i}", x)
+    leaves = [t for n in fed.nodes for t in tree_leaves(n["trainable"])]
+    if not all(bool(torch.isfinite(t).all()) for t in leaves + [fed.gbar]):
+        raise AssertionError("engine: non-finite trainables or consensus "
+                             "Gram")
+    log(f"  engine launches per round as required: {want}")
+    return fed, dict(launches=total, block_launches=got, walls=walls,
+                     block_wall=block_wall)
+
+
+def engine_trace_phase(fed) -> None:
+    """One replayed round under ``torch.profiler``: wall, device busy share
+    and launches (the sequential local step's are in the federation
+    trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fed.run_round()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    device_summary(prof, wall_us, "engine trace (one replayed round of 4 "
+                   "nodes x 10 local steps: staged draws, the replay, one "
+                   "readback)")
+
+
+def _state_errors(a_nodes, b_nodes) -> dict:
+    """Per-leaf errors of the nodes' trainables: max |a - b| over max |b|,
+    and ||a - b|| / ||b||, the worst leaf of each."""
+    worst_max, worst_norm = 0.0, 0.0
+    for na, nb in zip(a_nodes, b_nodes):
+        for x, y in zip(tree_leaves(na["trainable"]),
+                        tree_leaves(nb["trainable"])):
+            x, y = x.float(), y.float()
+            d = (x - y)
+            worst_max = max(worst_max, d.abs().max().item()
+                            / max(y.abs().max().item(), 1e-30))
+            worst_norm = max(worst_norm, d.norm().item()
+                             / max(y.norm().item(), 1e-30))
+    return {"trainables (max)": worst_max, "trainables (norm)": worst_norm}
+
+
+def _record_errors(a: dict, b: dict) -> dict:
+    out = {k: abs(a[k] - b[k]) for k in ("task_loss", "geo_loss", "acc",
+                                         "cross_node_cka")}
+    out["weights"] = max(abs(x - y) for x, y in zip(a["weights"],
+                                                    b["weights"]))
+    return out
+
+
+#: engine oracle limits: (records, trainables (norm)) by dtype.  f32 sums in
+#: other orders only (~1e-6).  In bf16 the stacked trunk's activations round
+#: at other points than the sequential round's (another tile plan, another
+#: split of the K loop), and AdamW's first steps, u = g / (|g| + eps),
+#: turn a gradient near 0 into +-1 of either sign: the records hold to a
+#: bf16 tolerance, the trainables to a norm-wise one
+ENGINE_TOL = {torch.bfloat16: (5e-2, 2.5e-1), torch.float32: (1e-3, 1e-3)}
+
+
+def engine_oracle_phase() -> dict:
+    """From one seed, one round through ``Federation`` (replayed) and one
+    through ``SequentialFederation`` on the card, in bf16 and in f32:
+    records and trainables within ``ENGINE_TOL``.  Then, in bf16, one
+    eager round of the engine against its replay from the same state and
+    the same draws."""
+    base = get_config("fedmm-small")
+    fcfg = FederationConfig(method="geodora", aggregation="precision")
+    errs = {}
+    for dtype, cfg in ((torch.bfloat16, base),
+                       (torch.float32, base.with_(dtype="float32"))):
+        tol_rec, tol_state = ENGINE_TOL[dtype]
+        t0 = time.perf_counter()
+        seq = SequentialFederation(fcfg, cfg, device="cuda")
+        want = seq.run_round()
+        eng = Federation(fcfg, cfg, device="cuda")
+        got = eng.run_round()
+        torch.cuda.synchronize()
+        err = dict(_record_errors(got, want), **_state_errors(eng.nodes,
+                                                               seq.nodes))
+        log(f"engine oracle ({dtype}, one round from seed {fcfg.seed}, "
+            f"{time.perf_counter() - t0:.1f} s): Federation (replayed) vs "
+            f"SequentialFederation: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in err.items())
+            + f" (tol: records {tol_rec}, trainables (norm) {tol_state})")
+        bad = {k: v for k, v in err.items() if k != "trainables (max)"
+               and not v <= (tol_state if k.startswith("trainables")
+                             else tol_rec)}
+        if bad:
+            raise AssertionError(f"engine oracle {dtype}: {bad}")
+        errs[str(dtype)] = err
+        del seq
+        gc.collect()
+        if dtype != torch.bfloat16:
+            continue
+        # eager against replay, from the state the round left
+        gens = [n["gen"] for n in eng._nodes]
+        g_saved = [g.get_state() for g in gens]
+        state = eng._state()
+        saved = [t.clone() for t in tree_leaves(state)]
+        batches = eng._stage(1)
+        _, eager = eng.engine.run_block(state, 1, statics=eng._statics,
+                                        batches=batches, eager=True)
+        eager_state = [t.clone() for t in tree_leaves(state)]
+        for t, v in zip(tree_leaves(state), saved):
+            t.copy_(v)
+        for g, st in zip(gens, g_saved):
+            g.set_state(st)
+        _, replay = eng.engine.run_block(state, 1, statics=eng._statics,
+                                         batches=eng._stage(1))
+        rec_err = max(max(abs(x - y) for x, y in zip(
+            (eager[0][k] if isinstance(eager[0][k], list) else [eager[0][k]]),
+            (replay[0][k] if isinstance(replay[0][k], list)
+             else [replay[0][k]]))) for k in eager[0])
+        state_err = max((a.float() - b.float()).abs().max().item()
+                        / max(b.float().abs().max().item(), 1e-30)
+                        for a, b in zip(tree_leaves(state), eager_state))
+        log(f"engine oracle (bf16): eager round vs its replay from the same "
+            f"state and draws: records max |diff| {rec_err:.3g}, state max "
+            f"|diff| of max |value| {state_err:.3g} (tol {tol_rec}, "
+            f"{tol_state})")
+        if not (rec_err <= tol_rec and state_err <= tol_state):
+            raise AssertionError(f"engine eager vs replay: {rec_err}, "
+                                 f"{state_err}")
+        errs["eager vs replay"] = dict(records=rec_err, state=state_err)
+        del eng
+        gc.collect()                  # the engine and its graphs
+    return errs
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's smoke run "
@@ -1156,6 +1489,7 @@ def main() -> int:
             "gram": gram_phase(),
             "lora_matmul": lora_phase(),
             "selective_scan": scan_phase()}
+    rows["lora_matmul"]["timings"] += lora_nodes_phase()
 
     cfg = get_config("fedmm-base")
     params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
@@ -1173,6 +1507,12 @@ def main() -> int:
     del fed
     _, rank64 = federation_phase(rounds=1, lora_rank=64, n_layers=2)
 
+    efed, engine = engine_phase()
+    engine_trace_phase(efed)
+    del efed
+    gc.collect()                      # the engine and its graphs
+    engine_oracle_phase()
+
     sources = {"decode_attention": "src/repro/kernels/decode_attention.py:77",
                "flash_attention": "src/repro/kernels/flash_attention.py:69",
                "gram": "src/repro/kernels/gram.py:31",
@@ -1182,7 +1522,10 @@ def main() -> int:
                    "ssm serve": ssm_served["launches"][k],
                    "federation": rounds["launches"][k],
                    "federation at rank 64 (2 layers)":
-                       rank64["launches"][k]} for k in rows}
+                       rank64["launches"][k],
+                   "engine (2 replayed rounds)": engine["launches"][k],
+                   "engine (one replayed block of 2 rounds)":
+                       engine["block_launches"][k]} for k in rows}
     # the top-level times are the first timed shape's; ``timings`` holds
     # every timed shape with its path
     kernels = [dict(name=k, route="cuda",
@@ -1200,6 +1543,8 @@ def main() -> int:
             f"{run['wall_s']} s, peak memory {run['peak_gib']} GiB")
     log(f"federation: round wall {rounds['walls']} s; at rank 64 (2 "
         f"layers) {rank64['walls']} s")
+    log(f"engine: replayed round wall {engine['walls']} s; block of 2 "
+        f"rounds {engine['block_wall']} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """numpy <-> torch parameter trees, for weights carried across from the
-JAX package, and the loader that carries a reference federation's state
-into the port's (``load_federation_state``).
+JAX package, and the loaders that carry a reference federation's state
+into the port's (``load_federation_state`` for the sequential round,
+``load_engine_state`` for the node-stacked one).
 
 Trees are nested dicts / lists / tuples with array leaves; ``None``
 leaves (how ``core/lora.py`` partitions frozen from trainable leaves)
@@ -70,17 +71,49 @@ def load_federation_state(fed, state: dict) -> None:
     - ``gbar``: the consensus Gram.
 
     bf16 leaves arrive bit for bit (``params_from_numpy``)."""
+    if len(state["nodes"]) != len(fed.nodes):
+        raise ValueError(f"{len(state['nodes'])} reference nodes, "
+                         f"{len(fed.nodes)} in the port")
+    _load_substrate(fed, state)
+    for node, ref in zip(fed.nodes, state["nodes"]):
+        node["trainable"] = params_from_numpy(ref["trainable"], fed.device)
+        node["opt_state"] = params_from_numpy(ref["opt_state"], fed.device)
+
+
+def load_engine_state(fed, state: dict) -> None:
+    """Overwrite the state of the port's node-stacked ``Federation`` with a
+    reference ``Federation``'s, given as numpy.  Both must be built from the
+    same ``FederationConfig`` values, model config and ``width_bucketing``,
+    so the bucket layouts agree.  ``state`` holds what
+    ``load_federation_state`` reads, without ``nodes``, plus the bucketed
+    state: ``trains`` and ``opts`` (tuples per bucket of node-stacked trees,
+    the reference's ``_trains`` / ``_opts``) and ``server_m`` (its
+    ``_server_m``, None when server momentum is off).  The reference's RNG
+    keys have no counterpart: a parity test feeds the port its draws.  The
+    port's per-bucket statics and node views are rebuilt from the new
+    substrate and state."""
+    _load_substrate(fed, state)
+    trains = tuple(params_from_numpy(tr, fed.device)
+                   for tr in state["trains"])
+    if len(trains) != len(fed._trains):
+        raise ValueError(f"{len(trains)} reference buckets, "
+                         f"{len(fed._trains)} in the port")
+    fed._trains = trains
+    fed._opts = tuple(params_from_numpy(op, fed.device)
+                      for op in state["opts"])
+    fed._server_m = params_from_numpy(state["server_m"], fed.device)
+    fed._refresh_statics()
+    fed._views_stale = True
+
+
+def _load_substrate(fed, state: dict) -> None:
+    """Frozen trees, tokenizers, anchors, the task's draws and the
+    consensus Gram."""
     def t(tree):
         return params_from_numpy(tree, fed.device)
 
     fed.frozen = t(state["frozen"])
     fed.frozen_bridge = t(state["frozen_bridge"])
-    if len(state["nodes"]) != len(fed.nodes):
-        raise ValueError(f"{len(state['nodes'])} reference nodes, "
-                         f"{len(fed.nodes)} in the port")
-    for node, ref in zip(fed.nodes, state["nodes"]):
-        node["trainable"] = t(ref["trainable"])
-        node["opt_state"] = t(ref["opt_state"])
     for m, (w1, b1, w2) in state["tokenizers"].items():
         tok = fed.tokenizers[m]
         tok.w1, tok.b1, tok.w2 = t(w1), t(b1), t(w2)
@@ -92,4 +125,5 @@ def load_federation_state(fed, state: dict) -> None:
     fed.gbar = t(state["gbar"])
 
 
-__all__ = ["params_from_numpy", "params_to_numpy", "load_federation_state"]
+__all__ = ["params_from_numpy", "params_to_numpy", "load_federation_state",
+           "load_engine_state"]

@@ -1,5 +1,7 @@
-"""Server-side aggregation (paper Eqs. 4-5): the port of the per-node
-functions of ``repro.core.aggregation``.
+"""Server-side aggregation (paper Eqs. 4-5): the port of
+``repro.core.aggregation`` without the participation forms -- the
+per-node functions of the sequential round and the node-stacked ones of
+the round engine (``weighted_average_stacked`` and its bucketed halves).
 
 ``lora_A`` is frozen and the same on every node, so averaging the
 ``lora_B`` factors averages the low-rank updates exactly; with GeoDoRA the
@@ -43,10 +45,64 @@ def aggregate_geolora(node_trainables: Sequence,
     return weighted_mean_trees(node_trainables, weights)
 
 
+def weighted_average_stacked(stacked, weights: torch.Tensor, shipped_mask):
+    """The server step on one node-stacked tree: shipped leaves are
+    weight-averaged along the leading node axis and broadcast back to every
+    node; node-local leaves (the adapters) pass through.  The single-bucket
+    case of ``weighted_average_bucketed``."""
+    return weighted_average_bucketed((stacked,), weights, (shipped_mask,),
+                                     (int(weights.shape[0]),))[0]
+
+
+def bucketed_partial_sums(bucket_trees, weights: torch.Tensor, shipped_masks,
+                          bucket_sizes):
+    """The weighted sum over every node of each shipped leaf, in float32
+    (None at non-shipped leaves): a partial sum per width bucket, then the
+    buckets added.  ``weights`` (K,) is in bucket-concatenated row order;
+    shipped leaves have the same shape in every bucket."""
+    total, off = None, 0
+    for tree, mask, kb in zip(bucket_trees, shipped_masks, bucket_sizes):
+        w = weights[off:off + kb].float()
+        off += kb
+        part = tree_map(lambda leaf, m, w=w: None if leaf is None or not m
+                        else torch.tensordot(w, leaf.float(), dims=1),
+                        tree, mask)
+        total = part if total is None else tree_map(
+            lambda a, b: None if a is None else a + b, total, part)
+    return total
+
+
+def broadcast_into_buckets(bucket_trees, shipped_masks, total):
+    """``total`` written onto every node row of every bucket (cast to each
+    leaf's dtype); non-shipped leaves pass through."""
+    def bcast(leaf, m, a):
+        if leaf is None or not m:
+            return leaf
+        return a.to(leaf.dtype)[None].expand(leaf.shape).contiguous()
+    return tuple(tree_map(bcast, tree, mask, total)
+                 for tree, mask in zip(bucket_trees, shipped_masks))
+
+
+def weighted_average_bucketed(bucket_trees, weights: torch.Tensor,
+                              shipped_masks, bucket_sizes):
+    """The server step across width buckets: ``bucket_trees[b]`` stacks
+    bucket b's nodes on a leading axis and ``weights`` (K,) is in
+    bucket-concatenated row order.  Shipped leaves are averaged over all
+    buckets and broadcast back into each; node-local leaves, whose widths
+    differ by bucket, pass through."""
+    return broadcast_into_buckets(
+        bucket_trees, shipped_masks,
+        bucketed_partial_sums(bucket_trees, weights, shipped_masks,
+                              bucket_sizes))
+
+
 def comm_bytes_per_round(trainable_tree, gram_side: int = 0) -> int:
     """Uplink bytes of one node per round: its shipped side-cars and its
     B x B f32 Gram."""
     return param_bytes(trainable_tree) + gram_side * gram_side * 4
 
 
-__all__ = ["weighted_mean_trees", "aggregate_geolora", "comm_bytes_per_round"]
+__all__ = ["weighted_mean_trees", "aggregate_geolora",
+           "weighted_average_stacked", "bucketed_partial_sums",
+           "broadcast_into_buckets", "weighted_average_bucketed",
+           "comm_bytes_per_round"]

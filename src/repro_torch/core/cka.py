@@ -24,13 +24,15 @@ def _center(g: torch.Tensor) -> torch.Tensor:
 
 def cka(gx: torch.Tensor, gy: torch.Tensor, *, center: bool = False,
         eps: float = 1e-12) -> torch.Tensor:
-    """Eq. 2: CKA(X, Y) = tr(X Y^T) / (||X||_F ||Y||_F)."""
+    """Eq. 2: CKA(X, Y) = tr(X Y^T) / (||X||_F ||Y||_F), over the last two
+    axes (a stack of K Grams gives K values)."""
     gx, gy = gx.float(), gy.float()
     if center:
         gx, gy = _center(gx), _center(gy)
-    num = (gx * gy).sum()
-    den = torch.sqrt((gx * gx).sum().clamp_min(eps)) * \
-        torch.sqrt((gy * gy).sum().clamp_min(eps))
+    dims = (-2, -1)
+    num = (gx * gy).sum(dims)
+    den = torch.sqrt((gx * gx).sum(dims).clamp_min(eps)) * \
+        torch.sqrt((gy * gy).sum(dims).clamp_min(eps))
     return num / den.clamp_min(eps)
 
 
@@ -38,7 +40,7 @@ def geo_alignment_loss(pooled_anchors: torch.Tensor,
                        consensus_gram: torch.Tensor, *,
                        center: bool = False) -> torch.Tensor:
     """Eq. 3's regulariser 1 - CKA(G_k, G_bar); the consensus is a
-    constant (detached)."""
+    constant (detached).  Anchors (K, B, D) of K nodes give K losses."""
     return 1.0 - cka(cosine_gram(pooled_anchors), consensus_gram.detach(),
                      center=center)
 

@@ -23,9 +23,12 @@ state across (``bridge.load_federation_state``) and replaces ``_draw``,
 the per-step batch draw, with the reference's draws.  A round reads the
 device once, for its record.
 
-Not ported yet: the node-stacked ``Federation`` / ``RoundEngine``,
-participation plans and ``run_rounds``, async rounds, ``save`` /
-``restore``.
+``Federation`` is the node-stacked twin on ``core.engine.RoundEngine``: the
+same protocol with the K nodes stacked per width bucket, a round (and a
+block of M rounds) one CUDA-graph replay on the card.
+
+Not ported yet: participation plans and async rounds, in-block and
+engine checkpoints (``save`` / ``restore``), ``mesh=``.
 """
 from __future__ import annotations
 
@@ -39,12 +42,14 @@ from repro_torch.configs import ModelConfig, get_config
 from repro_torch.configs.fedmm_base import MODALITY_TOKENIZER_DIMS
 from repro_torch.core import aggregation as agg
 from repro_torch.core import cka as cka_mod
+from repro_torch.core import engine as engine_mod
 from repro_torch.core import lora as lora_mod
 from repro_torch.core import uncertainty as unc
 from repro_torch.data.synthetic import SyntheticMultimodal, stream
 from repro_torch.data.tokenizers import default_tokenizers
 from repro_torch.models import transformer as T
-from repro_torch.models.common import cross_entropy_loss, linear, make_linear
+from repro_torch.models.common import (cross_entropy_loss, dora_w_terms,
+                                       linear, make_linear)
 from repro_torch.optim.adamw import AdamW
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -80,6 +85,9 @@ class FederationConfig:
     center_cka: bool = False
     # round index tensor -> LR multiplier (the optimizer's "round" counter)
     round_lr_schedule: Optional[Callable] = None
+    # FedAvgM on the server's side-car average (``Federation`` only; the
+    # sequential round ignores it, as in the reference): None is off
+    server_momentum: Optional[float] = None
 
 
 def _detach_named(tree, names=("dora_m",)):
@@ -91,6 +99,15 @@ def _detach_named(tree, names=("dora_m",)):
             return node
         return node.detach()
     return walk(tree, "")
+
+
+def _per_node_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``cross_entropy_loss`` over the last batch axis: logits (..., B, C),
+    labels (..., B) or (B,) -> (...,); (B, C) gives the scalar."""
+    logits32 = logits.float()
+    idx = labels.long().expand(logits.shape[:-1])[..., None]
+    gold = logits32.gather(-1, idx)[..., 0]
+    return (torch.logsumexp(logits32, dim=-1) - gold).mean(dim=-1)
 
 
 def _shipped(trainable: dict) -> dict:
@@ -217,13 +234,14 @@ class SequentialFederation:
     @staticmethod
     def _contrastive(z1: torch.Tensor, z2: torch.Tensor,
                      tau: float = 0.2) -> torch.Tensor:
-        """Intra-node InfoNCE on locally PAIRED samples (bridge clients)."""
+        """Intra-node InfoNCE on locally PAIRED samples (bridge clients):
+        (B, D) pairs -> a scalar, or stacks (K, B, D) -> (K,)."""
         z1 = z1 / torch.linalg.norm(z1, dim=-1, keepdim=True).clamp_min(1e-8)
         z2 = z2 / torch.linalg.norm(z2, dim=-1, keepdim=True).clamp_min(1e-8)
-        sim = (z1 @ z2.T) / tau
-        labels = torch.arange(z1.shape[0], device=z1.device)
-        return 0.5 * (cross_entropy_loss(sim, labels)
-                      + cross_entropy_loss(sim.T, labels))
+        sim = (z1 @ z2.transpose(-1, -2)) / tau
+        labels = torch.arange(z1.shape[-2], device=z1.device)
+        return 0.5 * (_per_node_ce(sim, labels)
+                      + _per_node_ce(sim.transpose(-1, -2), labels))
 
     def _grads(self, trainable, frozen, tokens, labels, anchor_tokens, gbar,
                tokens2=None):
@@ -354,4 +372,378 @@ class SequentialFederation:
         return self.history
 
 
-__all__ = ["FederationConfig", "SequentialFederation"]
+# ======================================================================
+def _merge(train, frozen):
+    """``lora.combine`` that keeps keys only ``frozen`` has (the engine's
+    precomputed GeoDoRA terms): the union of both trees, the trainable leaf
+    where it is not None."""
+    if isinstance(train, dict) or isinstance(frozen, dict):
+        train, frozen = train or {}, frozen or {}
+        return {k: _merge(train.get(k), frozen.get(k))
+                for k in {**frozen, **train}}
+    return frozen if train is None else train
+
+
+def _cat_nodes(trees: list):
+    """Per-bucket node stacks of one structure -> one stack of all nodes."""
+    if len(trees) == 1:
+        return trees[0]
+    return tree_map(lambda *xs: None if xs[0] is None else torch.cat(xs),
+                    *trees)
+
+
+LOCAL_KEYS = ("adapter", "adapter2")
+
+
+class Federation(SequentialFederation):
+    """The width-bucketed node-stacked federation (the port of
+    ``repro.core.federation.Federation``): nodes whose adapters share a
+    width (tokenizer width, or a bridge node's wider one) form a bucket;
+    each bucket's trainables and AdamW states are stacked on a node axis,
+    adapters zero-padded to the bucket width (``width_bucketing=False``:
+    one bucket of all nodes at the widest width).  A local step runs the
+    tokenizer and the adapter per bucket and the transformer once over the
+    rows of all K nodes, whose side-cars ride a node axis; the round (and
+    ``run_rounds(n, block_size=M)``'s blocks) go through
+    ``engine.RoundEngine``, one CUDA-graph replay each on the card.  The
+    GeoDoRA norm's W-only terms are computed once, here.
+
+    Records match the sequential round's; ``self.nodes`` is a lazily
+    refreshed unpadded view of the stacked state (copies: the state is
+    updated in place)."""
+
+    def __init__(self, fed: FederationConfig, model: ModelConfig = None, *,
+                 device=None, mesh=None, width_bucketing: bool = True):
+        if mesh is not None:
+            raise NotImplementedError("Federation(mesh=): the sharded round "
+                                      "is not ported yet")
+        super().__init__(fed, model, device=device)
+        self._width_bucketing = width_bucketing
+        self._build_engine()
+
+    @property
+    def nodes(self):
+        if getattr(self, "_views_stale", False):
+            self._views_stale = False
+            self._refresh_node_views()
+        return self._nodes
+
+    @nodes.setter
+    def nodes(self, value):
+        self._nodes = value
+
+    # ------------------------------------------------------------------
+    def _node_width(self, node: dict) -> int:
+        """The adapter width a node needs: its tokenizer's, or on a bridge
+        node the wider of its two."""
+        d = self.tokenizers[node["modality"]].d_out
+        if node["bridge"]:
+            d = max(d, self.tokenizers[node["modality2"]].d_out)
+        return d
+
+    def _bucket_layout(self, widths):
+        if self._width_bucketing:
+            bucket_widths = tuple(sorted(set(widths)))
+            return bucket_widths, [tuple(i for i, w in enumerate(widths)
+                                         if w == wb) for wb in bucket_widths]
+        return (max(widths),), [tuple(range(len(widths)))]
+
+    def _build_engine(self) -> None:
+        fed, nodes, dev = self.fed, self._nodes, self.device
+        self._has_bridges = any(n["bridge"] for n in nodes)
+        widths = [self._node_width(n) for n in nodes]
+        self._bucket_widths, buckets = self._bucket_layout(widths)
+        self._buckets = tuple(buckets)
+        self._node_bucket = {i: (b, r) for b, members in enumerate(buckets)
+                             for r, i in enumerate(members)}
+        trains, opts, masks = [], [], []
+        for members, wb in zip(buckets, self._bucket_widths):
+            trees = []
+            for i in members:
+                node = nodes[i]
+                t = dict(node["trainable"])
+                t["adapter"] = {"w": engine_mod.pad_axis(
+                    t["adapter"]["w"], wb, 0)}
+                if self._has_bridges:
+                    if node["bridge"]:
+                        t["adapter2"] = {"w": engine_mod.pad_axis(
+                            t["adapter2"]["w"], wb, 0)}
+                    else:
+                        # inert slot: the bridge term is masked to 0 on this
+                        # node, so it gets exactly zero gradients and is
+                        # never shipped, but it must be NONZERO -- a zero
+                        # adapter makes pooled2 the zero vector, whose norm
+                        # has a NaN gradient that 0 x NaN spreads to the node
+                        t["adapter2"] = {"w": engine_mod.pad_axis(make_linear(
+                            stream(dev, fed.seed, "inert-adapter2", i),
+                            self.tokenizers[node["modality"]].d_out,
+                            self.cfg.d_model, torch.float32,
+                            device=dev)["w"], wb, 0)}
+                trees.append(t)
+            train_b = engine_mod.stack_nodes(trees)
+            trains.append(train_b)
+            opts.append(engine_mod.stack_nodes([self.opt.init(t)
+                                                for t in trees]))
+            masks.append(lora_mod.shipped_mask(train_b))
+        self._trains, self._opts = tuple(trains), tuple(opts)
+        self._refresh_statics()
+        node0 = nodes[0]
+        self._uplink_bytes = agg.comm_bytes_per_round(
+            _shipped(node0["trainable"]), gram_side=self.gbar.shape[0])
+        self._full_bytes = lora_mod.param_bytes(lora_mod.combine(
+            node0["trainable"], self._frozen_for(node0)))
+        ecfg = engine_mod.EngineConfig(
+            n_nodes=fed.n_nodes, local_steps=fed.local_steps,
+            aggregation=fed.aggregation, center_cka=fed.center_cka,
+            bucket_sizes=tuple(len(m) for m in buckets),
+            node_perm=tuple(i for members in buckets for i in members),
+            server_momentum=fed.server_momentum)
+        self.engine = engine_mod.RoundEngine(
+            ecfg, self._local_step_nodes, tuple(masks), device=dev)
+        self._server_m = self.engine.init_server_state(self._trains)
+
+    def _refresh_statics(self) -> None:
+        """Per-bucket constants (anchor tokens, tokenizer weights padded to
+        the bucket width, bridge masks) and the frozen tree with the
+        GeoDoRA norm's W-only terms; rebuilt when the substrate is replaced
+        (``bridge.load_engine_state``)."""
+        fed, nodes = self.fed, self._nodes
+        statics = []
+        for members, wb in zip(self._buckets, self._bucket_widths):
+            cols = {}
+            for i in members:
+                node = nodes[i]
+                m = node["modality"]
+                anchors = (self.synthetic_anchor_tokens[m]
+                           if i in fed.synthetic_anchor_nodes
+                           else self.anchor_tokens[m])
+                row = {"anchors": engine_mod.pad_axis(anchors, wb, -1)}
+                row.update(zip(("tok_w1", "tok_b1", "tok_w2"),
+                               self.tokenizers[m].padded_weights(wb)))
+                if self._has_bridges:
+                    m2 = node.get("modality2", m)
+                    row.update(zip(("tok2_w1", "tok2_b1", "tok2_w2"),
+                                   self.tokenizers[m2].padded_weights(wb)))
+                    row["bridge"] = torch.tensor(float(node["bridge"]),
+                                                 device=self.device)
+                for k, v in row.items():
+                    cols.setdefault(k, []).append(v)
+            statics.append({k: torch.stack(v) for k, v in cols.items()})
+        self._statics = tuple(statics)
+        frozen = self.frozen_bridge if self._has_bridges else self.frozen
+
+        def with_terms(node):
+            if isinstance(node, dict) and node.get("lora_A") is not None \
+                    and "dora_m" in node:
+                return dict(node, **dora_w_terms(node["w"], node["lora_A"]))
+            if isinstance(node, dict):
+                return {k: with_terms(v) for k, v in node.items()}
+            return node
+        self._frozen_engine = with_terms(frozen)
+
+    # ------------------------------------------------------------------
+    def _tokenize(self, raw, w1, b1, w2):
+        """Each node's frozen tokenizer at its bucket's width: raw (k, n,
+        d_raw) -> tokens (k, n, L, width)."""
+        h = torch.einsum("knd,kdlo->knlo", raw.float(), w1) + b1[:, None]
+        return torch.tanh(h) @ w2[:, None]
+
+    def _pooled_nodes(self, params, tokens, adapters) -> torch.Tensor:
+        """Pooled activations (K, n, d_model) of all nodes: each bucket's
+        tokens through its adapters, then one transformer pass over the K n
+        sequences (per-node side-cars on a node axis)."""
+        embeds = torch.cat([linear(t.float(), a)
+                            for t, a in zip(tokens, adapters)])
+        k, n = embeds.shape[:2]
+        pooled = T.pooled(params, {"inputs_embeds": embeds.reshape(
+            k * n, *embeds.shape[2:])}, self.cfg)
+        return pooled.reshape(k, n, -1)
+
+    def _layer_major(self, shared: dict) -> dict:
+        """The stacked blocks with the layer axis first and the node axis
+        second, so the stack's per-layer views carry the node axis."""
+        return dict(shared, blocks=tree_map(
+            lambda t: None if t is None else t.transpose(0, 1),
+            shared["blocks"]))
+
+    def _local_step_nodes(self, trains, opts, gbar, statics, batch):
+        """One local step of every node (Eq. 3, plus the bridge term where
+        ``bridge`` is 1): the gradient of the sum of the nodes' losses,
+        which is each node's own, then AdamW per node."""
+        fed = self.fed
+        live = tuple(tree_map(lambda t: None if t is None
+                              else t.detach().requires_grad_(), tr)
+                     for tr in trains)
+        shared = self._layer_major(_cat_nodes([
+            {k: v for k, v in tr.items() if k not in LOCAL_KEYS}
+            for tr in live]))
+        params = _merge(shared, self._frozen_engine)
+        params_geo = _merge(_detach_named(shared), self._frozen_engine)
+        tokens = [self._tokenize(b["raw"], st["tok_w1"], st["tok_b1"],
+                                 st["tok_w2"])
+                  for b, st in zip(batch, statics)]
+        pooled = self._pooled_nodes(params, tokens,
+                                    [tr["adapter"] for tr in live])
+        logits = linear(pooled, params["cls_head"])
+        labels = torch.cat([b["labels"] for b in batch])
+        task = _per_node_ce(logits, labels)
+        pooled_a = self._pooled_nodes(params_geo,
+                                      [st["anchors"] for st in statics],
+                                      [tr["adapter"] for tr in live])
+        geo = cka_mod.geo_alignment_loss(pooled_a, gbar,
+                                         center=fed.center_cka)
+        loss = task + fed.lambda_geo * geo
+        if self._has_bridges:
+            tokens2 = [self._tokenize(b["raw2"], st["tok2_w1"],
+                                      st["tok2_b1"], st["tok2_w2"])
+                       for b, st in zip(batch, statics)]
+            pooled2 = self._pooled_nodes(params, tokens2,
+                                         [tr["adapter2"] for tr in live])
+            bridge = torch.cat([st["bridge"] for st in statics])
+            loss = loss + fed.lambda_bridge * bridge * self._contrastive(
+                pooled, pooled2)
+        leaves = [tree_leaves(tr) for tr in live]
+        flat = [t for ls in leaves for t in ls]
+        grads = iter([torch.zeros_like(p) if g is None else g
+                      for p, g in zip(flat, torch.autograd.grad(
+                          loss.sum(), flat, allow_unused=True))])
+        new_trains, new_opts = [], []
+        for tr, op in zip(trains, opts):
+            g = tree_map(lambda t: None if t is None else next(grads), tr)
+            t_new, o_new = self.opt.update_stacked(g, op, tr)
+            new_trains.append(t_new)
+            new_opts.append(o_new)
+        acc = (logits.argmax(-1) == labels).float().mean(dim=-1)
+        return tuple(new_trains), tuple(new_opts), {
+            "task": task.detach(), "geo": geo.detach(), "acc": acc,
+            "pooled": pooled.detach(), "pooled_a": pooled_a.detach()}
+
+    # ------------------------------------------------------------------
+    def _state(self) -> tuple:
+        return self._trains, self._opts, self.gbar, self._server_m
+
+    def _stage(self, m: int) -> tuple:
+        """The next m rounds' draws, per bucket ``{"raw": (m, E, k_b, B,
+        d_raw), "labels": (m, E, k_b, B)[, "raw2"]}``: each node draws m E
+        batches from its own generator, as m sequential rounds would."""
+        fed, nodes, e = self.fed, self._nodes, self.fed.local_steps
+        out = []
+        for members in self._buckets:
+            d = self.task.sample_stacked(
+                [nodes[i]["gen"] for i in members],
+                [nodes[i]["modality"] for i in members], fed.local_batch,
+                m * e, corrupt=[nodes[i]["corrupt"] for i in members],
+                paired=[nodes[i].get("modality2") if self._has_bridges
+                        and nodes[i]["bridge"] else None for i in members])
+            if self._has_bridges and "raw2" not in d:
+                d["raw2"] = d["raw"]
+            out.append({k: v.reshape(m, e, *v.shape[1:])
+                        for k, v in d.items()})
+        return tuple(out)
+
+    def capture(self, block_size: int = 1) -> None:
+        """Capture the round (``block_size`` 1) or the block graph now, on
+        the card, without moving the federation on: the draws it warms up
+        with are taken back from the generators.  ``run_rounds`` captures
+        on first use; calling this first keeps the capture out of a
+        measured window."""
+        gens = [n["gen"] for n in self._nodes]
+        saved = [g.get_state() for g in gens]
+        batches = self._stage(block_size)
+        for g, st in zip(gens, saved):
+            g.set_state(st)
+        self.engine.capture(block_size, self._state(), self._statics,
+                            batches)
+
+    def _run_block(self, m: int, tap=None) -> List[dict]:
+        _, metrics = self.engine.run_block(
+            self._state(), m, statics=self._statics, batches=self._stage(m),
+            tap=tap)
+        self._views_stale = True
+        recs = [self._metrics_record(x) for x in metrics]
+        self.history.extend(recs)
+        return recs
+
+    def _metrics_record(self, metrics: dict) -> dict:
+        k = self.fed.n_nodes
+        return {"task_loss": sum(metrics["task"]) / k,
+                "geo_loss": sum(metrics["geo"]) / k,
+                "acc": sum(metrics["acc"]) / k,
+                "cross_node_cka": metrics["cross_node_cka"],
+                "uplink_bytes": self._uplink_bytes,
+                "full_model_bytes": self._full_bytes,
+                "weights": list(metrics["weights"])}
+
+    def run_round(self, participants=None) -> dict:
+        """One round: one replay of the round graph on the card."""
+        if participants is not None:
+            raise NotImplementedError("Federation.run_round(participants=): "
+                                      "participation is not ported yet")
+        return self._run_block(1)[0]
+
+    def run_rounds(self, n: int, block_size: int = 1, tap=None,
+                   participation=None, checkpoint_path: str = None,
+                   checkpoint_every: int = 0) -> List[dict]:
+        """``n`` rounds; with ``block_size`` M > 1 as blocks of M rounds (the
+        last block takes the rest), each one replay and one readback.
+        ``tap`` is called once per round of a block with its metrics."""
+        if participation not in (None, "full"):
+            raise NotImplementedError("run_rounds(participation=): "
+                                      "participation is not ported yet")
+        if checkpoint_path is not None:
+            raise NotImplementedError("run_rounds(checkpoint_path=): "
+                                      "checkpoints are not ported yet")
+        if block_size <= 1:
+            return [self.run_round() for _ in range(n)]
+        recs, done = [], 0
+        while done < n:
+            m = min(block_size, n - done)
+            recs += self._run_block(m, tap)
+            done += m
+        return recs
+
+    def run(self, block_size: int = 1) -> List[dict]:
+        self.run_rounds(self.fed.rounds, block_size)
+        return self.history
+
+    def save(self, path: str) -> None:
+        raise NotImplementedError("Federation.save: checkpoints are not "
+                                  "ported yet")
+
+    def restore(self, path: str) -> int:
+        raise NotImplementedError("Federation.restore: checkpoints are not "
+                                  "ported yet")
+
+    # ------------------------------------------------------------------
+    def _unpad_node_tree(self, tree: dict, node: dict) -> dict:
+        """One node's slice of a stacked tree without the padding: the
+        sequential round's ragged structure."""
+        tree = dict(tree)
+        d = self.tokenizers[node["modality"]].d_out
+        tree["adapter"] = {"w": tree["adapter"]["w"][:d]}
+        if "adapter2" in tree:
+            if node["bridge"]:
+                d2 = self.tokenizers[node["modality2"]].d_out
+                tree["adapter2"] = {"w": tree["adapter2"]["w"][:d2]}
+            else:
+                del tree["adapter2"]
+        return tree
+
+    def _refresh_node_views(self) -> None:
+        """Per-node copies of the stacked state: node i is row r of bucket
+        b."""
+        for i, node in enumerate(self._nodes):
+            b, r = self._node_bucket[i]
+            row = (lambda t: None if t is None else t[r].clone())
+            node["trainable"] = self._unpad_node_tree(
+                tree_map(row, self._trains[b]), node)
+            opt = self._opts[b]
+            node["opt_state"] = {
+                "m": self._unpad_node_tree(tree_map(row, opt["m"]), node),
+                "v": self._unpad_node_tree(tree_map(row, opt["v"]), node),
+                "step": opt["step"][r].clone()}
+            if "round" in opt:
+                node["opt_state"]["round"] = opt["round"][r].clone()
+
+
+__all__ = ["FederationConfig", "SequentialFederation", "Federation"]

@@ -29,10 +29,22 @@ def node_precision(uncertainties: torch.Tensor,
     return (1.0 / uncertainties.clamp_min(floor)).mean()
 
 
+def batched_precisions(pooled_samples: torch.Tensor,
+                       pooled_anchors: torch.Tensor) -> torch.Tensor:
+    """Node-stacked precisions: (K, N, D), (K, B, D) -> (K,) unnormalised
+    p_k, what the round engine uploads (``node_precision`` of
+    ``lap_uncertainty`` per node)."""
+    sim = _unit_rows(pooled_samples, 1e-8) @ _unit_rows(
+        pooled_anchors, 1e-8).transpose(-1, -2)
+    u = 0.5 * (1.0 - sim.max(dim=-1).values)
+    return (1.0 / u.clamp_min(1e-3)).mean(dim=-1)
+
+
 def precision_weights(node_precisions: torch.Tensor) -> torch.Tensor:
     """Server: per-node precisions -> aggregation weights summing to 1."""
     p = node_precisions.float().clamp_min(0.0)
     return p / p.sum().clamp_min(1e-12)
 
 
-__all__ = ["lap_uncertainty", "node_precision", "precision_weights"]
+__all__ = ["lap_uncertainty", "node_precision", "batched_precisions",
+           "precision_weights"]

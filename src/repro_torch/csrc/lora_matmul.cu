@@ -78,6 +78,14 @@
 //     reduce kernel, and 128 x 64 or 128 x 128 tiles (fewer bytes from L2,
 //     but a longer serial K loop a block, or, split into short ranges, a
 //     costlier reduction even when every rank reduces a slice of rows).
+//   * A node axis: x (nodes, M, K) and y (nodes, M, N) contiguous, with A and B
+//     each read at its own node stride (0 where the operand is shared).  The
+//     node-stacked round gives every node its own B and shares W and A; in
+//     dx the per-node B^T sits in A's slot and the shared A^T in B's, so
+//     both slots take a node stride.  The nodes are folded into blockIdx.y
+//     (node-major over the M tiles), so a block never spans two nodes and
+//     the tile plan counts nodes x M tiles; with one node and strides 0 the
+//     kernel is the single-node one.
 //   * Edges: rows past M, N or K are zero-filled by cp.async's source size
 //     0 and masked at the store.  An operand whose rows are not whole
 //     16-byte chunks (K or N not a multiple of 8, r < 8, a base or pitch
@@ -99,7 +107,16 @@ constexpr int kMaxRank = 2 * kRankTile;               // the Pallas kernel's r <
 
 struct Strides {
   long long w0, w1, a0, a1, b0, b1;
+  long long a_node, b_node;                           // 0: shared by every node
 };
+
+// The node of this block and the first row of its tile: blockIdx.y walks
+// the M tiles of node 0, then of node 1, and so on.
+__device__ __forceinline__ int node_tile(int M, int bm, int& m0) {
+  const int mtiles = (M + bm - 1) / bm;
+  m0 = (blockIdx.y % mtiles) * bm;
+  return blockIdx.y / mtiles;
+}
 
 // ---------------------------------------------------------------- bf16 path
 constexpr int kBK = 64;                               // K per ring stage
@@ -158,7 +175,14 @@ lora_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gr = lane / 4, tq = lane % 4;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kBM;
+  int m0;
+  const int node = node_tile(M, kBM, m0);
+  const int n0 = blockIdx.x * BN;
+  x += static_cast<size_t>(node) * M * K;
+  y += static_cast<size_t>(node) * M * N;
+  if (xa_out != nullptr) xa_out += static_cast<size_t>(node) * M * r;
+  a += node * st.a_node;
+  b += node * st.b_node;
   const int kbeg = blockIdx.z * k_split, kend = min(K, kbeg + k_split);
   const int nsteps = (kend - kbeg + kBK - 1) / kBK;
   const int nr8 = (r + 7) / 8;                        // n8 tiles of the bottleneck
@@ -327,7 +351,7 @@ struct Args {
   const bf16 *x, *w, *a, *b;
   bf16* y;
   float* xa;
-  int M, K, N, r, flags, k_split;
+  int M, K, N, r, flags, k_split, nodes;
   Strides st;
 };
 
@@ -344,7 +368,7 @@ int launch_mma(const Args& g, cudaStream_t stream) {
   }
   // one cluster per output tile: its blocks along z take the K ranges
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((g.N + BN - 1) / BN, (g.M + kBM - 1) / kBM,
+  cfg.gridDim = dim3((g.N + BN - 1) / BN, g.nodes * ((g.M + kBM - 1) / kBM),
                      (g.K + g.k_split - 1) / g.k_split);
   cfg.blockDim = dim3(kMmaThreads);
   cfg.dynamicSmemBytes = bytes;
@@ -379,7 +403,7 @@ int launch_ranks(const Args& g, cudaStream_t stream) {
 int launch_bf16(const Args& g, int bn, cudaStream_t stream) {
   const int splits = g.k_split < 1 ? 0 : (g.K + g.k_split - 1) / g.k_split;
   if (g.k_split < 1 || g.k_split % kBK != 0 || splits > kMaxSplits ||
-      (g.M + kBM - 1) / kBM > 65535)
+      static_cast<long long>(g.nodes) * ((g.M + kBM - 1) / kBM) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bn == 64) return launch_ranks<64>(g, stream);
   if (bn == 32) return launch_ranks<32>(g, stream);
@@ -480,7 +504,14 @@ lora_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   __shared__ float sA[BK][RP + 1];
   __shared__ float sXA[BM][RP + 1];
 
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  int m0;
+  const int node = node_tile(M, BM, m0);
+  const int n0 = blockIdx.x * BN;
+  x += static_cast<size_t>(node) * M * K;
+  y += static_cast<size_t>(node) * M * N;
+  if (xa_out != nullptr) xa_out += static_cast<size_t>(node) * M * r;
+  a += node * st.a_node;
+  b += node * st.b_node;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   // the bottleneck sums a thread owns: row xa_row, ranks xa_s0 + 4 q < r
   const int xa_row = tid / 4, xa_s0 = tid % 4;
@@ -593,8 +624,9 @@ lora_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 int launch_f32(const Args& g, const void* x, const void* w, const void* a, const void* b,
                void* y, cudaStream_t stream) {
-  if ((g.M + BM - 1) / BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
+  if (static_cast<long long>(g.nodes) * ((g.M + BM - 1) / BM) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((g.N + BN - 1) / BN, g.nodes * ((g.M + BM - 1) / BM));
   const float *xf = static_cast<const float*>(x), *wf = static_cast<const float*>(w),
               *af = static_cast<const float*>(a), *bf = static_cast<const float*>(b);
   float* yf = static_cast<float*>(y);
@@ -609,22 +641,25 @@ int launch_f32(const Args& g, const void* x, const void* w, const void* a, const
 
 }  // namespace
 
-// Strides are in elements; ranks 1..64.  bf16 only: `flags` (kVec* / kRow* bits), the
-// tile width bn (64 or 32) and k_split (a multiple of 64; K / k_split
-// rounded up is the number of K ranges, at most 8) come from the wrapper.
-// Returns a cudaError_t: 0 when the launch was accepted.
+// Strides are in elements; ranks 1..64.  `nodes` stacks x, y and xa (each
+// (nodes, M, .) contiguous); A and B advance by sa_node / sb_node elements
+// from one node to the next (0: shared).  bf16 only: `flags` (kVec* / kRow*
+// bits), the tile width bn (64 or 32) and k_split (a multiple of 64; K /
+// k_split rounded up is the number of K ranges, at most 8) come from the
+// wrapper.  Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int lora_matmul_launch(const void* x, const void* w, const void* a,
                                   const void* b, void* y, void* xa, int M, int K, int N,
                                   int r, long long sw0, long long sw1,
                                   long long sa0, long long sa1, long long sb0,
                                   long long sb1, int flags, int bn, int k_split,
-                                  int is_bf16, void* stream) {
-  if (M < 1 || K < 1 || N < 1 || r < 1 || r > kMaxRank)
+                                  int is_bf16, int nodes, long long sa_node,
+                                  long long sb_node, void* stream) {
+  if (M < 1 || K < 1 || N < 1 || r < 1 || r > kMaxRank || nodes < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args g{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                static_cast<const bf16*>(a), static_cast<const bf16*>(b),
                static_cast<bf16*>(y), static_cast<float*>(xa), M, K, N, r, flags, k_split,
-               Strides{sw0, sw1, sa0, sa1, sb0, sb1}};
+               nodes, Strides{sw0, sw1, sa0, sa1, sb0, sb1, sa_node, sb_node}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return launch_bf16(g, bn, s);
   return launch_f32(g, x, w, a, b, y, s);

@@ -13,6 +13,20 @@ reproduced, so every stream here is a ``torch.Generator`` on the task's
 device, seeded from the task seed and a stable digest of names
 (``stream``).  Parity tests carry the reference's prototypes, maps and
 draws across instead of re-seeding.
+
+``sample_stacked`` is the node-stacked round's draw, the counterpart of
+the reference's ``sample_in_scan``.  The reference draws inside its
+compiled round from carried JAX keys, which torch cannot reproduce.  Here
+the draws are staged instead: E steps x k nodes are drawn on the device
+before the round, each node from its own generator in the order the
+sequential round's ``_draw`` calls it, and the round (a CUDA graph on the
+card) reads them from its input buffers.  Drawing inside the graph
+(``CUDAGraph.register_generator_state``) was the other way.  Staging was
+chosen because it keeps one draw code for both rounds and both devices,
+so the stacked and the sequential round see bit-identical batches on the
+CPU and on the card, and a parity test can hand either the reference's
+draws; a generator registered with a graph advances by the graph's
+whole offset at each replay, which only the card can test.
 """
 from __future__ import annotations
 
@@ -77,6 +91,27 @@ class SyntheticMultimodal:
                                    device=dev)
             return raw, labels, raw2
         return self._view(latent, modality, out_noise), labels, raw2
+
+    def sample_stacked(self, gens, modalities, n: int, steps: int, *,
+                       corrupt, paired) -> dict:
+        """``steps`` batches for each of k nodes: node j draws ``steps``
+        consecutive ``sample`` calls from ``gens[j]`` in its modality
+        ``modalities[j]``, with ``corrupt[j]`` and ``paired[j]`` (its second
+        modality or None).  Returns ``{"raw": (steps, k, n, d_raw),
+        "labels": (steps, k, n)}`` and, when any node is paired, ``"raw2"``,
+        holding the node's own raw where it is not."""
+        draws = [[self.sample(g, m, n, corrupt=c, paired=p)
+                  for _ in range(steps)]
+                 for g, m, c, p in zip(gens, modalities, corrupt, paired)]
+        out = {"raw": torch.stack([torch.stack([d[0] for d in node])
+                                   for node in draws], 1),
+               "labels": torch.stack([torch.stack([d[1] for d in node])
+                                      for node in draws], 1)}
+        if any(p is not None for p in paired):
+            out["raw2"] = torch.stack([torch.stack([
+                d[0] if d[2] is None else d[2] for d in node])
+                for node in draws], 1)
+        return out
 
     def anchor_set(self, gen: torch.Generator, n_per_class: int = 4
                    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:

@@ -35,6 +35,19 @@ class FrozenTokenizer:
         h = torch.einsum("nd,dlo->nlo", raw.float(), self.w1) + self.b1
         return torch.tanh(h) @ self.w2
 
+    def padded_weights(self, width: int):
+        """(w1, b1, w2) zero-padded to token width ``width`` >= d_out, for
+        the node-stacked round (one program over tokenizers of several
+        widths).  The padding is exact: padded channels see 0 through tanh
+        and padded rows and columns of w2 add 0, so the first d_out
+        channels match the unpadded tokenizer and the rest are 0."""
+        pad = width - self.d_out
+        if pad < 0:
+            raise ValueError(f"width {width} < d_out {self.d_out}")
+        f = torch.nn.functional.pad
+        return (f(self.w1, (0, pad)), f(self.b1, (0, pad)),
+                f(self.w2, (0, pad, 0, pad)))
+
 
 def default_tokenizers(modality_dims: dict, d_raw: int, n_tokens: int = 16,
                        seed: int = 0, device=None) -> dict:

@@ -41,9 +41,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     # x, out, K, B, D, eps, is_bf16, n_split, d_split, stream
     "gram": {"gram_launch": [_P, _P, _I, _I, _I, _F] + [_I] * 3 + [_P]},
     # x, w, a, b, y, xa, M, K, N, r, 6 element strides, flags, bn,
-    # k_split, is_bf16, stream
+    # k_split, is_bf16, nodes, A's and B's node strides, stream
     "lora_matmul": {"lora_matmul_launch":
-                    [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I] * 4 + [_P]},
+                    [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I] * 5 + [_L] * 2
+                    + [_P]},
     # da, dbx, h0, h_all, h_last, B, S, C, is_bf16, stream
     "selective_scan": {"selective_scan_launch": [_P] * 5 + [_I] * 4 + [_P]},
 }

@@ -14,6 +14,13 @@ trains and ships only B):
   XLA, is ``torch.matmul`` on the f32 bottleneck x @ A that the forward
   kernel wrote beside y.
 
+A node axis: with x (K, M, d_in) and B (K, r, N) the call computes, per
+node k, x_k @ W + (x_k @ A) @ B_k in one launch (the node-stacked round:
+W and A frozen and shared, each node its own B); y, the bottleneck and
+dB gain the same leading K.  The kernel reads A and B at a node stride
+each, 0 for a shared operand, so dx = dy_k @ W^T + (dy_k @ B_k^T) @ A^T
+is again one launch, with the per-node B_k^T in A's slot.
+
 A tensor on the CPU goes to the plain version ``ref.lora_matmul_ref``; a
 CUDA tensor launches the kernel or raises.  ``lora_matmul.launches``
 counts kernel launches, forward and dx alike.
@@ -55,8 +62,9 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def tile_plan(m: int, k: int, n: int) -> Tuple[int, int]:
-    """(bn, k_split) of the bf16 kernel for x (m, k) @ W (k, n): the widest
+def tile_plan(m: int, k: int, n: int, nodes: int = 1) -> Tuple[int, int]:
+    """(bn, k_split) of the bf16 kernel for x (nodes, m, k) @ W (k, n) (the
+    M tiles of every node count, a tile never spanning two nodes): the widest
     BM x bn tile of ``TILE_NS`` whose grid gives every SM a block once the
     K loop is cut into ranges of ``k_split`` (whole BK-wide steps, each
     range a block of the tile's cluster), with as few ranges as that
@@ -65,7 +73,7 @@ def tile_plan(m: int, k: int, n: int) -> Tuple[int, int]:
     with as many ranges as allowed, one step or more each."""
     steps = _cdiv(k, BK)
     for bn in TILE_NS:
-        tiles = _cdiv(m, BM) * _cdiv(n, bn)
+        tiles = nodes * _cdiv(m, BM) * _cdiv(n, bn)
         for want in range(1, min(steps, MAX_SPLITS) + 1):
             per = _cdiv(steps, want)
             if want > 1 and per < MIN_RANGE_STEPS:
@@ -75,10 +83,10 @@ def tile_plan(m: int, k: int, n: int) -> Tuple[int, int]:
     return TILE_NS[-1], _cdiv(steps, min(steps, MAX_SPLITS)) * BK
 
 
-def n_blocks(m: int, k: int, n: int) -> int:
+def n_blocks(m: int, k: int, n: int, nodes: int = 1) -> int:
     """Blocks of the bf16 kernel's grid under ``tile_plan``."""
-    bn, k_split = tile_plan(m, k, n)
-    return _cdiv(m, BM) * _cdiv(n, bn) * _cdiv(k, k_split)
+    bn, k_split = tile_plan(m, k, n, nodes)
+    return nodes * _cdiv(m, BM) * _cdiv(n, bn) * _cdiv(k, k_split)
 
 
 def _chunked(t: torch.Tensor, row_dim: int, extent: int) -> bool:
@@ -89,12 +97,15 @@ def _chunked(t: torch.Tensor, row_dim: int, extent: int) -> bool:
             and extent % 8 == 0 and t.data_ptr() % 16 == 0)
 
 
-def layout_flags(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor) -> int:
+def layout_flags(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                 a_node_stride: int = 0) -> int:
     """The kernel's ``flags``: ROW_W / ROW_A when W's n axis / A's r axis is
     the contiguous one (the forward; dx's transposed views have the loop
     axis contiguous), VEC_* for each operand that cp.async can copy in
     16-byte chunks (the others load element by element).  An operand with
-    neither axis contiguous takes the row orientation."""
+    neither axis contiguous takes the row orientation.  x (M, K) and A
+    (K, r) are node 0's; with a node axis x's nodes follow at M K elements
+    and A's at ``a_node_stride``, which must keep A's chunks at 16 bytes."""
     k, n, r = x.shape[1], w.shape[1], a.shape[1]
     flags = VEC_X if k % 8 == 0 and x.data_ptr() % 16 == 0 else 0
     for t, extent_n, row, vec in ((w, n, ROW_W, VEC_W), (a, r, ROW_A, VEC_A)):
@@ -102,13 +113,32 @@ def layout_flags(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor) -> int:
             flags |= row | (vec if _chunked(t, 0, extent_n) else 0)
         elif _chunked(t, 1, k):                           # [n][k] tile
             flags |= vec
+    if a_node_stride % 8:
+        flags &= ~VEC_A
     return flags
 
 
+def _node_slice(t: torch.Tensor) -> torch.Tensor:
+    """Node 0's matrix of a per-node (K, ., .) operand, else ``t``."""
+    return t[0] if t.dim() == 3 else t
+
+
 def _check(x, w, a, b) -> None:
-    if any(t.dim() != 2 for t in (x, w, a, b)):
+    nodes = x.shape[0] if x.dim() == 3 else None
+    if w.dim() != 2 or x.dim() not in (2, 3) or (nodes is None and (
+            a.dim() != 2 or b.dim() != 2)) or (nodes is not None and (
+            a.dim() not in (2, 3) or b.dim() not in (2, 3)
+            or 3 not in (a.dim(), b.dim()))):
         raise ValueError("lora_matmul: want x (M, K), w (K, N), a (K, r), "
-                         "b (r, N)")
+                         "b (r, N), or with a node axis x (nodes, M, K) and "
+                         "a per-node a (nodes, K, r) or b (nodes, r, N)")
+    for t in (a, b):
+        if t.dim() == 3 and t.shape[0] != nodes:
+            raise ValueError(f"lora_matmul: x has {nodes} nodes, an operand "
+                             f"{t.shape[0]}")
+    if nodes is not None and nodes < 1:
+        raise ValueError("lora_matmul: no nodes")
+    x, a, b = (_node_slice(t) for t in (x, a, b))
     k, n, r = x.shape[1], w.shape[1], a.shape[1]
     if w.shape[0] != k or a.shape[0] != k or tuple(b.shape) != (r, n) \
             or min(x.shape[0], k, n) < 1:
@@ -142,20 +172,25 @@ def _apply(x, w, a, b, want_xa: bool
         raise ValueError(f"lora_matmul: no kernel for {x.device} (the "
                          f"kernels launch on cuda:0)")
     _check(x, w, a, b)
-    m, k = x.shape
-    n, r = w.shape[1], a.shape[1]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    xa = (torch.empty((m, r), dtype=torch.float32, device=x.device)
+    nodes = x.shape[0] if x.dim() == 3 else 1
+    sa_node, sb_node = (t.stride(0) if t.dim() == 3 else 0 for t in (a, b))
+    x0, a0, b0 = (_node_slice(t) for t in (x, a, b))
+    m, k = x0.shape
+    n, r = w.shape[1], a0.shape[1]
+    lead = x.shape[:-1]
+    y = torch.empty((*lead, n), dtype=x.dtype, device=x.device)
+    xa = (torch.empty((*lead, r), dtype=torch.float32, device=x.device)
           if want_xa else None)
     bf16 = x.dtype == torch.bfloat16
-    flags, (bn, k_split) = ((layout_flags(x, w, a), tile_plan(m, k, n))
+    flags, (bn, k_split) = ((layout_flags(x0, w, a0, sa_node),
+                             tile_plan(m, k, n, nodes))
                             if bf16 else (0, (0, 0)))
     lib = _build.load("lora_matmul")
     err = lib.lora_matmul_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
         None if xa is None else xa.data_ptr(), m, k, n, r, *w.stride(),
-        *a.stride(), *b.stride(), flags, bn, k_split, int(bf16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *a0.stride(), *b0.stride(), flags, bn, k_split, int(bf16), nodes,
+        sa_node, sb_node, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch("lora_matmul", err)
     lora_matmul.launches += 1
     return y, xa
@@ -174,19 +209,23 @@ class _LoRAMatmul(torch.autograd.Function):
         dy = dy.contiguous()
         dx = db = None
         if ctx.needs_input_grad[0]:
-            dx, _ = _apply(dy, w.t(), b.t(), a.t(), want_xa=False)
+            dx, _ = _apply(dy, w.t(), b.transpose(-1, -2),
+                           a.transpose(-1, -2), want_xa=False)
         if ctx.needs_input_grad[3]:
-            db = (xa.t() @ dy.float()).to(b.dtype)
+            db = (xa.transpose(-1, -2) @ dy.float()).to(b.dtype)
         return dx, None, None, db
 
 
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
-    """y = x @ W + (x @ A) @ B, differentiable in x and B; see the module
-    docstring."""
+    """y = x @ W + (x @ A) @ B, differentiable in x and B; with x (K, M,
+    d_in) and B (K, r, N) per node.  See the module docstring."""
     if w.requires_grad or a.requires_grad:
         raise ValueError("lora_matmul: W and lora_A are frozen; pass them "
                          "detached")
+    if x.dim() == 3 and b.dim() != 3:
+        raise ValueError("lora_matmul: a node axis takes x (K, M, d_in) and "
+                         "b (K, r, N) per node")
     return _LoRAMatmul.apply(x, w, a, b)
 
 

@@ -35,7 +35,7 @@ def _masked_softmax_av(sc: torch.Tensor, ok: torch.Tensor, v_eq: str,
     masked rows give 0."""
     sc = sc.masked_fill(~ok, NEG_INF)
     m = sc.amax(dim=-1, keepdim=True)
-    p = torch.where(ok, torch.exp(sc - m), torch.zeros((), dtype=sc.dtype))
+    p = torch.where(ok, torch.exp(sc - m), sc.new_zeros(()))
     l = p.sum(dim=-1, keepdim=True)
     return torch.einsum(v_eq, p / l.clamp_min(1e-30), v.float())
 
@@ -88,7 +88,10 @@ def cosine_gram_ref(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 def lora_matmul_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
     """The GeoLoRA linear y = x @ W + (x @ A) @ B, both products in float32,
-    cast back to x's dtype.  x: (M, K); w: (K, N); a: (K, r); b: (r, N)."""
+    cast back to x's dtype.  x: (M, K); w: (K, N); a: (K, r); b: (r, N).
+    With a node axis x is (nodes, M, K) and a (nodes, K, r) and / or b
+    (nodes, r, N) are per node (the products broadcast over it): node k
+    gets x_k @ W + (x_k @ A_k) @ B_k."""
     x32 = x.float()
     y = x32 @ w.float() + (x32 @ a.float()) @ b.float()
     return y.to(x.dtype)

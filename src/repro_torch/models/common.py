@@ -6,7 +6,15 @@ every linear is ``{"w": (d_in, d_out)[, "lora_A": (d_in, r), "lora_B":
 (r, d_out)[, "dora_m": (d_out,)]]}``.  A linear with side-cars runs the
 fused ``lora_matmul`` kernel (``lora_A`` and ``w`` frozen); the GeoDoRA
 rescale by ``dora_m / ||W + A B||_col`` stays outside the kernel, as in the
-JAX package.  Other matrix products run as ``torch.matmul`` in the model
+JAX package.
+
+Node-stacked leaves (the round engine's): a per-node leaf carries a
+leading node axis K -- ``w`` (K, d_in, d_out), ``lora_B`` (K, r, d_out),
+``dora_m`` (K, d_out), a norm's ``scale`` (K, d) -- and x then holds K
+node-major groups of rows (leading axis K, or K groups of a flattened
+leading axis).  Frozen leaves stay shared.  A linear may also carry the
+GeoDoRA norm's W-only terms, precomputed once (``dora_w_terms``): W and A
+are frozen and shared, so only the B-terms change from call to call.  Other matrix products run as ``torch.matmul`` in the model
 dtype (the JAX package leaves them to XLA); norms and RoPE compute in
 float32 and cast back.
 """
@@ -57,46 +65,80 @@ def add_dora(lin: dict) -> dict:
     return dict(lin, dora_m=torch.sqrt((w * w).sum(-2)).to(lin["w"].dtype))
 
 
+DORA_TERMS = ("dora_wsq", "dora_wta", "dora_ata")
+
+
+def dora_w_terms(w: torch.Tensor, a: torch.Tensor) -> dict:
+    """The W-only terms of ``dora_column_norm`` in float32: ||W_j||^2
+    (d_out,), W^T A (d_out, r) and A^T A (r, r), keyed by ``DORA_TERMS``
+    (leading stacked axes carry over)."""
+    w32, a32 = w.float(), a.float()
+    return {"dora_wsq": (w32 * w32).sum(-2),
+            "dora_wta": torch.einsum("...ij,...ir->...jr", w32, a32),
+            "dora_ata": torch.einsum("...ir,...is->...rs", a32, a32)}
+
+
 def dora_column_norm(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                     eps: float = 1e-6) -> torch.Tensor:
+                     eps: float = 1e-6, terms: Optional[dict] = None
+                     ) -> torch.Tensor:
     """||W + A B||_col in float32 without forming A B:
-    ||col_j||^2 = ||W_j||^2 + 2 (W^T A B)_jj + (B^T (A^T A) B)_jj."""
-    w32, a32, b32 = w.float(), a.float(), b.float()
-    wsq = (w32 * w32).sum(-2)
-    m = torch.einsum("...ij,...ir->...jr", w32, a32)          # (d_out, r)
-    cross = torch.einsum("...jr,...rj->...j", m, b32)
-    g = torch.einsum("...ir,...is->...rs", a32, a32)           # (r, r)
-    bsq = torch.einsum("...rj,...rs,...sj->...j", b32, g, b32)
-    return torch.sqrt((wsq + 2.0 * cross + bsq).clamp_min(eps))
+    ||col_j||^2 = ||W_j||^2 + 2 (W^T A B)_jj + (B^T (A^T A) B)_jj.
+    ``terms``: the W-only terms from ``dora_w_terms`` (else computed here);
+    b (K, r, d_out) gives K norms."""
+    terms = terms or dora_w_terms(w, a)
+    b32 = b.float()
+    cross = torch.einsum("...jr,...rj->...j", terms["dora_wta"], b32)
+    bsq = torch.einsum("...rj,...rs,...sj->...j", b32, terms["dora_ata"],
+                       b32)
+    return torch.sqrt((terms["dora_wsq"] + 2.0 * cross + bsq).clamp_min(eps))
+
+
+def _by_node(x: torch.Tensor, nodes: int) -> torch.Tensor:
+    """x's rows as (nodes, rows per node, d): x's leading axes hold the
+    nodes' rows node-major."""
+    return x.reshape(nodes, -1, x.shape[-1])
 
 
 def linear(x: torch.Tensor, lin: dict) -> torch.Tensor:
     """y = x @ W in x's dtype; with side-cars y = x @ W + (x @ A) @ B
     through the ``lora_matmul`` kernel, then under GeoDoRA
     y * dora_m / ||W + A B||_col.  The norm sees W and A detached and B
-    live, so B's gradient also flows through it."""
+    live, so B's gradient also flows through it.  Per-node leaves (a
+    leading node axis, see the module docstring) run one launch for all
+    nodes."""
     w = lin["w"].to(x.dtype)
+    lead, d_out = x.shape[:-1], w.shape[-1]
     if "lora_A" not in lin:
         if "dora_m" in lin:
             raise ValueError("linear: dora_m without lora_A / lora_B")
+        if w.dim() == 3:                                 # per node
+            return (_by_node(x, w.shape[0]) @ w).reshape(*lead, d_out)
         return x @ w
     a = lin["lora_A"].detach().to(x.dtype)
     b = lin["lora_B"].to(x.dtype)
-    lead = x.shape[:-1]
-    y = lora_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w, a, b)
-    y = y.reshape(*lead, w.shape[-1])
+    nodes = b.shape[0] if b.dim() == 3 else 0
+    rows = (_by_node(x, nodes) if nodes else x.reshape(-1, x.shape[-1]))
+    y = lora_matmul(rows.contiguous(), w, a, b)
     if "dora_m" in lin:
-        norm = dora_column_norm(w.detach(), a, b).to(x.dtype)
-        y = y * (lin["dora_m"].to(x.dtype) / norm)
-    return y
+        terms = ({k: lin[k] for k in DORA_TERMS} if DORA_TERMS[0] in lin
+                 else None)
+        norm = dora_column_norm(w.detach(), a, b, terms=terms).to(x.dtype)
+        scale = lin["dora_m"].to(x.dtype) / norm
+        y = y * (scale[:, None] if nodes else scale)
+    return y.reshape(*lead, d_out)
 
 
 # ----------------------------------------------------------------------
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
+    """weight (d,), or (K, d) per node with x's rows node-major."""
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
+    if weight.dim() == 2:                                # per node
+        nodes = weight.shape[0]
+        return (_by_node(y, nodes) * weight.float()[:, None]).reshape(
+            x.shape).to(x.dtype)
     return (y * weight.float()).to(x.dtype)
 
 
@@ -160,6 +202,6 @@ def mean_pool(x: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["truncated_normal_init", "make_linear", "add_lora", "add_dora",
-           "dora_column_norm", "linear", "rms_norm", "make_rms_norm",
+           "DORA_TERMS", "dora_w_terms", "dora_column_norm", "linear", "rms_norm", "make_rms_norm",
            "rope_frequencies", "apply_rope", "make_swiglu", "swiglu",
            "cross_entropy_loss", "mean_pool"]

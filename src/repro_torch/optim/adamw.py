@@ -46,12 +46,26 @@ class AdamW:
         return state
 
     def update(self, grads, state: dict, params):
+        return self._update(grads, state, params, lambda t, like: t,
+                            lambda g: (g.float() ** 2).sum())
+
+    def update_stacked(self, grads, state: dict, params):
+        """``update`` for K nodes stacked on a leading axis of every leaf,
+        each node on its own: the clip norm, ``step`` and ``round`` are per
+        node ((K,) in the state), as under the reference's ``vmap``."""
+        return self._update(
+            grads, state, params,
+            lambda t, like: t.reshape((-1,) + (1,) * (like.dim() - 1)),
+            lambda g: (g.float() ** 2).flatten(1).sum(1))
+
+    def _update(self, grads, state: dict, params, node, sq):
+        """``node(t, like)``: a per-node value shaped to broadcast over
+        ``like``; ``sq(g)``: the squared norm of a gradient, per node."""
         step = state["step"] + 1
         if self.grad_clip > 0:
-            gnorm = torch.sqrt(sum((g.float() ** 2).sum()
-                                   for g in tree_leaves(grads)))
+            gnorm = torch.sqrt(sum(sq(g) for g in tree_leaves(grads)))
             scale = (self.grad_clip / (gnorm + 1e-9)).clamp(max=1.0)
-            grads = _map(lambda g: g.float() * scale, grads)
+            grads = _map(lambda g: g.float() * node(scale, g), grads)
         b1, b2 = self.b1, self.b2
         m = _map(lambda mm, g: b1 * mm + (1 - b1) * g.float(),
                  state["m"], grads)
@@ -65,10 +79,12 @@ class AdamW:
             lr = lr * self.round_schedule(state["round"])
 
         def upd(p, mm, vv):
-            u = (mm * mhat_scale) / (torch.sqrt(vv * vhat_scale) + self.eps)
+            u = (mm * node(mhat_scale, mm)) / (
+                torch.sqrt(vv * node(vhat_scale, vv)) + self.eps)
             if self.weight_decay:
                 u = u + self.weight_decay * p.float()
-            return (p.float() - lr * u).to(p.dtype)
+            lr_p = node(lr, p) if isinstance(lr, torch.Tensor) else lr
+            return (p.float() - lr_p * u).to(p.dtype)
 
         new_state = {"m": m, "v": v, "step": step}
         if "round" in state:
