@@ -37,20 +37,34 @@ non-zero and prints no result):
    ``torch.addmm(x @ W, x @ A, B)``; as ``composition_ms``);
 3. serve: ``ServeEngine`` on fedmm-base at full width (24 layers, bf16,
    random weights from seed 0) serves 16 requests with prompts of 128 to
-   512 tokens through 8 slots; the launch counters must show that every
+   512 tokens through 8 slots, M = 8, every decode block one CUDA-graph
+   replay (the graph captured first, outside the counted window; its
+   capture seconds printed); the launch counters must show that every
    prefill layer ran the flash kernel and every decode step layer the
-   decode kernel.  A second, shorter serve run under ``torch.profiler``
-   reports the device's busy share and time by kernel;
+   decode kernel (24 x steps, 24 x admissions), with one replay and one
+   readback per block.  The same stream through ``eager=True`` (the block
+   without the graph) must give token-identical records and identical
+   ``stats`` (the serve graph oracle).  A second, shorter serve run under
+   ``torch.profiler`` reports the device's busy share and time by kernel;
 4. serve oracle: one request through the same model on the card and
    with its weights copied to the CPU in f32 (the kernels' plain
-   versions); the prefill logits and 8 decode steps must agree;
+   versions); the prefill logits and 8 decode steps must agree.  Then
+   the chaos phase, greedy and at temperature 0.7: 12 requests x 64
+   tokens under a ``seeded_plan`` of NaN and freeze events plus a
+   forced-token window, the stall watchdog and the repetition guard on,
+   a snapshot after every block and a simulated crash after block 1,
+   then ``ServeEngine.resume`` + ``resume_serve``: every request
+   terminal, faults and stalls counted, one graph per plan and engine,
+   exact launches, and the resumed records identical to an uncrashed run
+   with the same plan;
 5. ssm serve: ``ServeEngine`` on falcon-mamba-7b at full width and depth
    (64 layers, d_model 4096, d_inner 8192, state 16, bf16, random weights
-   from seed 0) serves the same 16 requests through 8 slots; every
-   admission must launch the scan kernel once per layer and nothing else
-   a kernel.  A shorter profiled run reports busy share and time by
-   kernel, and one request through a 2-layer model at full width is held
-   against the CPU in f32 (prefill logits and 8 decode steps, within
+   from seed 0) serves the same 16 requests through 8 slots, blocks
+   replayed as in 3; every admission must launch the scan kernel once
+   per layer and nothing else a kernel, and the eager stream must match
+   the replayed one.  A shorter profiled run reports busy share and time
+   by kernel, and one request through a 2-layer model at full width is
+   held against the CPU in f32 (prefill logits and 8 decode steps, within
    ``TOL`` of max |logit|);
 6. federation: ``SequentialFederation`` on fedmm-small at full width
    (12 layers, bf16, geodora, precision aggregation, the default 4 nodes
@@ -85,10 +99,13 @@ non-zero and prints no result):
    bf16 and f32, records and trainables within ``ENGINE_TOL``; then one
    eager round of the engine against its replay from the same state.
 
-Launch counters are set to 0 just before each path (serve, ssm serve,
-federation, engine) and read just after; the kernel checks' own
-launches never count.  A graph replay adds the launches its capture
-recorded.  It prints the card's name and power limit, one JSON line with every
+Launch counters are set to 0 just before each path (serve, its eager
+oracle, chaos, ssm serve and its oracle, federation, engine) and read
+just after; the kernel checks' own launches never count.  A graph
+replay adds the launches its capture recorded; a capture's warm-up
+launches for real (the chaos phase counts them, the serve phase
+captures before its window).  It prints the card's name and power
+limit, one JSON line with every
 kernel's numbers (the top-level times are its first timed shape's;
 ``timings`` lists every timed shape with its path), and last
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback: without
@@ -99,6 +116,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import re
@@ -129,7 +147,9 @@ from repro_torch.kernels.lora_matmul import (  # noqa: E402
 from repro_torch.kernels.selective_scan import selective_scan  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import (ServeConfig, ServeEngine,  # noqa: E402
-                               init_pool_cache, poisson_requests, scatter_slot)
+                               SimulatedCrash, init_pool_cache,
+                               poisson_requests, scatter_slot, seeded_plan,
+                               state_counts)
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 SENTINEL = (2 ** 31 - 1) // 2
@@ -896,16 +916,42 @@ def serve_requests(cfg, n_per_len: int = 4, max_new: int = 64):
     return sorted(reqs, key=lambda r: r.rid)
 
 
+SERVE_CFG = ServeConfig(n_slots=8, cache_len=1024, block_steps=8,
+                        max_new_tokens=64)
+
+
+def serve_launches(cfg, eng) -> dict:
+    """What ``eng``'s runs so far launched by the design: the prefill
+    kernel (flash, or the scan for ssm) once per layer per admission, and
+    for the dense family the decode kernel once per layer per decode step
+    -- the replayed blocks' steps and each capture's warm-up block."""
+    want = dict.fromkeys(WRAPPERS, 0)
+    admits = eng.stats["admit_dispatches"]
+    if cfg.family == "ssm":
+        want["selective_scan"] = cfg.n_layers * admits
+        return want
+    steps = eng.scfg.block_steps * (eng.stats["block_dispatches"]
+                                    + eng.graph_stats["captures"])
+    want.update(decode_attention=cfg.n_layers * steps,
+                flash_attention=cfg.n_layers * admits)
+    return want
+
+
+def sum_counts(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in WRAPPERS}
+
+
 def serve_phase(cfg, params) -> dict:
-    """The 16 requests through 8 slots; every admission must run its
-    prefill kernel (flash, or the scan for ssm) once per layer and every
-    dense decode step the decode kernel once per layer, and nothing else
-    may launch a kernel."""
-    scfg = ServeConfig(n_slots=8, cache_len=1024, block_steps=8,
-                       max_new_tokens=64)
+    """The 16 requests through 8 slots, every decode block one CUDA-graph
+    replay: the graph is captured first, outside the counted window; then
+    every admission must run its prefill kernel (flash, or the scan for
+    ssm) once per layer, every dense decode step the decode kernel once per
+    layer, nothing else may launch a kernel, and each block must be one
+    replay and one readback."""
+    scfg = SERVE_CFG
     log(f"serve phase: {cfg.arch_id}, {cfg.family}, {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.dtype}, 8 slots x 1024, M = 8, 16 "
-        f"requests x 64 tokens")
+        f"requests x 64 tokens, decode blocks replayed from a CUDA graph")
     # warm-up (cuBLAS handles, allocator) on its own engine, not counted
     ServeEngine(params, cfg, dataclasses.replace(scfg, max_new_tokens=9),
                 device="cuda").serve(serve_requests(cfg, 1, 9)[:2])
@@ -913,52 +959,292 @@ def serve_phase(cfg, params) -> dict:
     reqs = serve_requests(cfg)
     eng = ServeEngine(params, cfg, scfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
+    graph = eng.capture()
+    per_replay = {name: graph.launches_by_name()[fn.__name__]
+                  for name, fn in WRAPPERS.items()}
+    want_replay = dict.fromkeys(WRAPPERS, 0)
+    if cfg.family != "ssm":
+        want_replay["decode_attention"] = cfg.n_layers * scfg.block_steps
+    if per_replay != want_replay:
+        raise AssertionError(f"the decode block's graph records "
+                             f"{per_replay}, want {want_replay}")
+    capture_s = eng.graph_stats["capture_s"]
+    torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     recs = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    st = eng.stats
+    st, gst = eng.stats, eng.graph_stats
     bad = [r.rid for r in reqs if recs[r.rid].state != "completed"
            or len(recs[r.rid].tokens) != 64]
     if bad:
         raise AssertionError(f"requests not completed with 64 tokens: {bad}")
     steps = st["block_dispatches"] * scfg.block_steps
-    want = dict.fromkeys(WRAPPERS, 0)
-    if cfg.family == "ssm":
-        want["selective_scan"] = cfg.n_layers * st["admit_dispatches"]
-    else:
-        want.update(decode_attention=cfg.n_layers * steps,
-                    flash_attention=cfg.n_layers * st["admit_dispatches"])
+    want = serve_launches(cfg, eng)
+    if cfg.family != "ssm":          # the capture's warm-up is not counted
+        want["decode_attention"] = cfg.n_layers * steps
     if launches != want or st["admit_dispatches"] != len(reqs):
         raise AssertionError(f"kernel launches {launches}, want {want} "
                              f"({st['admit_dispatches']} admissions, "
                              f"{steps} decode steps)")
-    if st["block_syncs"] != st["block_dispatches"]:
-        raise AssertionError(f"readbacks {st['block_syncs']} != blocks "
-                             f"{st['block_dispatches']}")
+    if not (st["block_syncs"] == gst["replays"] == st["block_dispatches"]
+            and gst["captures"] == 1):
+        raise AssertionError(f"blocks {st['block_dispatches']}, replays "
+                             f"{gst['replays']}, readbacks "
+                             f"{st['block_syncs']}, captures "
+                             f"{gst['captures']}: want one capture, one "
+                             f"replay and one readback per block")
     n_tok = sum(len(recs[r.rid].tokens) for r in reqs)
-    log(f"  completed {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s:"
-        f" {n_tok / wall:.1f} tokens/s; {st['block_dispatches']} blocks,"
-        f" {st['block_syncs']} readbacks, {steps} decode steps; launches "
-        f"{launches}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return dict(launches=launches, wall_s=wall, tokens=n_tok, stats=st,
-                first=reqs[0],
-                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  1 graph captured in {capture_s:.3f} s (one eager warm-up block, "
+        f"then the capture; one replay launches {per_replay}); completed "
+        f"{len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
+        f"{n_tok / wall:.1f} tokens/s; {st['block_dispatches']} blocks, "
+        f"{gst['replays']} replays, {st['block_syncs']} readbacks, {steps} "
+        f"decode steps, {st['admit_dispatches']} admissions; launches "
+        f"{launches}; peak memory {peak:.2f} GiB")
+    return dict(launches=launches, wall_s=wall, tokens=n_tok, stats=dict(st),
+                first=reqs[0], reqs=reqs, records=recs, peak_gib=peak,
+                capture_s=capture_s, replays=gst["replays"])
+
+
+def serve_graph_oracle_phase(cfg, params, served) -> dict:
+    """The serve phase's stream again through ``eager=True`` (the same
+    block without the graph): records token-identical to the replayed run,
+    the same terminal states and identical ``stats``; exact launches."""
+    eng = ServeEngine(params, cfg, SERVE_CFG, device="cuda", eager=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    recs = eng.serve(served["reqs"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = serve_launches(cfg, eng)
+    if launches != want:
+        raise AssertionError(f"eager serve: launches {launches}, want {want}")
+    differ = [r.rid for r in served["reqs"]
+              if (recs[r.rid].state, recs[r.rid].tokens)
+              != (served["records"][r.rid].state,
+                  served["records"][r.rid].tokens)]
+    if differ or eng.stats != served["stats"]:
+        raise AssertionError(f"serve graph oracle ({cfg.arch_id}): records "
+                             f"of {differ} differ, stats {eng.stats} vs "
+                             f"{served['stats']}")
+    if eng.graph_stats["captures"] or eng.graph_stats["replays"]:
+        raise AssertionError(f"eager engine replayed: {eng.graph_stats}")
+    n_tok = sum(len(recs[r.rid].tokens) for r in served["reqs"])
+    log(f"serve graph oracle ({cfg.arch_id}): eager blocks {wall:.3f} s, "
+        f"{n_tok / wall:.1f} tokens/s, against the replayed "
+        f"{served['tokens'] / served['wall_s']:.1f} tokens/s: "
+        f"{len(served['reqs'])} records token-identical, stats identical "
+        f"({eng.stats}); launches {launches}")
+    return dict(launches=launches, wall_s=wall, tokens=n_tok)
+
+
+def chaos_requests(cfg, n: int = 12):
+    return poisson_requests(n, 0.0, prompt_len=128,
+                            vocab_size=cfg.vocab_size, seed=5, max_new=64)
+
+
+FORCED_SLOT = 6
+
+
+class GuardLog(ServeEngine):
+    """A ServeEngine that logs, for every block, each busy slot whose
+    fault flag the block raised: ``(first global decode step, slot,
+    rid)``.  Only the chaos phase uses it, to tell the two output guards'
+    trips apart; it reads ``t`` once per block before the replay."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.fault_log = []
+
+    def _run_block(self, fault_plan, cancel):
+        t0 = int(self.state["t"])
+        busy = [(s, rid) for s, rid in enumerate(self._sched.slot_rid)
+                if rid is not None and not cancel[s]]
+        packed = super()._run_block(fault_plan, cancel)
+        fault_h = packed[2 * self.scfg.block_steps + 1]
+        self.fault_log += [(t0, s, rid) for s, rid in busy if fault_h[s]]
+        return packed
+
+
+def chaos_plan(cfg, scfg, max_rep: int):
+    """A seeded plan of NaN and freeze events (``seeded_plan``), all after
+    the crash point, so the crash leaves no stall count in flight; a
+    forced token on slot 6 for ``max_rep + 1`` steps from step 0, so the
+    repetition guard must trip on the request that slot holds from the
+    start (its ``rep_run`` rides the snapshot when the trip comes after
+    the crash); the crash after block 1."""
+    m = scfg.block_steps
+    base = seeded_plan(0, n_steps=80, n_slots=scfg.n_slots, nan_rate=0.02,
+                       freeze_rate=0.02, freeze_span=3 * m)
+    if FORCED_SLOT in base.nan_slots + base.freeze_slots:
+        raise AssertionError(f"chaos: the seeded plan's NaN / freeze slots "
+                             f"{base.nan_slots} include the forced slot")
+    off = 3 * m
+    return dataclasses.replace(
+        base, nan_steps=tuple(t + off for t in base.nan_steps),
+        freeze_steps=tuple(t + off for t in base.freeze_steps),
+        force_steps=tuple(range(max_rep + 1)), force_slots=(FORCED_SLOT,),
+        force_token=17, crash_after_block=1)
+
+
+def guard_trips(plan, m: int, fault_log) -> tuple:
+    """Split a GuardLog's faults between the guards: a fault in a block
+    where the plan poisons that slot is the NaN guard's, every other one
+    the repetition guard's."""
+    nan, rep = [], []
+    for t0, s, rid in fault_log:
+        hit = s in plan.nan_slots and any(t0 <= t < t0 + m
+                                          for t in plan.nan_steps)
+        (nan if hit else rep).append((t0, s, rid))
+    return nan, rep
+
+
+def chaos_phase(cfg, params, temperature: float = 0.0) -> dict:
+    """fedmm-base under a seeded chaos plan (NaN, freeze and forced-token
+    events; the stall watchdog and the repetition guard on; a snapshot
+    after every block and a simulated crash after block 1), then
+    ``ServeEngine.resume`` + ``resume_serve``: every request terminal,
+    faults and stalls counted, each output guard tripped (the NaN guard on
+    a poisoned slot, the repetition guard on the forced slot, whose
+    request is retried), the faults the same across the crash, one graph
+    per plan and engine, exact launches, and the resumed stream
+    token-identical to an uncrashed run with the same plan."""
+    scfg = ServeConfig(n_slots=8, cache_len=256, block_steps=8,
+                       max_new_tokens=64, max_attempts=3, stall_blocks=2,
+                       temperature=temperature, seed=7)
+    reqs = chaos_requests(cfg)
+    snap = Path(__file__).resolve().parent / "build" / "chip_smoke" \
+        / "serve_snapshot.npz"
+    engines = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    probe_eng = ServeEngine(params, cfg, scfg, device="cuda")
+    probe = probe_eng.serve(reqs)
+    engines.append(probe_eng)
+    longest = max(max(sum(1 for _ in g) for _, g in itertools.groupby(
+        probe[r.rid].tokens)) for r in reqs)
+    # the guard must stay above every natural run, and the forced run must
+    # trip it before the forced slot's request spends its budget
+    max_rep = longest + 2
+    if max_rep + 1 > scfg.max_new_tokens - 1:
+        raise AssertionError(
+            f"chaos: the probe's longest run of one token is {longest}, so "
+            f"a repetition guard above it (max_repeat {max_rep}) cannot "
+            f"trip within {scfg.max_new_tokens} tokens")
+    scfg = dataclasses.replace(scfg, max_repeat=max_rep)
+    plan = chaos_plan(cfg, scfg, max_rep)
+    clean = dataclasses.replace(plan, crash_after_block=-1)
+    want_eng = GuardLog(params, cfg, scfg, device="cuda")
+    want = want_eng.serve(reqs, fault_plan=clean)
+    engines.append(want_eng)
+    crashed = GuardLog(params, cfg, scfg, device="cuda")
+    engines.append(crashed)
+    try:
+        crashed.serve(reqs, fault_plan=plan, snapshot_path=str(snap),
+                      snapshot_every_blocks=1)
+        raise AssertionError("chaos: the plan's crash did not fire")
+    except SimulatedCrash:
+        pass
+    resumed = GuardLog.resume(str(snap), params, cfg, device="cuda")
+    engines.append(resumed)
+    got = resumed.resume_serve(fault_plan=plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want_launches = sum_counts(*(serve_launches(cfg, e) for e in engines))
+    snap_bytes = snap.stat().st_size
+    shutil.rmtree(snap.parent)
+    counts = state_counts(got)
+    st = want_eng.stats
+    problems = []
+    if sum(counts.values()) != len(reqs) or any(
+            got[r.rid].state not in ("completed", "failed") for r in reqs):
+        problems.append(f"not every request terminal: {counts}")
+    if st["faults_detected"] < 1 or st["stalls_detected"] < 1:
+        problems.append(f"faults / stalls not detected: {st}")
+    m = scfg.block_steps
+    nan, rep = guard_trips(plan, m, want_eng.fault_log)
+    forced = [(t0, rid) for t0, s, rid in rep
+              if s == FORCED_SLOT and t0 <= max_rep]
+    if len(want_eng.fault_log) != st["faults_detected"]:
+        problems.append(f"fault log {want_eng.fault_log} against {st}")
+    if not nan:
+        problems.append(f"the NaN guard never tripped: {want_eng.fault_log}")
+    if not forced:
+        problems.append(f"the repetition guard did not trip on the forced "
+                        f"slot within the forced run: {want_eng.fault_log}")
+    elif want[forced[0][1]].retries < 1:
+        problems.append(f"the forced request {forced[0][1]} was not "
+                        f"retried: {want[forced[0][1]]}")
+    split = crashed.fault_log + resumed.fault_log
+    if split != want_eng.fault_log:
+        problems.append(f"faults across the crash {split} against the "
+                        f"uncrashed run's {want_eng.fault_log}")
+    if [e.graph_stats["captures"] for e in engines] != [1, 1, 1, 1]:
+        problems.append(f"captures {[e.graph_stats for e in engines]}")
+    for e in engines:
+        if not (e.graph_stats["replays"] == e.stats["block_dispatches"]
+                == e.stats["block_syncs"]):
+            problems.append(f"replays / readbacks {e.graph_stats} {e.stats}")
+    differ = [r.rid for r in reqs
+              if (got[r.rid].state, got[r.rid].tokens)
+              != (want[r.rid].state, want[r.rid].tokens)]
+    if differ:
+        problems.append(f"resumed records {differ} differ from the "
+                        f"uncrashed run")
+    if state_counts(want) != counts:
+        problems.append(f"states {counts} vs uncrashed {state_counts(want)}")
+    if launches != want_launches:
+        problems.append(f"launches {launches}, want {want_launches}")
+    if crashed.stats["snapshot_writes"] != 2 or resumed._blocks_done < 2:
+        problems.append(f"snapshots {crashed.stats}")
+    log(f"chaos phase ({cfg.arch_id}, temperature {temperature}, "
+        f"{len(reqs)} requests x 64 tokens over 8 slots x 256, "
+        f"{time.perf_counter() - t0:.1f} s): plan {len(plan.nan_steps)} "
+        f"NaN steps on slots {plan.nan_slots}, {len(plan.freeze_steps)} "
+        f"frozen steps on slots {plan.freeze_slots}, "
+        f"{len(plan.force_steps)} forced steps on slot {FORCED_SLOT}, "
+        f"max_repeat {max_rep} (longest run of one token unforced "
+        f"{longest}), crash after block 1; uncrashed run: "
+        f"{state_counts(want)}, faults {st['faults_detected']} (NaN guard "
+        f"{len(nan)}, repetition guard {len(rep)}: (first step, slot, rid) "
+        f"{want_eng.fault_log}), stalls "
+        f"{st['stalls_detected']}, {st['block_dispatches']} blocks; crashed "
+        f"after {crashed.stats['block_dispatches']} blocks with "
+        f"{crashed.stats['snapshot_writes']} snapshots of {snap_bytes} "
+        f"bytes; resumed from block "
+        f"{resumed._blocks_done - resumed.stats['block_dispatches']}: "
+        f"{counts}, faults {resumed.stats['faults_detected']}, stalls "
+        f"{resumed.stats['stalls_detected']}; captures "
+        f"{[e.graph_stats['captures'] for e in engines]} (probe, uncrashed, "
+        f"crashed, resumed) in "
+        f"{sum(e.graph_stats['capture_s'] for e in engines):.3f} s; "
+        f"records identical to the uncrashed run: {not differ}; launches "
+        f"{launches}")
+    if problems:
+        raise AssertionError(f"chaos phase: {problems}")
+    return dict(launches=launches, wall_s=wall)
 
 
 def trace_phase(cfg, params) -> None:
     """A separate, shorter serve run (8 requests x 17 tokens) under
-    ``torch.profiler``: device busy time against the host's wall time, and
-    the device time by kernel.  The untraced serve phase above gives the
-    tokens/s; this run only says where its time goes."""
+    ``torch.profiler``, its graph captured before the profiled window:
+    device busy time against the host's wall time, and the device time by
+    kernel.  The untraced serve phase above gives the tokens/s; this run
+    only says where its time goes."""
     from torch.profiler import ProfilerActivity, profile
-    scfg = ServeConfig(n_slots=8, cache_len=1024, block_steps=8,
-                       max_new_tokens=17)
+    scfg = dataclasses.replace(SERVE_CFG, max_new_tokens=17)
     reqs = serve_requests(cfg, 2, 17)
     eng = ServeEngine(params, cfg, scfg, device="cuda")
+    eng.capture()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -969,7 +1255,7 @@ def trace_phase(cfg, params) -> None:
     device_summary(prof, wall_us, f"trace phase ({cfg.arch_id}, profiled, "
                    f"{len(reqs)} requests x 17 tokens, "
                    f"{eng.stats['admit_dispatches']} admissions, {steps} "
-                   f"decode steps)")
+                   f"decode steps in {eng.graph_stats['replays']} replays)")
 
 
 def device_summary(prof, wall_us: float, title: str) -> None:
@@ -1077,6 +1363,7 @@ def ssm_phases() -> dict:
         f"{sum(nbytes(t) for t in tree_leaves(params)) / 2 ** 30:.2f} GiB, "
         f"built in {time.perf_counter() - t0:.2f} s")
     served = serve_phase(cfg, params)
+    served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
     trace_phase(cfg, params)
     del params
     small = cfg.with_(n_layers=2)
@@ -1495,8 +1782,10 @@ def main() -> int:
     params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
                            cfg, device="cuda")
     served = serve_phase(cfg, params)
+    served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
     trace_phase(cfg, params)
     oracle_phase(cfg, params, served["first"])
+    chaos = {t: chaos_phase(cfg, params, temperature=t) for t in (0.0, 0.7)}
     del params
 
     ssm_served = ssm_phases()
@@ -1518,8 +1807,16 @@ def main() -> int:
                "gram": "src/repro/kernels/gram.py:31",
                "lora_matmul": "src/repro/kernels/lora_matmul.py:44",
                "selective_scan": "src/repro/kernels/selective_scan.py:49"}
-    by_path = {k: {"serve": served["launches"][k],
-                   "ssm serve": ssm_served["launches"][k],
+    by_path = {k: {"serve (replayed blocks)": served["launches"][k],
+                   "serve graph oracle (eager blocks)":
+                       served["oracle"]["launches"][k],
+                   "chaos + crash + resume (greedy)":
+                       chaos[0.0]["launches"][k],
+                   "chaos + crash + resume (temperature 0.7)":
+                       chaos[0.7]["launches"][k],
+                   "ssm serve (replayed blocks)": ssm_served["launches"][k],
+                   "ssm serve graph oracle (eager blocks)":
+                       ssm_served["oracle"]["launches"][k],
                    "federation": rounds["launches"][k],
                    "federation at rank 64 (2 layers)":
                        rank64["launches"][k],
@@ -1539,8 +1836,10 @@ def main() -> int:
                     timings=r["timings"])
                for k, r in rows.items()]
     for what, run in (("serve", served), ("ssm serve", ssm_served)):
-        log(f"{what}: {run['tokens'] / run['wall_s']} tokens/s, wall "
-            f"{run['wall_s']} s, peak memory {run['peak_gib']} GiB")
+        log(f"{what}: {run['tokens'] / run['wall_s']} tokens/s replayed "
+            f"(eager blocks: {run['tokens'] / run['oracle']['wall_s']}), "
+            f"wall {run['wall_s']} s, capture {run['capture_s']} s, "
+            f"{run['replays']} replays, peak memory {run['peak_gib']} GiB")
     log(f"federation: round wall {rounds['walls']} s; at rank 64 (2 "
         f"layers) {rank64['walls']} s")
     log(f"engine: replayed round wall {engine['walls']} s; block of 2 "

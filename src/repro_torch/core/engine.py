@@ -27,10 +27,8 @@ into one CUDA graph and replays it:
   ``tap`` fires once per round on the host from it.
 
 On the CPU the same round body runs eagerly (the tests' path).  The
-kernels' launch counters (``lora_matmul.launches`` ...) are plain Python
-integers, which a replay does not touch: a capture counts the launches it
-records, takes them back off the counters (a capture launches nothing),
-and every replay adds them again, so the counters stay exact.
+capture, and how it keeps the kernels' launch counters exact through
+replays, is ``repro_torch.graphs``'s, shared with the serving engine.
 
 Not ported: participation plans and async rounds (``_round_part``,
 ``_round_async``), in-block checkpoints (``state_tap``), ``mesh=``; they
@@ -38,26 +36,20 @@ raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-import gc
 import logging
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.core import aggregation as agg
 from repro_torch.core import cka as cka_mod
 from repro_torch.core import uncertainty as unc
-from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.graphs import COUNTED
 from repro_torch.kernels.gram import cosine_gram
-from repro_torch.kernels.lora_matmul import lora_matmul
-from repro_torch.kernels.selective_scan import selective_scan
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import copy_into, tree_leaves, tree_map
 
-#: every kernel wrapper's launch counter, which replays keep exact
-COUNTED = (decode_attention, flash_attention, cosine_gram, lora_matmul,
-           selective_scan)
 SCALARS = ("task", "geo", "acc")
 
 # local_step(trains, opts, gbar, statics, batch) -> (trains, opts, aux): one
@@ -107,10 +99,6 @@ def _index(tree, i: int):
     return tree_map(lambda t: None if t is None else t[i], tree)
 
 
-def _copy_into(dst, src) -> None:
-    tree_map(lambda d, s: None if d is None else d.copy_(s), dst, src)
-
-
 def _safe_tap(fn, *args) -> None:
     """Taps are observability: an exception in one is logged and dropped."""
     try:
@@ -122,11 +110,9 @@ def _safe_tap(fn, *args) -> None:
 
 @dataclass
 class _Captured:
-    graph: Any
+    graph: graphs.Captured    # out: (M, 4K + 1) packed metrics
     signature: tuple
     batches: Any              # the graph's input buffers
-    out: torch.Tensor         # (M, 4K + 1) packed metrics, written by replays
-    launches: Tuple[int, ...]  # per COUNTED wrapper, what one replay launches
 
 
 class RoundEngine:
@@ -270,7 +256,7 @@ class RoundEngine:
                 trains, opts, gbar, server_m, statics,
                 tuple(_index(b, i) for b in batches))
             rows.append(self._pack(metrics))
-        _copy_into(state, (trains, opts, gbar, server_m))
+        copy_into(state, (trains, opts, gbar, server_m))
         return torch.stack(rows)
 
     # ---- CUDA graphs ---------------------------------------------------
@@ -279,46 +265,23 @@ class RoundEngine:
         return tuple(t.data_ptr() for t in tree_leaves((state, statics)))
 
     def capture(self, m: int, state, statics, batches) -> None:
-        """Capture the m-round block on the card: one warm-up run on a side
-        stream (its launches are real and count; the state is restored
-        after it), then the capture, whose recorded launches come off the
-        counters again.  Raises if the capture fails."""
-        leaves = tree_leaves(state)
-        saved = [t.clone() for t in leaves]
+        """Capture the m-round block on the card (``graphs.capture``: one
+        warm-up run, the state restored after it, then the capture).
+        Raises if the capture fails."""
         inputs = tree_map(lambda t: None if t is None else t.clone(),
                           batches)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side), torch.enable_grad():
-            self._block(m, state, statics, inputs)
-        torch.cuda.current_stream().wait_stream(side)
-        for t, s in zip(leaves, saved):
-            t.copy_(s)
-        del saved
-        before = tuple(fn.launches for fn in COUNTED)
-        graph = torch.cuda.CUDAGraph()
-        # no garbage collection while capturing: a collected cycle that
-        # holds another graph (a dropped Federation) would destroy it, and
-        # that CUDA call invalidates the capture
-        collect = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph), torch.enable_grad():
-                out = self._block(m, state, statics, inputs)
-        finally:
-            if collect:
-                gc.enable()
-        launches = tuple(fn.launches - b for fn, b in zip(COUNTED, before))
-        for fn, b in zip(COUNTED, before):
-            fn.launches = b
-        self._graphs[m] = _Captured(graph, self._signature(state, statics),
-                                    inputs, out, launches)
+
+        def run():
+            with torch.enable_grad():
+                return self._block(m, state, statics, inputs)
+
+        self._graphs[m] = _Captured(graphs.capture(run, tree_leaves(state)),
+                                    self._signature(state, statics), inputs)
         self.stats["captures"] += 1
 
     def captured_launches(self, m: int) -> dict:
         """Launches per wrapper that one replay of the m-round graph makes."""
-        return {fn.__name__: n for fn, n in zip(COUNTED,
-                                                 self._graphs[m].launches)}
+        return self._graphs[m].graph.launches_by_name()
 
     def _replay(self, m: int, state, statics, batches) -> torch.Tensor:
         entry = self._graphs.get(m)
@@ -326,12 +289,10 @@ class RoundEngine:
                                                                 statics):
             self.capture(m, state, statics, batches)
             entry = self._graphs[m]
-        _copy_into(entry.batches, batches)
-        entry.graph.replay()
-        for fn, n in zip(COUNTED, entry.launches):
-            fn.launches += n
+        copy_into(entry.batches, batches)
+        out = entry.graph.replay()
         self.stats["replays"] += 1
-        return entry.out
+        return out
 
     # ------------------------------------------------------------------
     def run_block(self, state, m: int, *, statics, batches, tap=None,

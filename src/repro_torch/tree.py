@@ -30,4 +30,10 @@ def tree_leaves(tree) -> list:
     return [] if tree is None else [tree]
 
 
-__all__ = ["tree_map", "tree_leaves"]
+def copy_into(dst, src) -> None:
+    """``d.copy_(s)`` at every tensor leaf ``d`` of ``dst`` (in place; the
+    matching leaves of ``src`` are read by key, not by walk order)."""
+    tree_map(lambda d, s: None if d is None else d.copy_(s), dst, src)
+
+
+__all__ = ["tree_map", "tree_leaves", "copy_into"]
