@@ -97,10 +97,30 @@ non-zero and prints no result):
 9. engine oracle: from one seed, one round through ``Federation``
    (replayed) and one through ``SequentialFederation`` on the card, in
    bf16 and f32, records and trainables within ``ENGINE_TOL``; then one
-   eager round of the engine against its replay from the same state.
+   eager round of the engine against its replay from the same state;
+10. participation: ``Federation`` on the same model with 8 nodes (4
+   modalities x 2: 4 width buckets of 2).  Under ``uniform`` C 4 (the
+   compact path, one cohort row per bucket) and under ``async``
+   (geometric lag p 0.5 capped at 3, transient 0.2, crash 0.1, rejoin
+   0.5, node 1's uplink poisoned), the round and the 2-round block are
+   captured, then 2 rounds and one block replayed, each with the engine
+   round's exact launch counts (1,920 / 240 / 11 a round), one replay and
+   one readback, finite records, weights summing to 1 (or 0 on an async
+   round that delivers nothing) and zero off the reporters, the cohort's
+   per-bucket split, the adapters and moments of nodes that sat out
+   unchanged bit for bit, the shipped leaves equal on every node,
+   staleness >= 0 exactly where a report was delivered, and node 1
+   quarantined once in every round it starts; one replayed round of each
+   under ``torch.profiler``.  At 2 layers, one round each of
+   ``precision`` C 4 and ``dropout`` 0.25 (the masked path).  Then at 2
+   layers in f32 a ``uniform`` and an ``async`` round, replayed, against
+   the eager run of the same round (bit-identical) and against
+   ``SequentialFederation`` on the card (cohorts and events equal,
+   records and trainables within ``ENGINE_TOL``).
 
 Launch counters are set to 0 just before each path (serve, its eager
-oracle, chaos, ssm serve and its oracle, federation, engine) and read
+oracle, chaos, ssm serve and its oracle, federation, engine, each
+participation round and block) and read
 just after; the kernel checks' own launches never count.  A graph
 replay adds the launches its capture recorded; a capture's warm-up
 launches for real (the chaos phase counts them, the serve phase
@@ -132,9 +152,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.federation import (Federation,  # noqa: E402
-                                         FederationConfig,
+from repro_torch.core.federation import (LOCAL_KEYS,  # noqa: E402
+                                         Federation, FederationConfig,
                                          SequentialFederation)
+from repro_torch.core.participation import (  # noqa: E402
+    ParticipationPlan, allocate_cohort)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -1752,6 +1774,276 @@ def engine_oracle_phase() -> dict:
 
 
 # ----------------------------------------------------------------------
+# participation phases: sampled cohorts and async rounds on the engine
+PART_NODES = 8                 # 4 modalities x 2: 4 width buckets of 2 nodes
+UNIFORM = ParticipationPlan(strategy="uniform", cohort_size=4, seed=0)
+PRECISION = ParticipationPlan(strategy="precision", cohort_size=4, seed=1)
+DROPOUT = ParticipationPlan(strategy="dropout", dropout_rate=0.25, seed=2)
+ASYNC = ParticipationPlan(strategy="async", lag_dist="geometric", lag_p=0.5,
+                          max_lag=3, transient_rate=0.2, crash_rate=0.1,
+                          rejoin_rate=0.5, poison_nodes=(1,), seed=3)
+
+
+def part_federation(n_layers: int = 0, dtype: str = "") -> Federation:
+    """``Federation`` on fedmm-small at full width (cut to ``n_layers``,
+    cast to ``dtype`` where given), geodora, precision aggregation, 8
+    nodes x 10 local steps, batch 32 x 16, rank 8."""
+    cfg = get_config("fedmm-small")
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
+    if dtype:
+        cfg = cfg.with_(dtype=dtype)
+    return Federation(FederationConfig(method="geodora",
+                                       aggregation="precision",
+                                       n_nodes=PART_NODES), cfg,
+                      device="cuda")
+
+
+def _node_rows(fed) -> dict:
+    """Per node: clones of its local adapters and of its AdamW state (both
+    moments, step, round) -- what a round must not touch on a node that
+    sits it out."""
+    out = {}
+    for i, (b, r) in fed._node_bucket.items():
+        out[i] = ([fed._trains[b][k]["w"][r].clone() for k in LOCAL_KEYS
+                   if k in fed._trains[b]]
+                  + [t[r].clone() for t in tree_leaves(fed._opts[b])])
+    return out
+
+
+def _shipped_leaves(fed, b: int) -> list:
+    out = []
+    tree_map(lambda l, m: out.append(l) if l is not None and m else None,
+             fed._trains[b], fed.engine.shipped_masks[b])
+    return out
+
+
+def check_part_block(what: str, fed, plan, recs, before, prev_q) -> list:
+    """Every record of a block under ``plan``: finite, weights summing to
+    1 (or 0 where an async round delivers nothing) and zero off the
+    reporters; a static cohort's size and per-bucket split; the async
+    events (staleness >= 0 exactly where delivered; each poisoned node
+    quarantined once in every round it starts).  Then the state: the
+    nodes that sat out every round unchanged bit for bit, the shipped
+    leaves equal on every node, every trainable and the consensus Gram
+    finite.  Returns the quarantine counts after the block."""
+    k = fed.fed.n_nodes
+    for j, rec in enumerate(recs):
+        tag = f"{what} round {j}"
+        values = [rec[x] for x in ("task_loss", "geo_loss", "acc",
+                                   "cross_node_cka")] + rec["weights"]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{tag}: non-finite record {rec}")
+        total = sum(rec["weights"])
+        sums = (0.0, 1.0) if plan.strategy == "async" else (1.0,)
+        if min(abs(total - x) for x in sums) > 1e-5:
+            raise AssertionError(f"{tag}: weights sum to {total}")
+        reporters = (rec["delivered"] if plan.strategy == "async"
+                     else rec["participation"])
+        if any(w != 0.0 for w, p in zip(rec["weights"], reporters) if not p):
+            raise AssertionError(f"{tag}: weight off the reporters {rec}")
+        if plan.strategy in ("uniform", "precision"):
+            split = allocate_cohort(plan.cohort_size,
+                                    [len(m) for m in fed._buckets])
+            got = [sum(rec["participation"][i] for i in m)
+                   for m in fed._buckets]
+            if rec["cohort_size"] != plan.cohort_size or got != list(split):
+                raise AssertionError(f"{tag}: cohort {rec['participation']}"
+                                     f", want {split} per bucket")
+        if plan.strategy == "async":
+            if any((s >= 0) != (d == 1.0) for s, d in zip(
+                    rec["staleness"], rec["delivered"])):
+                raise AssertionError(f"{tag}: staleness {rec['staleness']} "
+                                     f"vs delivered {rec['delivered']}")
+            for i in plan.poison_nodes:
+                if rec["quarantined"][i] != prev_q[i] + rec[
+                        "participation"][i]:
+                    raise AssertionError(
+                        f"{tag}: node {i} quarantined "
+                        f"{rec['quarantined'][i]} after {prev_q[i]}, "
+                        f"started {rec['participation'][i]}")
+            prev_q = rec["quarantined"]
+    sat_out = [i for i in range(k)
+               if not any(r["participation"][i] for r in recs)]
+    after = _node_rows(fed)
+    for i in sat_out:
+        if not all(torch.equal(a, b) for a, b in zip(after[i], before[i])):
+            raise AssertionError(f"{what}: node {i} sat out and its local "
+                                 f"leaves or moments moved")
+    first = [l[0] for l in _shipped_leaves(fed, 0)]
+    for b in range(len(fed._buckets)):
+        for l, f in zip(_shipped_leaves(fed, b), first):
+            if not bool((l == f).all()):
+                raise AssertionError(f"{what}: shipped leaves differ "
+                                     f"across nodes (bucket {b})")
+    leaves = tree_leaves(fed._trains) + [fed.gbar]
+    if not all(bool(torch.isfinite(t).all()) for t in leaves):
+        raise AssertionError(f"{what}: non-finite trainables or consensus "
+                             f"Gram")
+    log(f"  {what}: checks passed ({len(sat_out)} nodes sat out every "
+        f"round, bit for bit unchanged)")
+    return prev_q
+
+
+def participation_phase(fed, plan, name: str, rounds: int = 2,
+                        block: int = 2) -> dict:
+    """``plan`` on ``fed``: the round graph (and the ``block``-round graph)
+    captured outside the counted window, then ``rounds`` replayed rounds
+    and one replayed block, each with exact launch counts (the engine
+    round's: one trunk pass over the cohort's -- or, masked, all nodes'
+    -- rows per pass), one replay and one readback, and
+    ``check_part_block``."""
+    want = engine_launches(fed)
+    caps = []
+    for m in (1, block) if block else (1,):
+        t0 = time.perf_counter()
+        fed.capture(m, participation=plan)
+        torch.cuda.synchronize()
+        caps.append(time.perf_counter() - t0)
+        recorded = fed.engine.captured_launches(m, plan)
+        got = {n: recorded[fn.__name__] for n, fn in WRAPPERS.items()}
+        log(f"  {name}: captured the {m}-round graph in {caps[-1]:.3f} s; "
+            f"one replay launches {got}")
+        if got != {k: m * v for k, v in want.items()}:
+            raise AssertionError(f"{name}: {m}-round graph records {got}, "
+                                 f"want {m} x {want}")
+    stats = fed.engine.stats
+    prev_q = [0.0] * fed.fed.n_nodes
+
+    def run(m: int, tag: str):
+        nonlocal prev_q
+        before = _node_rows(fed)
+        torch.cuda.synchronize()
+        reset_counts()
+        reads, replays = stats["readbacks"], stats["replays"]
+        t0 = time.perf_counter()
+        recs = fed.run_rounds(m, block_size=m, participation=plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        log(f"  {name} {tag}: wall {wall:.3f} s, task "
+            f"{[round(r['task_loss'], 4) for r in recs]}, participation "
+            f"{[r['participation'] for r in recs]}, weights "
+            f"{[[round(w, 4) for w in r['weights']] for r in recs]}"
+            + ("".join(f", {x} {[r[x] for r in recs]}" for x in (
+                "delivered", "staleness", "quarantined"))
+               if plan.strategy == "async" else "") + f"; launches {got}")
+        if got != {k: m * v for k, v in want.items()}:
+            raise AssertionError(f"{name} {tag}: launches {got}, want "
+                                 f"{m} x {want}")
+        if (stats["readbacks"] - reads, stats["replays"] - replays) != (1, 1):
+            raise AssertionError(f"{name} {tag}: {stats} (one replay and "
+                                 f"one readback expected)")
+        prev_q = check_part_block(f"{name} {tag}", fed, plan, recs, before,
+                                  prev_q)
+        return got, wall
+
+    total, walls = dict.fromkeys(want, 0), []
+    for r in range(rounds):
+        got, wall = run(1, f"round {r} (replayed)")
+        walls.append(wall)
+        total = sum_counts(total, got)
+    out = dict(launches=total, walls=walls, capture_s=caps)
+    if block:
+        out["block_launches"], out["block_wall"] = run(
+            block, f"block of {block} rounds (one replay)")
+    if any(prev_q[i] < 1 for i in plan.poison_nodes):
+        raise AssertionError(f"{name}: a poisoned node never started, so "
+                             f"the quarantine guard was not tried")
+    return out
+
+
+def participation_trace_phase(fed, plan, name: str) -> None:
+    """One replayed round under ``plan`` with ``torch.profiler``: wall,
+    device busy share and launches."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fed.run_rounds(1, participation=plan)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    device_summary(prof, wall_us, f"participation trace ({name}, one "
+                   f"replayed round of {fed.fed.n_nodes} nodes x "
+                   f"{fed.fed.local_steps} local steps: staged draws and "
+                   f"uniforms, the replay, one readback)")
+
+
+def _snapshot(fed, plan) -> tuple:
+    return ([t.clone() for t in tree_leaves(fed._state(plan))],
+            [n["gen"].get_state() for n in fed._nodes],
+            fed._part_gen.get_state())
+
+
+def _restore(fed, plan, snap) -> None:
+    tensors, gens, part_gen = snap
+    for t, v in zip(tree_leaves(fed._state(plan)), tensors):
+        t.copy_(v)
+    for n, st in zip(fed._nodes, gens):
+        n["gen"].set_state(st)
+    fed._part_gen.set_state(part_gen)
+
+
+def participation_oracle_phase() -> dict:
+    """At 2 layers in f32, 8 nodes, from one seed: one ``uniform`` C 4
+    round and (afresh) one ``async`` round, each replayed and held against
+    (1) an eager run of the same round from the same state, draws and
+    uniforms: records and state bit-identical; (2) the same round through
+    ``SequentialFederation`` on the card: cohorts and events exact,
+    records and trainables within ``ENGINE_TOL`` (f32)."""
+    tol_rec, tol_state = ENGINE_TOL[torch.float32]
+    errs = {}
+    for plan in (UNIFORM, ASYNC):
+        t0 = time.perf_counter()
+        fed = part_federation(n_layers=2, dtype="float32")
+        seq = SequentialFederation(fed.fed, fed.cfg, device="cuda")
+        fed.capture(1, participation=plan)
+        snap = _snapshot(fed, plan)
+        state = fed._state(plan)
+        batches, uniforms, _ = fed._stage_part(1, plan)
+        _, eager = fed.engine.run_block(state, 1, statics=fed._statics,
+                                        batches=batches, plan=plan,
+                                        uniforms=uniforms, eager=True)
+        eager_state = [t.clone() for t in tree_leaves(state)]
+        _restore(fed, plan, snap)
+        got = fed.run_rounds(1, participation=plan)[0]
+        same_state = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(fed._state(plan)), eager_state))
+        if fed._metrics_record(eager[0]) != got or not same_state:
+            raise AssertionError(f"participation oracle ({plan.strategy}): "
+                                 f"eager and replayed rounds differ "
+                                 f"(state equal: {same_state})")
+        want = seq.run_rounds(1, participation=plan)[0]
+        torch.cuda.synchronize()
+        keys = ("participation", "cohort_size") + (
+            ("delivered", "staleness", "quarantined", "n_delivered")
+            if plan.strategy == "async" else ())
+        if any(got[x] != want[x] for x in keys):
+            raise AssertionError(f"participation oracle ({plan.strategy}): "
+                                 f"cohort or events differ: "
+                                 f"{[(x, got[x], want[x]) for x in keys]}")
+        err = dict(_record_errors(got, want), **_state_errors(fed.nodes,
+                                                               seq.nodes))
+        log(f"participation oracle ({plan.strategy}, 2 layers, f32, "
+            f"{time.perf_counter() - t0:.1f} s): replay == eager bit for "
+            f"bit; vs SequentialFederation: participation "
+            f"{got['participation']} (equal), " + ", ".join(
+                f"{k} {v:.3g}" for k, v in err.items())
+            + f" (tol: records {tol_rec}, trainables (norm) {tol_state})")
+        bad = {k: v for k, v in err.items() if k != "trainables (max)"
+               and not v <= (tol_state if k.startswith("trainables")
+                             else tol_rec)}
+        if bad:
+            raise AssertionError(f"participation oracle {plan.strategy}: "
+                                 f"{bad}")
+        errs[plan.strategy] = err
+        del fed, seq
+        gc.collect()                  # the engine and its graph
+    return errs
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's smoke run "
@@ -1802,6 +2094,31 @@ def main() -> int:
     gc.collect()                      # the engine and its graphs
     engine_oracle_phase()
 
+    t_part = time.perf_counter()
+    pfed = part_federation()
+    log(f"participation phase: Federation on fedmm-small ({pfed.cfg.n_layers}"
+        f" layers, d_model {pfed.cfg.d_model}, {pfed.cfg.dtype}), geodora, "
+        f"precision, {PART_NODES} nodes x {pfed.fed.local_steps} local steps,"
+        f" buckets {[len(b) for b in pfed._buckets]} of widths "
+        f"{pfed._bucket_widths}")
+    part = {"uniform": participation_phase(pfed, UNIFORM, "uniform C 4")}
+    participation_trace_phase(pfed, UNIFORM, "uniform C 4")
+    part["async"] = participation_phase(pfed, ASYNC, "async")
+    participation_trace_phase(pfed, ASYNC, "async")
+    del pfed
+    gc.collect()
+    pfed = part_federation(n_layers=2)
+    part["precision"] = participation_phase(pfed, PRECISION,
+                                            "precision C 4 (2 layers)",
+                                            rounds=1, block=0)
+    part["dropout"] = participation_phase(pfed, DROPOUT,
+                                          "dropout 0.25 (2 layers)",
+                                          rounds=1, block=0)
+    del pfed
+    gc.collect()
+    participation_oracle_phase()
+    part_s = time.perf_counter() - t_part
+
     sources = {"decode_attention": "src/repro/kernels/decode_attention.py:77",
                "flash_attention": "src/repro/kernels/flash_attention.py:69",
                "gram": "src/repro/kernels/gram.py:31",
@@ -1822,7 +2139,19 @@ def main() -> int:
                        rank64["launches"][k],
                    "engine (2 replayed rounds)": engine["launches"][k],
                    "engine (one replayed block of 2 rounds)":
-                       engine["block_launches"][k]} for k in rows}
+                       engine["block_launches"][k],
+                   "participation uniform C 4 (2 replayed rounds)":
+                       part["uniform"]["launches"][k],
+                   "participation uniform C 4 (one replayed block of 2)":
+                       part["uniform"]["block_launches"][k],
+                   "participation async (2 replayed rounds)":
+                       part["async"]["launches"][k],
+                   "participation async (one replayed block of 2)":
+                       part["async"]["block_launches"][k],
+                   "participation precision C 4 (2 layers, one round)":
+                       part["precision"]["launches"][k],
+                   "participation dropout 0.25 (2 layers, one round)":
+                       part["dropout"]["launches"][k]} for k in rows}
     # the top-level times are the first timed shape's; ``timings`` holds
     # every timed shape with its path
     kernels = [dict(name=k, route="cuda",
@@ -1844,6 +2173,13 @@ def main() -> int:
         f"layers) {rank64['walls']} s")
     log(f"engine: replayed round wall {engine['walls']} s; block of 2 "
         f"rounds {engine['block_wall']} s")
+    for k, v in part.items():
+        log(f"participation {k}: replayed round wall {v['walls']} s"
+            + (f"; block of 2 rounds {v['block_wall']} s"
+               if "block_wall" in v else "")
+            + f"; captures {v['capture_s']} s")
+    log(f"participation phases (captures, rounds, traces, oracle): "
+        f"{part_s:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -88,10 +88,18 @@ def load_engine_state(fed, state: dict) -> None:
     ``load_federation_state`` reads, without ``nodes``, plus the bucketed
     state: ``trains`` and ``opts`` (tuples per bucket of node-stacked trees,
     the reference's ``_trains`` / ``_opts``) and ``server_m`` (its
-    ``_server_m``, None when server momentum is off).  The reference's RNG
-    keys have no counterpart: a parity test feeds the port its draws.  The
-    port's per-bucket statics and node views are rebuilt from the new
-    substrate and state."""
+    ``_server_m``, None when server momentum is off).
+
+    With ``participation`` (the reference's ``plan_meta`` of its active
+    plan) and ``part`` (its ``_part_state``) the sampler state crosses
+    too: the port installs the plan and takes ``prev_p``, ``offline``,
+    ``countdown``, ``lag`` and ``quarantined`` (under ``ctl`` for an
+    async plan) and the async report buffer ``buf`` (``shipped``,
+    ``gram``, ``prec``).  The reference's RNG keys have no counterpart
+    (the sampler's included: the port's generator starts from the plan
+    seed): a parity test feeds the port its draws.  The port's per-bucket
+    statics and node views are rebuilt from the new substrate and
+    state."""
     _load_substrate(fed, state)
     trains = tuple(params_from_numpy(tr, fed.device)
                    for tr in state["trains"])
@@ -102,8 +110,27 @@ def load_engine_state(fed, state: dict) -> None:
     fed._opts = tuple(params_from_numpy(op, fed.device)
                       for op in state["opts"])
     fed._server_m = params_from_numpy(state["server_m"], fed.device)
+    if state.get("part") is not None:
+        _load_part_state(fed, state["participation"], state["part"])
     fed._refresh_statics()
     fed._views_stale = True
+
+
+def _load_part_state(fed, meta: dict, part: dict) -> None:
+    """The reference's sampler state into the port's, in place (the
+    captured graphs read these tensors); its ``key`` is dropped."""
+    from repro_torch.core.participation import plan_from_meta
+    from repro_torch.tree import copy_into
+
+    fed._ensure_participation(plan_from_meta(meta))
+    ours = fed._part_state
+    theirs = dict(part)
+    if "ctl" in theirs:
+        theirs["ctl"] = {k: v for k, v in theirs["ctl"].items()
+                         if k != "key"}
+    else:
+        theirs = {k: v for k, v in theirs.items() if k != "key"}
+    copy_into(ours, params_from_numpy(theirs, fed.device))
 
 
 def _load_substrate(fed, state: dict) -> None:

@@ -1,7 +1,9 @@
 """Server-side aggregation (paper Eqs. 4-5): the port of
-``repro.core.aggregation`` without the participation forms -- the
-per-node functions of the sequential round and the node-stacked ones of
-the round engine (``weighted_average_stacked`` and its bucketed halves).
+``repro.core.aggregation`` -- the per-node functions of the sequential
+round, the node-stacked ones of the round engine
+(``weighted_average_stacked`` and its bucketed halves, with a
+participation mask), and the async report buffer's average
+(``weighted_average_reports``).
 
 ``lora_A`` is frozen and the same on every node, so averaging the
 ``lora_B`` factors averages the low-rank updates exactly; with GeoDoRA the
@@ -84,16 +86,35 @@ def broadcast_into_buckets(bucket_trees, shipped_masks, total):
 
 
 def weighted_average_bucketed(bucket_trees, weights: torch.Tensor,
-                              shipped_masks, bucket_sizes):
+                              shipped_masks, bucket_sizes,
+                              part_mask: torch.Tensor = None):
     """The server step across width buckets: ``bucket_trees[b]`` stacks
     bucket b's nodes on a leading axis and ``weights`` (K,) is in
     bucket-concatenated row order.  Shipped leaves are averaged over all
     buckets and broadcast back into each; node-local leaves, whose widths
-    differ by bucket, pass through."""
+    differ by bucket, pass through.  ``part_mask`` (K,) 0/1 zeroes the
+    non-reporting rows out of the average and renormalises the weights
+    over the reporters (Eqs. 4-5 over the cohort); None uses the weights
+    as given."""
+    if part_mask is not None:
+        w = weights.float() * part_mask.float()
+        weights = w / w.sum().clamp_min(1e-12)
     return broadcast_into_buckets(
         bucket_trees, shipped_masks,
         bucketed_partial_sums(bucket_trees, weights, shipped_masks,
                               bucket_sizes))
+
+
+def weighted_average_reports(report_tree, weights: torch.Tensor):
+    """Weighted sum over the async REPORT BUFFER: each leaf stacks the K
+    nodes' buffered shipped side-cars on a leading axis; ``weights`` (K,)
+    is already staleness-normalised (all zero on a round with no
+    delivery, giving the zero tree: the caller keeps the previous value).
+    Returns the float32 tree."""
+    w = weights.float()
+    return tree_map(lambda leaf: None if leaf is None
+                    else torch.tensordot(w, leaf.float(), dims=1),
+                    report_tree)
 
 
 def comm_bytes_per_round(trainable_tree, gram_side: int = 0) -> int:
@@ -105,4 +126,4 @@ def comm_bytes_per_round(trainable_tree, gram_side: int = 0) -> int:
 __all__ = ["weighted_mean_trees", "aggregate_geolora",
            "weighted_average_stacked", "bucketed_partial_sums",
            "broadcast_into_buckets", "weighted_average_bucketed",
-           "comm_bytes_per_round"]
+           "weighted_average_reports", "comm_bytes_per_round"]

@@ -45,9 +45,22 @@ def geo_alignment_loss(pooled_anchors: torch.Tensor,
                      center=center)
 
 
-def consensus_gram(node_grams: torch.Tensor) -> torch.Tensor:
-    """Server: G_bar = mean_k G_k over (K, B, B)."""
-    return node_grams.mean(dim=0)
+def consensus_gram(node_grams: torch.Tensor, mask: torch.Tensor = None,
+                   fallback: torch.Tensor = None) -> torch.Tensor:
+    """Server: G_bar = mean_k G_k over (K, B, B).  With a participation
+    ``mask`` (K,) the mean runs over the REPORTING nodes only (Eq. 2 over
+    whichever nodes upload this round); ``fallback`` (B, B) is returned
+    when the mask selects none (an async round with no fresh-enough
+    delivery keeps the previous consensus).  No branch on a value: the
+    captured round runs it."""
+    if mask is None:
+        return node_grams.mean(dim=0)
+    m = mask.float()
+    num = (m[:, None, None] * node_grams.float()).sum(dim=0)
+    mean = num / m.sum().clamp_min(1.0)
+    if fallback is None:
+        return mean
+    return torch.where(m.sum() > 0.0, mean, fallback.float())
 
 
 def pairwise_cka(grams: torch.Tensor, *, center: bool = False,
@@ -61,13 +74,19 @@ def pairwise_cka(grams: torch.Tensor, *, center: bool = False,
     return num / (norms[:, None] * norms[None, :]).clamp_min(eps)
 
 
-def mean_offdiag_cka(grams: torch.Tensor, *,
-                     center: bool = False) -> torch.Tensor:
+def mean_offdiag_cka(grams: torch.Tensor, *, center: bool = False,
+                     mask: torch.Tensor = None) -> torch.Tensor:
     """Mean off-diagonal pairwise CKA: the round's cross-modality
-    alignment metric."""
+    alignment metric.  With a participation ``mask`` (K,) only pairs of
+    REPORTING nodes count (0.0 when fewer than two report)."""
     k = grams.shape[0]
     pair = pairwise_cka(grams, center=center)
-    return (pair.sum() - torch.trace(pair)) / max(k * (k - 1), 1)
+    if mask is None:
+        return (pair.sum() - torch.trace(pair)) / max(k * (k - 1), 1)
+    m = mask.float()
+    w = m[:, None] * m[None, :] * (1.0 - torch.eye(k, dtype=torch.float32,
+                                                   device=m.device))
+    return (pair * w).sum() / w.sum().clamp_min(1.0)
 
 
 __all__ = ["cosine_gram", "cka", "geo_alignment_loss", "consensus_gram",

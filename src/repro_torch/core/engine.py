@@ -30,9 +30,24 @@ On the CPU the same round body runs eagerly (the tests' path).  The
 capture, and how it keeps the kernels' launch counters exact through
 replays, is ``repro_torch.graphs``'s, shared with the serving engine.
 
-Not ported: participation plans and async rounds (``_round_part``,
-``_round_async``), in-block checkpoints (``state_tap``), ``mesh=``; they
-raise ``NotImplementedError``.
+Participation plans (``core.participation``) have round bodies of their
+own, so the full-participation graph stays as it is: ``_round_part``
+samples the cohort on the device and runs either the compact path (the
+cohort's rows gathered into (c_b, ...) stacks, compute proportional to
+C) or the masked path (all K compute, the others' state kept), and
+``_round_async`` runs the lag-and-failure simulator, the quarantine
+guard, the report buffer and the staleness-weighted server step.  Both
+are captured once per (plan, M), as the reference compiles once per
+frozen plan.  The cohort of round i + 1 can depend on round i (the
+``precision`` strategy's estimates, the async countdowns), so the
+sampler runs inside the graph on uniforms staged before the block, and
+each node reads its own next round of staged draws through a per-node
+count of rounds trained (the caller re-positions the generators from
+the readback).
+
+Not ported: in-block checkpoints (``state_tap``) and ``mesh=`` (with
+the sharded participation and async rounds); they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,6 +60,7 @@ import torch
 from repro_torch import graphs
 from repro_torch.core import aggregation as agg
 from repro_torch.core import cka as cka_mod
+from repro_torch.core import participation as part_mod
 from repro_torch.core import uncertainty as unc
 from repro_torch.graphs import COUNTED
 from repro_torch.kernels.gram import cosine_gram
@@ -99,6 +115,40 @@ def _index(tree, i: int):
     return tree_map(lambda t: None if t is None else t[i], tree)
 
 
+def masked_select(mask: torch.Tensor, new_tree, old_tree):
+    """Per-row selection under a participation mask: rows with ``mask > 0``
+    take the advanced value, the others keep the old one -- what makes a
+    straggler's round a no-op on every piece of its state.  Leaves lead
+    with the node-row axis."""
+    def sel(new, old):
+        if new is None:
+            return None
+        m = mask.reshape((mask.shape[0],) + (1,) * (new.dim() - 1)) > 0
+        return torch.where(m, new, old)
+    return tree_map(sel, new_tree, old_tree)
+
+
+def _gather(tree, idx: torch.Tensor):
+    return tree_map(lambda t: None if t is None else t.index_select(0, idx),
+                    tree)
+
+
+def _scatter(full, part, idx: torch.Tensor):
+    """``full`` with rows ``idx`` replaced by ``part``'s (out of place)."""
+    return tree_map(lambda f, p: None if f is None else f.index_copy(0, idx,
+                                                                     p),
+                    full, part)
+
+
+def _pick_draws(batches, slots: torch.Tensor, rows: torch.Tensor):
+    """Staged draws (M, E, k_b, ...) -> (E, n, ...): row ``rows[j]``'s draws
+    of its round ``slots[j]``, its own count of rounds trained so far in
+    the block -- so a node trains on its k-th round of draws whatever
+    the cohort schedule."""
+    return tree_map(lambda x: None if x is None
+                    else x[slots, :, rows].transpose(0, 1), batches)
+
+
 def _safe_tap(fn, *args) -> None:
     """Taps are observability: an exception in one is logged and dropped."""
     try:
@@ -108,9 +158,14 @@ def _safe_tap(fn, *args) -> None:
             "engine tap callback raised; payload dropped")
 
 
+#: per-node fields of a participation round's packed metrics, after SCALARS
+#: and the weights; the async round adds ASYNC_FIELDS
+ASYNC_FIELDS = ("delivered", "staleness", "quarantined")
+
+
 @dataclass
 class _Captured:
-    graph: graphs.Captured    # out: (M, 4K + 1) packed metrics
+    graph: graphs.Captured    # out: (M, F) packed metrics
     signature: tuple
     batches: Any              # the graph's input buffers
 
@@ -149,6 +204,17 @@ class RoundEngine:
             inv[node] = row
         self._inv_perm = (None if list(perm) == sorted(perm) else
                           torch.tensor(inv, dtype=torch.long, device=device))
+        self._row_of_node = tuple(inv)
+        # canonical node ids per bucket (row order) and each bucket's first
+        # row: the participation sampler's groups
+        groups, offs, off = [], [], 0
+        for kb in self.bucket_sizes:
+            groups.append(tuple(perm[off:off + kb]))
+            offs.append(off)
+            off += kb
+        self._groups, self._bucket_offsets = tuple(groups), tuple(offs)
+        self.device = torch.device(device)
+        self._plan_consts = {}
         self._graphs = {}
         #: captures, replays and device readbacks so far
         self.stats = {"captures": 0, "replays": 0, "readbacks": 0}
@@ -259,64 +325,418 @@ class RoundEngine:
         copy_into(state, (trains, opts, gbar, server_m))
         return torch.stack(rows)
 
+    # ---- participation (sampled cohorts, straggler masks) --------------
+    def _consts(self, plan) -> dict:
+        """A plan's constants on the device, made once and before any
+        capture (a host-to-device copy cannot sit in a graph): the fixed
+        cohort of a ``nodes`` plan, and the NaN injection row of
+        ``poison_nodes`` in engine-row order."""
+        c = self._plan_consts.get(plan)
+        if c is None:
+            c = {}
+            if plan.strategy == "nodes":
+                c["cohort"] = part_mod.nodes_cohort(plan, self._groups,
+                                                    self.device)
+            if plan.poison_nodes:
+                pm = part_mod.poison_mask(plan, self.ecfg.n_nodes,
+                                          self._row_of_node, self.device)
+                c["inject"] = torch.where(pm > 0, torch.full_like(
+                    pm, float("nan")), torch.zeros_like(pm))
+            self._plan_consts[plan] = c
+        return c
+
+    def _round_part(self, plan, trains, opts, gbar, server_m, part,
+                    statics, batches, u, slots):
+        """One round under a ``ParticipationPlan``: the cohort is sampled
+        on the device from ``part`` and this round's uniforms ``u``; local
+        epochs run only for the cohort (compact path: its rows gathered
+        into (c_b, ...) stacks, then scattered back) or run for all and are
+        kept only for it (masked path); the whole server step runs over the
+        cohort.  Non-reporters keep their trainables, moments, round
+        counter and draw slot, then receive the broadcast."""
+        k = self.ecfg.n_nodes
+        prev = None if server_m is None else self._server_prev(trains)
+        if plan.strategy == "nodes":
+            row_masks, cohort_rows = self._consts(plan)["cohort"]
+        else:
+            row_masks, cohort_rows, part = part_mod.sample_rows(
+                plan, part, self._groups, u)
+        compact = (plan.compact and part_mod.static_cohort(plan)
+                   and cohort_rows is not None)
+        trains, opts = list(trains), list(opts)
+        mask_rows = torch.cat(row_masks)
+        need_p = (self.ecfg.aggregation == "precision"
+                  or plan.strategy == "precision")
+
+        if compact:
+            live = [b for b, idx in enumerate(cohort_rows) if idx.shape[0]]
+            idx = [cohort_rows[b] for b in live]
+            tr_c, op_c, last = self._local_epochs(
+                tuple(_gather(trains[b], i) for b, i in zip(live, idx)),
+                tuple(_gather(opts[b], i) for b, i in zip(live, idx)), gbar,
+                tuple(_gather(statics[b], i) for b, i in zip(live, idx)),
+                tuple(_pick_draws(batches[b], slots[b].index_select(0, i), i)
+                      for b, i in zip(live, idx)))
+            for b, i, t, o in zip(live, idx, tr_c, op_c):
+                trains[b] = _scatter(trains[b], t, i)
+                opts[b] = _scatter(opts[b], o, i)
+            rows_cat = torch.cat([self._bucket_offsets[b] + i
+                                  for b, i in zip(live, idx)])
+            c = int(rows_cat.shape[0])
+
+            # ---- server over the cohort ----
+            grams = self._grams_of(last["pooled_a"])
+            new_gbar = cka_mod.consensus_gram(grams)         # C rows only
+            p_c = (unc.batched_precisions(last["pooled"], last["pooled_a"])
+                   if need_p else None)
+            if self.ecfg.aggregation == "precision":
+                w_c = unc.precision_weights(p_c)
+            else:
+                w_c = torch.full((c,), 1.0 / c, device=gbar.device)
+            total = agg.bucketed_partial_sums(
+                tr_c, w_c, tuple(self.shipped_masks[b] for b in live),
+                tuple(int(i.shape[0]) for i in idx))
+            if server_m is not None:
+                server_m, total = self._apply_server_momentum(prev, total,
+                                                              server_m)
+            trains = list(agg.broadcast_into_buckets(
+                tuple(trains), self.shipped_masks, total))
+
+            def scatter(v):
+                return torch.zeros((k,), device=gbar.device).index_copy(
+                    0, rows_cat, v.float())
+            scalars = {name: scatter(last[name]) for name in SCALARS}
+            weights_rows = scatter(w_c)
+            xcka = cka_mod.mean_offdiag_cka(grams,
+                                            center=self.ecfg.center_cka)
+            if p_c is not None:
+                part = part_mod.update_state(plan, part, mask_rows,
+                                             scatter(p_c))
+        else:
+            # masked path: every row computes, only reporting rows' state
+            # advances
+            tr2, op2, last = self._local_epochs(
+                tuple(trains), tuple(opts), gbar, statics,
+                tuple(_pick_draws(bt, sl, torch.arange(
+                    kb, device=gbar.device)) for bt, sl, kb
+                      in zip(batches, slots, self.bucket_sizes)))
+            for b, mb in enumerate(row_masks):
+                trains[b] = masked_select(mb, tr2[b], trains[b])
+                opts[b] = masked_select(mb, op2[b], opts[b])
+            grams = self._grams_of(last["pooled_a"])
+            new_gbar = cka_mod.consensus_gram(grams, mask=mask_rows)
+            p_rows = (unc.batched_precisions(last["pooled"],
+                                             last["pooled_a"])
+                      if need_p else None)
+            if self.ecfg.aggregation == "precision":
+                weights_rows = unc.masked_precision_weights(p_rows,
+                                                            mask_rows)
+            else:
+                weights_rows = mask_rows / mask_rows.sum().clamp_min(1.0)
+            if server_m is None:
+                trains = list(agg.weighted_average_bucketed(
+                    tuple(trains), weights_rows, self.shipped_masks,
+                    self.bucket_sizes, part_mask=mask_rows))
+            else:
+                total = agg.bucketed_partial_sums(
+                    tuple(trains), weights_rows, self.shipped_masks,
+                    self.bucket_sizes)
+                server_m, total = self._apply_server_momentum(prev, total,
+                                                              server_m)
+                trains = list(agg.broadcast_into_buckets(
+                    tuple(trains), self.shipped_masks, total))
+            scalars = {name: last[name].float() * mask_rows
+                       for name in SCALARS}
+            xcka = cka_mod.mean_offdiag_cka(
+                grams, center=self.ecfg.center_cka, mask=mask_rows)
+            if p_rows is not None:
+                part = part_mod.update_state(plan, part, mask_rows, p_rows)
+
+        metrics = {name: self._unpermute(v) for name, v in scalars.items()}
+        metrics.update(weights=self._unpermute(weights_rows),
+                       cross_node_cka=xcka,
+                       participation=self._unpermute(mask_rows),
+                       cohort_size=mask_rows.sum())
+        slots = tuple(sl + mb.long() for sl, mb in zip(slots, row_masks))
+        return (tuple(trains), tuple(opts), new_gbar, server_m, part,
+                metrics, slots)
+
+    # ---- async (FedBuff-style) rounds ---------------------------------
+    def _shipped_rows(self, trains):
+        """The shipped leaves of every bucket as one (K, ...) stack per leaf
+        (float32, None elsewhere): the report buffer's layout.  Shipped
+        shapes are the same in every bucket."""
+        parts = [tree_map(lambda l, m_: None if l is None or not m_
+                          else l.float(), tree, mask)
+                 for tree, mask in zip(trains, self.shipped_masks)]
+        return tree_map(lambda *ls: None if ls[0] is None else torch.cat(ls),
+                        *parts)
+
+    def init_async_state(self, trains, plan, gram_side: int) -> dict:
+        """The carried async state for ``plan``: the simulator's (K,)
+        arrays (``ctl``, without the generator, which the caller keeps)
+        and the zeroed REPORT BUFFER -- per-node shipped side-cars, anchor
+        Grams and LAP precisions (``buf``), shaped from ``trains``."""
+        plan = part_mod.normalize(plan)
+        if plan is None or plan.strategy != "async":
+            raise ValueError("init_async_state needs an async plan")
+        k, dev = self.ecfg.n_nodes, self.device
+        buf = {"shipped": tree_map(lambda l: None if l is None
+                                   else torch.zeros_like(l),
+                                   self._shipped_rows(trains)),
+               "gram": torch.zeros((k, gram_side, gram_side),
+                                   dtype=torch.float32, device=dev),
+               "prec": torch.zeros((k,), dtype=torch.float32, device=dev)}
+        ctl = part_mod.device_state(part_mod.init_state(plan, k, dev))
+        return {"ctl": ctl, "buf": buf}
+
+    def _async_server(self, plan, trains, start, lag_draw, shipped, grams,
+                      prec, buf, ctl, gbar, prev, server_m):
+        """The async server step on (K,)-row reports: fault injection, the
+        quarantine guard, the buffer write, the staleness-weighted average
+        of the reports whose lag expires, and the broadcast.  A round with
+        no delivery (or all staled out) keeps the previous broadcast
+        value, consensus Gram and momentum: the protocol idles."""
+        k = self.ecfg.n_nodes
+
+        def rows(v, like):
+            return v.reshape((k,) + (1,) * (like.dim() - 1))
+
+        # fault injection: poison_nodes' uplink reports (never their local
+        # state) turn to NaN, which the guard must catch
+        if plan.poison_nodes:
+            inj = self._consts(plan)["inject"]
+            shipped = tree_map(lambda l: None if l is None
+                               else l + rows(inj, l), shipped)
+            grams, prec = grams + rows(inj, grams), prec + inj
+
+        # the quarantine guard, before anything enters the buffer: a
+        # non-finite value anywhere in the report, or an exploded norm
+        finite = torch.isfinite(grams.reshape(k, -1)).all(1) \
+            & torch.isfinite(prec)
+        norm_sq = torch.zeros((k,), device=gbar.device)
+        for leaf in tree_leaves(shipped):
+            flat = leaf.reshape(k, -1)
+            finite = finite & torch.isfinite(flat).all(1)
+            norm_sq = norm_sq + (flat.float() ** 2).sum(1)
+        qn = float(plan.quarantine_norm)
+        bad = ((~finite) | (norm_sq > qn * qn)).float()
+        ok = start * (1.0 - bad)
+        ctl = dict(ctl, quarantined=ctl["quarantined"]
+                   + (start * bad).to(torch.int32))
+
+        # the buffer takes the accepted rows only (a rejected reporter
+        # stays idle and retries next round)
+        def sel(new, old):
+            return torch.where(rows(ok, new) > 0, new, old)
+        buf = {"shipped": tree_map(lambda n, o: None if n is None
+                                   else sel(n, o), shipped, buf["shipped"]),
+               "gram": sel(grams.float(), buf["gram"]),
+               "prec": sel(prec.float(), buf["prec"])}
+        countdown = torch.where(ok > 0, lag_draw, ctl["countdown"])
+        lag = torch.where(ok > 0, lag_draw, ctl["lag"])
+
+        # delivery: the reports whose lag expires this round, weighted by
+        # precision x staleness factor, normalised over the deliveries
+        delivered = (countdown == 0).float()
+        f = unc.staleness_factor(lag, plan.staleness, plan.staleness_alpha,
+                                 plan.max_staleness)
+        fresh = delivered * (f > 0.0).float()
+        base = (buf["prec"] if self.ecfg.aggregation == "precision"
+                else torch.ones((k,), device=gbar.device))
+        wn = unc.stale_precision_weights(
+            base, lag, delivered, plan.staleness, plan.staleness_alpha,
+            plan.max_staleness)
+        any_del = wn.sum() > 0.0
+        total = agg.weighted_average_reports(buf["shipped"], wn)
+
+        def pick(new, old):
+            return None if new is None else torch.where(any_del, new, old)
+        if server_m is None:
+            new_val = tree_map(pick, total, prev)
+        else:
+            m2, v2 = self._apply_server_momentum(prev, total, server_m)
+            server_m = tree_map(pick, m2, server_m)
+            new_val = tree_map(pick, v2, prev)
+        trains = agg.broadcast_into_buckets(tuple(trains),
+                                            self.shipped_masks, new_val)
+        new_gbar = cka_mod.consensus_gram(buf["gram"], mask=fresh,
+                                          fallback=gbar)
+        countdown = torch.where(delivered > 0,
+                                torch.full_like(countdown, -1),
+                                torch.where(countdown > 0, countdown - 1,
+                                            countdown))
+        ctl = dict(ctl, countdown=countdown, lag=lag)
+        srv = {"weights": wn, "delivered": delivered,
+               "staleness": torch.where(delivered > 0, lag.float(),
+                                        torch.full_like(delivered, -1.0)),
+               "quarantined": ctl["quarantined"].float(),
+               "n_delivered": delivered.sum(),
+               "cross_node_cka": cka_mod.mean_offdiag_cka(
+                   buf["gram"], center=self.ecfg.center_cka, mask=fresh)}
+        return trains, new_gbar, server_m, {"ctl": ctl, "buf": buf}, srv
+
+    def _round_async(self, plan, trains, opts, gbar, server_m, part,
+                     statics, batches, u, slots):
+        """One async round: the simulator decides which idle nodes START
+        local work; starters' state advances (masked path), their reports
+        enter the buffer through the quarantine guard with a drawn lag,
+        and the server averages exactly the reports due this round."""
+        prev = self._server_prev(trains)
+        start, lag_draw, ctl = part_mod.async_events(plan, part["ctl"], u)
+        starts = torch.split(start, self.bucket_sizes)
+        tr2, op2, last = self._local_epochs(
+            tuple(trains), tuple(opts), gbar, statics,
+            tuple(_pick_draws(bt, sl, torch.arange(kb, device=gbar.device))
+                  for bt, sl, kb in zip(batches, slots, self.bucket_sizes)))
+        trains = [masked_select(mb, t, t0)
+                  for mb, t, t0 in zip(starts, tr2, trains)]
+        opts = tuple(masked_select(mb, o, o0)
+                     for mb, o, o0 in zip(starts, op2, opts))
+        grams = self._grams_of(last["pooled_a"])
+        if self.ecfg.aggregation == "precision":
+            prec = unc.batched_precisions(last["pooled"], last["pooled_a"])
+        else:
+            prec = torch.ones((self.ecfg.n_nodes,), device=gbar.device)
+        trains, new_gbar, server_m, part, srv = self._async_server(
+            plan, trains, start, lag_draw, self._shipped_rows(trains),
+            grams, prec, part["buf"], ctl, gbar, prev, server_m)
+        metrics = {name: self._unpermute(last[name].float() * start)
+                   for name in SCALARS}
+        metrics.update(weights=self._unpermute(srv["weights"]),
+                       cross_node_cka=srv["cross_node_cka"],
+                       participation=self._unpermute(start),
+                       cohort_size=start.sum(),
+                       n_delivered=srv["n_delivered"],
+                       **{n: self._unpermute(srv[n]) for n in ASYNC_FIELDS})
+        slots = tuple(sl + mb.long() for sl, mb in zip(slots, starts))
+        return trains, opts, new_gbar, server_m, part, metrics, slots
+
+    @staticmethod
+    def _part_fields(is_async: bool) -> tuple:
+        """A participation round's packed metrics: the (K,) fields, then
+        the scalars."""
+        return (SCALARS + ("weights", "participation")
+                + (ASYNC_FIELDS if is_async else ()),
+                ("cross_node_cka", "cohort_size")
+                + (("n_delivered",) if is_async else ()))
+
+    def _pack_part(self, metrics: dict) -> torch.Tensor:
+        per_node, tail = self._part_fields("delivered" in metrics)
+        return torch.cat([metrics[n] for n in per_node]
+                         + [metrics[n].reshape(1).float() for n in tail])
+
+    def _unpack_part(self, row: list, plan) -> dict:
+        k = self.ecfg.n_nodes
+        per_node, tail = self._part_fields(plan.strategy == "async")
+        out = {n: row[j * k:(j + 1) * k] for j, n in enumerate(per_node)}
+        out.update(zip(tail, row[len(per_node) * k:]))
+        return out
+
+    def _block_part(self, plan, m: int, state, statics, inputs
+                    ) -> torch.Tensor:
+        """m rounds under ``plan`` from ``state`` (its fifth element the
+        sampler's device state), written back into it; ``inputs`` is the
+        staged draws and the (m, n_u, K) uniforms (None under ``nodes``).
+        Returns the packed metrics (m, F)."""
+        trains, opts, gbar, server_m, part = state
+        batches, uniforms = inputs
+        body = (self._round_async if plan.strategy == "async"
+                else self._round_part)
+        slots = tuple(torch.zeros((kb,), dtype=torch.long,
+                                  device=gbar.device)
+                      for kb in self.bucket_sizes)
+        rows = []
+        for i in range(m):
+            trains, opts, gbar, server_m, part, metrics, slots = body(
+                plan, trains, opts, gbar, server_m, part, statics, batches,
+                None if uniforms is None else uniforms[i], slots)
+            rows.append(self._pack_part(metrics))
+        copy_into(state, (trains, opts, gbar, server_m, part))
+        return torch.stack(rows)
+
     # ---- CUDA graphs ---------------------------------------------------
     @staticmethod
     def _signature(state, statics) -> tuple:
         return tuple(t.data_ptr() for t in tree_leaves((state, statics)))
 
-    def capture(self, m: int, state, statics, batches) -> None:
-        """Capture the m-round block on the card (``graphs.capture``: one
-        warm-up run, the state restored after it, then the capture).
-        Raises if the capture fails."""
+    def capture(self, m: int, state, statics, batches, *, plan=None,
+                uniforms=None) -> None:
+        """Capture the m-round block (under ``plan``, if given) on the card
+        (``graphs.capture``: one warm-up run, the state restored after it,
+        then the capture).  Raises if the capture fails."""
+        plan = part_mod.normalize(plan)
         inputs = tree_map(lambda t: None if t is None else t.clone(),
-                          batches)
+                          batches if plan is None else (batches, uniforms))
+        if plan is not None:
+            self._consts(plan)
 
         def run():
             with torch.enable_grad():
-                return self._block(m, state, statics, inputs)
+                if plan is None:
+                    return self._block(m, state, statics, inputs)
+                return self._block_part(plan, m, state, statics, inputs)
 
-        self._graphs[m] = _Captured(graphs.capture(run, tree_leaves(state)),
-                                    self._signature(state, statics), inputs)
+        key = m if plan is None else (plan, m)
+        self._graphs[key] = _Captured(
+            graphs.capture(run, tree_leaves(state)),
+            self._signature(state, statics), inputs)
         self.stats["captures"] += 1
 
-    def captured_launches(self, m: int) -> dict:
-        """Launches per wrapper that one replay of the m-round graph makes."""
-        return self._graphs[m].graph.launches_by_name()
+    def captured_launches(self, m: int, plan=None) -> dict:
+        """Launches per wrapper that one replay of the m-round graph (under
+        ``plan``) makes."""
+        plan = part_mod.normalize(plan)
+        return self._graphs[m if plan is None else (plan, m)] \
+            .graph.launches_by_name()
 
-    def _replay(self, m: int, state, statics, batches) -> torch.Tensor:
-        entry = self._graphs.get(m)
+    def _replay(self, m: int, state, statics, batches, plan=None,
+                uniforms=None) -> torch.Tensor:
+        key = m if plan is None else (plan, m)
+        entry = self._graphs.get(key)
         if entry is None or entry.signature != self._signature(state,
                                                                 statics):
-            self.capture(m, state, statics, batches)
-            entry = self._graphs[m]
-        copy_into(entry.batches, batches)
+            self.capture(m, state, statics, batches, plan=plan,
+                         uniforms=uniforms)
+            entry = self._graphs[key]
+        copy_into(entry.batches, batches if plan is None
+                  else (batches, uniforms))
         out = entry.graph.replay()
         self.stats["replays"] += 1
         return out
 
     # ------------------------------------------------------------------
     def run_block(self, state, m: int, *, statics, batches, tap=None,
-                  state_tap=None, eager: bool = False):
+                  state_tap=None, eager: bool = False, plan=None,
+                  uniforms=None):
         """Run m rounds on ``state`` in place: one graph replay on the card
         (``eager``: the same work without the graph, a replay's oracle),
         eagerly on the CPU.  ``batches`` is a tuple per bucket of trees
-        whose leaves lead with (m, E, k_b).  Reads the device once; returns
-        ``(state, metrics)``, metrics a list of m per-round dicts, and calls
-        ``tap(metrics of round i, with "round_in_block": i)`` once per
-        round."""
+        whose leaves lead with (m, E, k_b).  Under a participation
+        ``plan``, ``state`` carries the sampler's device state as a fifth
+        element and ``uniforms`` is the (m, n_u, K) staged uniforms (None
+        under ``nodes``); each record then also holds ``participation``
+        and ``cohort_size`` (and the async fields).  Reads the device
+        once; returns ``(state, metrics)``, metrics a list of m per-round
+        dicts, and calls ``tap(metrics of round i, with "round_in_block":
+        i)`` once per round."""
         if state_tap is not None:
             raise NotImplementedError("in-block checkpoints (state_tap) wait "
                                       "for the port of checkpoint/")
         if m < 1:
             raise ValueError(f"block size must be >= 1, got {m}")
+        plan = part_mod.normalize(plan)
         if state[2].device.type == "cuda" and not eager:
-            out = self._replay(m, state, statics, batches)
+            out = self._replay(m, state, statics, batches, plan, uniforms)
         else:
             with torch.enable_grad():
-                out = self._block(m, state, statics, batches)
+                out = (self._block(m, state, statics, batches)
+                       if plan is None else self._block_part(
+                           plan, m, state, statics, (batches, uniforms)))
         host = out.tolist()                                  # one readback
         self.stats["readbacks"] += 1
-        metrics = [self._unpack(row) for row in host]
+        metrics = [self._unpack(row) if plan is None
+                   else self._unpack_part(row, plan) for row in host]
         if tap is not None:
             for i, rec in enumerate(metrics):
                 _safe_tap(tap, dict(rec, round_in_block=i))
@@ -324,4 +744,4 @@ class RoundEngine:
 
 
 __all__ = ["EngineConfig", "RoundEngine", "pad_axis", "stack_nodes",
-           "COUNTED"]
+           "masked_select", "COUNTED"]

@@ -27,8 +27,13 @@ device once, for its record.
 same protocol with the K nodes stacked per width bucket, a round (and a
 block of M rounds) one CUDA-graph replay on the card.
 
-Not ported yet: participation plans and async rounds, in-block and
-engine checkpoints (``save`` / ``restore``), ``mesh=``.
+Both run participation plans (``core.participation``: sampled cohorts,
+straggler masks and the async buffered server step); the sequential
+round is the oracle of the engine's, with the same cohort and event
+streams from the same plan seed.
+
+Not ported yet: in-block and engine checkpoints (``save`` /
+``restore``), ``mesh=``.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core import cka as cka_mod
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import lora as lora_mod
+from repro_torch.core import participation as part_mod
 from repro_torch.core import uncertainty as unc
 from repro_torch.data.synthetic import SyntheticMultimodal, stream
 from repro_torch.data.tokenizers import default_tokenizers
@@ -108,6 +114,14 @@ def _per_node_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     idx = labels.long().expand(logits.shape[:-1])[..., None]
     gold = logits32.gather(-1, idx)[..., 0]
     return (torch.logsumexp(logits32, dim=-1) - gold).mean(dim=-1)
+
+
+def _width_buckets(widths) -> tuple:
+    """Nodes grouped by adapter width: the distinct widths ascending, and
+    per width the node ids that have it."""
+    bucket_widths = tuple(sorted(set(widths)))
+    return bucket_widths, tuple(tuple(i for i, w in enumerate(widths)
+                                      if w == wb) for wb in bucket_widths)
 
 
 def _shipped(trainable: dict) -> dict:
@@ -219,6 +233,26 @@ class SequentialFederation:
         return cka_mod.consensus_gram(cka_mod.cosine_gram(
             torch.stack(pooled)))
 
+    def _broadcast(self, avg: dict) -> None:
+        """The server's downlink: ``avg``'s shipped leaves (cast to each
+        leaf's dtype) onto every node, participants or not."""
+        for node in self.nodes:
+            mask = lora_mod.shipped_mask(node["trainable"])
+            node["trainable"] = {
+                k: tree_map(lambda p, s, sm: s.to(p.dtype) if sm else p, v,
+                            avg[k], mask[k]) if k in avg else v
+                for k, v in node["trainable"].items()}
+
+    def _bytes_record(self) -> dict:
+        """A round's communication fields: one node's uplink (shipped
+        side-cars and its Gram) and the full model's bytes."""
+        node0 = self.nodes[0]
+        return {"uplink_bytes": agg.comm_bytes_per_round(
+                    _shipped(node0["trainable"]),
+                    gram_side=self.gbar.shape[0]),
+                "full_model_bytes": lora_mod.param_bytes(lora_mod.combine(
+                    node0["trainable"], self._frozen_for(node0)))}
+
     def _draw(self, i: int, node: dict):
         """One local step's batch of node ``i`` from its own generator:
         tokens (B, L, d_m), labels (B,), and on a bridge node the tokens
@@ -284,6 +318,26 @@ class SequentialFederation:
         return (*self.opt.update(grads, opt_state, trainable), metrics)
 
     # ------------------------------------------------------------------
+    def _train_node(self, i: int, node: dict) -> dict:
+        """Node ``i``'s local work of one round: its round counter moves,
+        then E AdamW steps on batches from its own generator.  Returns the
+        last step's metrics, what it uploads."""
+        fed = self.fed
+        if "round" in node["opt_state"]:
+            node["opt_state"] = dict(node["opt_state"],
+                                     round=node["opt_state"]["round"] + 1)
+        m = node["modality"]
+        anchors = (self.synthetic_anchor_tokens[m]
+                   if i in fed.synthetic_anchor_nodes
+                   else self.anchor_tokens[m])
+        for _ in range(fed.local_steps):
+            tokens, labels, tokens2 = self._draw(i, node)
+            node["trainable"], node["opt_state"], last = \
+                self._local_step(node["trainable"], node["opt_state"],
+                                 self._frozen_for(node), tokens, labels,
+                                 anchors, self.gbar, tokens2)
+        return last
+
     def run_round(self, participants=None) -> dict:
         """One protocol round.  ``participants`` (node ids) restricts it
         to a reporting cohort: the others do nothing and contribute
@@ -294,28 +348,19 @@ class SequentialFederation:
         if active is not None and not active:
             raise ValueError("empty participant set")
         grams, precisions, shipped_list, metrics = [], [], [], []
+        self._last_raw_precisions = {}
         for i, node in enumerate(self.nodes):
             if active is not None and i not in active:
                 continue
-            if "round" in node["opt_state"]:
-                node["opt_state"] = dict(node["opt_state"],
-                                         round=node["opt_state"]["round"] + 1)
-            m = node["modality"]
-            anchors = (self.synthetic_anchor_tokens[m]
-                       if i in fed.synthetic_anchor_nodes
-                       else self.anchor_tokens[m])
-            for _ in range(fed.local_steps):
-                tokens, labels, tokens2 = self._draw(i, node)
-                node["trainable"], node["opt_state"], last = \
-                    self._local_step(node["trainable"], node["opt_state"],
-                                     self._frozen_for(node), tokens, labels,
-                                     anchors, self.gbar, tokens2)
+            last = self._train_node(i, node)
             metrics.append(torch.stack([last["task"], last["geo"],
                                         last["acc"]]))
             # upload: Gram + precision + shipped side-cars
             grams.append(cka_mod.cosine_gram(last["pooled_a"]))
             precisions.append(unc.node_precision(unc.lap_uncertainty(
                 last["pooled"], last["pooled_a"])))
+            # only the precision strategy's sampler reads these
+            self._last_raw_precisions[i] = precisions[-1]
             shipped_list.append(_shipped(node["trainable"]))
 
         # ---- server (over whichever nodes reported) ----
@@ -327,14 +372,7 @@ class SequentialFederation:
         else:
             weights = torch.full((k_active,), 1.0 / k_active,
                                  device=self.device)
-        avg = agg.aggregate_geolora(shipped_list, weights)
-        # broadcast to every node, participants or not
-        for node in self.nodes:
-            mask = lora_mod.shipped_mask(node["trainable"])
-            node["trainable"] = {
-                k: tree_map(lambda p, s, sm: s if sm else p, v, avg[k],
-                            mask[k]) if k in avg else v
-                for k, v in node["trainable"].items()}
+        self._broadcast(agg.aggregate_geolora(shipped_list, weights))
 
         off_diag = cka_mod.mean_offdiag_cka(grams, center=fed.center_cka)
         host = torch.cat([torch.stack(metrics).T.reshape(-1), weights,
@@ -342,16 +380,12 @@ class SequentialFederation:
         task, geo, acc = (host[j * k_active:(j + 1) * k_active]
                           for j in range(3))
         weights = host[3 * k_active:4 * k_active]
-        node0 = self.nodes[0]
         rec = {
             "task_loss": sum(task) / k_active,
             "geo_loss": sum(geo) / k_active,
             "acc": sum(acc) / k_active,
             "cross_node_cka": host[-1],
-            "uplink_bytes": agg.comm_bytes_per_round(
-                shipped_list[0], gram_side=self.gbar.shape[0]),
-            "full_model_bytes": lora_mod.param_bytes(lora_mod.combine(
-                node0["trainable"], self._frozen_for(node0))),
+            **self._bytes_record(),
         }
         if active is None:
             rec["weights"] = weights
@@ -365,11 +399,214 @@ class SequentialFederation:
         self.history.append(rec)
         return rec
 
-    def run(self) -> List[dict]:
-        """``fed.rounds`` full rounds; returns the history."""
-        for _ in range(self.fed.rounds):
-            self.run_round()
+    # ------------------------------------------------------------------
+    # participation: the oracle of the engine's sampled rounds.  The same
+    # sampler functions run here eagerly over the same width-bucket
+    # groups, on uniforms from the same generator, so the cohort and
+    # event streams are the engine's exactly
+    def _node_width(self, node: dict) -> int:
+        """The adapter width a node needs: its tokenizer's, or on a bridge
+        node the wider of its two."""
+        d = self.tokenizers[node["modality"]].d_out
+        if node["bridge"]:
+            d = max(d, self.tokenizers[node["modality2"]].d_out)
+        return d
+
+    def _participation_groups(self) -> tuple:
+        """Canonical node ids per width bucket: the sampler's groups, the
+        engine's default (bucketed) layout."""
+        return _width_buckets([self._node_width(n) for n in self.nodes])[1]
+
+    def _sample_participants(self, plan):
+        """Advance the carried sampler state one round; returns the
+        participating node ids (sorted) and the groups."""
+        groups = self._participation_groups()
+        prev = getattr(self, "_seq_part", None)
+        state = (part_mod.init_state(plan, self.fed.n_nodes, self.device)
+                 if prev is None or prev[0] != plan else prev[1])
+        u = (None if state is None else
+             part_mod.draw_uniforms(plan, state["gen"], self.fed.n_nodes))
+        row_masks, _, state = part_mod.sample_rows(plan, state, groups, u,
+                                                   device=self.device)
+        self._seq_part = (plan, state)
+        mask = torch.cat(row_masks).tolist()
+        rows = [i for g in groups for i in g]
+        return sorted(i for i, m in zip(rows, mask) if m > 0), groups
+
+    def _update_seq_sampler(self, plan, groups, participants) -> None:
+        """Fold this round's reported precisions into the sampler state
+        (``precision`` strategy), as the engine's ``update_state``."""
+        if plan.strategy != "precision":
+            return
+        plan_, state = self._seq_part
+        rows = [i for g in groups for i in g]         # row order
+        zero = torch.zeros((), device=self.device)
+        mask = torch.tensor([1.0 if i in participants else 0.0
+                             for i in rows], device=self.device)
+        p = torch.stack([self._last_raw_precisions.get(i, zero)
+                         for i in rows])
+        self._seq_part = (plan_, part_mod.update_state(plan, state, mask,
+                                                       p))
+
+    def run_rounds(self, n: int, block_size: int = 1,
+                   participation=None) -> List[dict]:
+        """``n`` rounds.  ``block_size`` is accepted for parity with
+        ``Federation`` (the sequential round always steps per round).
+        ``participation`` (a ``ParticipationPlan`` or strategy name)
+        samples each round's cohort with the engine's sampler; the sampler
+        state carries across calls while the plan is unchanged."""
+        plan = part_mod.normalize(participation)
+        if plan is None:
+            return [self.run_round() for _ in range(n)]
+        if plan.strategy == "async":
+            return [self._run_async_round(plan) for _ in range(n)]
+        recs = []
+        for _ in range(n):
+            parts, groups = self._sample_participants(plan)
+            recs.append(self.run_round(participants=parts))
+            self._update_seq_sampler(plan, groups, set(parts))
+        return recs
+
+    def run(self, block_size: int = 1, participation=None) -> List[dict]:
+        """``fed.rounds`` rounds; returns the history."""
+        self.run_rounds(self.fed.rounds, block_size,
+                        participation=participation)
         return self.history
+
+    # ------------------------------------------------------------------
+    # async (FedBuff): the oracle of the engine's async round.  The same
+    # ``async_events`` on the same uniforms give the engine's event
+    # stream, and the server calls the same staleness / consensus
+    # functions, one node at a time
+    def _report(self, plan, i: int, node: dict, last: dict):
+        """Node ``i``'s uplink report (shipped side-cars in f32, Gram,
+        precision), NaN-poisoned when the plan injects a fault there."""
+        gram = cka_mod.cosine_gram(last["pooled_a"])
+        if self.fed.aggregation == "precision":
+            prec = unc.node_precision(unc.lap_uncertainty(
+                last["pooled"], last["pooled_a"]))
+        else:
+            prec = torch.ones((), device=self.device)
+        shipped = tree_map(lambda l: None if l is None else l.float(),
+                           _shipped(node["trainable"]))
+        if i in plan.poison_nodes:             # fault injection: uplink only
+            nan = float("nan")
+            shipped = tree_map(lambda l: None if l is None else l + nan,
+                               shipped)
+            gram, prec = gram + nan, prec + nan
+        return {"shipped": shipped, "gram": gram, "prec": prec.float()}
+
+    @staticmethod
+    def _quarantined(plan, report: dict) -> bool:
+        """The engine's quarantine guard, eagerly: a non-finite value
+        anywhere in the report, or a shipped norm above the bound."""
+        leaves = tree_leaves(report["shipped"])
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in leaves + [report["gram"], report["prec"]])
+        norm_sq = sum(float((l.float() ** 2).sum()) for l in leaves)
+        return not finite or norm_sq > plan.quarantine_norm ** 2
+
+    def _run_async_round(self, plan) -> dict:
+        fed, k = self.fed, self.fed.n_nodes
+        groups = self._participation_groups()
+        rows = [i for g in groups for i in g]      # canonical id per row
+        prev = getattr(self, "_seq_async", None)
+        if prev is None or prev[0] != plan:
+            self._seq_async = (plan, part_mod.init_state(plan, k,
+                                                         self.device),
+                               [None] * k)
+        _, ctl, buf = self._seq_async
+        # the server's previous broadcast: the shipped leaves are equal on
+        # every node at round start; re-broadcast when nothing lands
+        prev_shipped = tree_map(lambda l: None if l is None else l.float(),
+                                _shipped(self.nodes[0]["trainable"]))
+        u = part_mod.draw_uniforms(plan, ctl["gen"], k)
+        start, lag_draw, ctl = part_mod.async_events(plan, ctl, u)
+        start, lag_draw, countdown, lag, quarantined = (
+            t.tolist() for t in (start, lag_draw, ctl["countdown"],
+                                 ctl["lag"], ctl["quarantined"]))
+
+        # starters run their local epochs; everyone else does NOTHING
+        metrics = []
+        for r, i in enumerate(rows):
+            if start[r] <= 0:
+                continue
+            node = self.nodes[i]
+            last = self._train_node(i, node)
+            metrics.append([float(last[n]) for n in ("task", "geo", "acc")])
+            report = self._report(plan, i, node, last)
+            if self._quarantined(plan, report):
+                quarantined[r] += 1
+                continue                        # idle again; retries next
+            buf[r] = report
+            countdown[r] = lag[r] = lag_draw[r]
+
+        # staleness-weighted delivery over the expiring reports
+        delivered = [1.0 if c == 0 and buf[r] is not None else 0.0
+                     for r, c in enumerate(countdown)]
+        dev = self.device
+        lag_t = torch.tensor(lag, dtype=torch.int32, device=dev)
+        del_t = torch.tensor(delivered, device=dev)
+        if fed.aggregation == "precision":
+            zero = torch.zeros((), device=dev)
+            base = torch.stack([zero if b is None else b["prec"]
+                                for b in buf])
+        else:
+            base = torch.ones((k,), device=dev)
+        wn = unc.stale_precision_weights(
+            base, lag_t, del_t, plan.staleness, plan.staleness_alpha,
+            plan.max_staleness)
+        fresh = del_t * (unc.staleness_factor(
+            lag_t, plan.staleness, plan.staleness_alpha,
+            plan.max_staleness) > 0).float()
+        w_host = wn.tolist()
+        if sum(w_host) > 0:
+            total = agg.weighted_mean_trees(
+                [buf[r]["shipped"] for r in range(k) if w_host[r] > 0],
+                torch.stack([wn[r] for r in range(k) if w_host[r] > 0]))
+        else:
+            total = prev_shipped       # no deliveries: the protocol idles
+        self._broadcast(total)
+        if fresh.sum().item() > 0:
+            zeros = torch.zeros_like(self.gbar)
+            grams = torch.stack([zeros if b is None else b["gram"]
+                                 for b in buf])
+            self.gbar = cka_mod.consensus_gram(grams, mask=fresh,
+                                               fallback=self.gbar)
+            xcka = float(cka_mod.mean_offdiag_cka(
+                grams, center=fed.center_cka, mask=fresh))
+        else:
+            xcka = 0.0
+        for r in range(k):
+            if delivered[r] > 0:
+                countdown[r] = -1
+            elif countdown[r] > 0:
+                countdown[r] -= 1
+
+        ctl = dict(ctl, countdown=torch.tensor(countdown, dtype=torch.int32,
+                                               device=dev),
+                   lag=lag_t, quarantined=torch.tensor(
+                       quarantined, dtype=torch.int32, device=dev))
+        self._seq_async = (plan, ctl, buf)
+        n_started = max(sum(1 for s in start if s > 0), 1)
+        by_node = lambda vals: [vals[rows.index(i)] for i in range(k)]
+        rec = {
+            "task_loss": sum(x[0] for x in metrics) / n_started,
+            "geo_loss": sum(x[1] for x in metrics) / n_started,
+            "acc": sum(x[2] for x in metrics) / n_started,
+            "cross_node_cka": xcka,
+            **self._bytes_record(),
+            "weights": by_node(w_host),
+            "participation": by_node(start),
+            "cohort_size": int(sum(start)),
+            "delivered": by_node(delivered),
+            "staleness": by_node([float(lag[r]) if delivered[r] > 0
+                                  else -1.0 for r in range(k)]),
+            "quarantined": by_node([float(q) for q in quarantined]),
+            "n_delivered": float(sum(delivered)),
+        }
+        self.history.append(rec)
+        return rec
 
 
 # ======================================================================
@@ -433,20 +670,10 @@ class Federation(SequentialFederation):
         self._nodes = value
 
     # ------------------------------------------------------------------
-    def _node_width(self, node: dict) -> int:
-        """The adapter width a node needs: its tokenizer's, or on a bridge
-        node the wider of its two."""
-        d = self.tokenizers[node["modality"]].d_out
-        if node["bridge"]:
-            d = max(d, self.tokenizers[node["modality2"]].d_out)
-        return d
-
     def _bucket_layout(self, widths):
         if self._width_bucketing:
-            bucket_widths = tuple(sorted(set(widths)))
-            return bucket_widths, [tuple(i for i, w in enumerate(widths)
-                                         if w == wb) for wb in bucket_widths]
-        return (max(widths),), [tuple(range(len(widths)))]
+            return _width_buckets(widths)
+        return (max(widths),), (tuple(range(len(widths))),)
 
     def _build_engine(self) -> None:
         fed, nodes, dev = self.fed, self._nodes, self.device
@@ -487,11 +714,7 @@ class Federation(SequentialFederation):
             masks.append(lora_mod.shipped_mask(train_b))
         self._trains, self._opts = tuple(trains), tuple(opts)
         self._refresh_statics()
-        node0 = nodes[0]
-        self._uplink_bytes = agg.comm_bytes_per_round(
-            _shipped(node0["trainable"]), gram_side=self.gbar.shape[0])
-        self._full_bytes = lora_mod.param_bytes(lora_mod.combine(
-            node0["trainable"], self._frozen_for(node0)))
+        self._bytes = self._bytes_record()
         ecfg = engine_mod.EngineConfig(
             n_nodes=fed.n_nodes, local_steps=fed.local_steps,
             aggregation=fed.aggregation, center_cka=fed.center_cka,
@@ -619,9 +842,6 @@ class Federation(SequentialFederation):
             "pooled": pooled.detach(), "pooled_a": pooled_a.detach()}
 
     # ------------------------------------------------------------------
-    def _state(self) -> tuple:
-        return self._trains, self._opts, self.gbar, self._server_m
-
     def _stage(self, m: int) -> tuple:
         """The next m rounds' draws, per bucket ``{"raw": (m, E, k_b, B,
         d_raw), "labels": (m, E, k_b, B)[, "raw2"]}``: each node draws m E
@@ -641,69 +861,164 @@ class Federation(SequentialFederation):
                         for k, v in d.items()})
         return tuple(out)
 
-    def capture(self, block_size: int = 1) -> None:
-        """Capture the round (``block_size`` 1) or the block graph now, on
-        the card, without moving the federation on: the draws it warms up
-        with are taken back from the generators.  ``run_rounds`` captures
-        on first use; calling this first keeps the capture out of a
-        measured window."""
+    def _stage_part(self, m: int, plan) -> tuple:
+        """The next m rounds' draws of every node (``_stage``, one round at
+        a time), each node's generator state after each round (``pos[j]``:
+        after j rounds), and the plan's (m, n_u, K) uniforms.  The
+        generators are left after m rounds; ``_run_block_part`` moves each
+        back to the rounds its node trained."""
         gens = [n["gen"] for n in self._nodes]
+        pos = [[g.get_state() for g in gens]]
+        rounds = []
+        for _ in range(m):
+            rounds.append(self._stage(1))
+            pos.append([g.get_state() for g in gens])
+        batches = tuple({k: torch.cat([r[b][k] for r in rounds])
+                         for k in rounds[0][b]}
+                        for b in range(len(rounds[0])))
+        uniforms = None
+        if part_mod.n_uniforms(plan):
+            uniforms = torch.stack([part_mod.draw_uniforms(
+                plan, self._part_gen, self.fed.n_nodes) for _ in range(m)])
+        return batches, uniforms, pos
+
+    def capture(self, block_size: int = 1, participation=None) -> None:
+        """Capture the round (``block_size`` 1) or the block graph now, on
+        the card, under ``participation`` if given, without moving the
+        federation on: the draws and uniforms it warms up with are taken
+        back from the generators.  ``run_rounds`` captures on first use;
+        calling this first keeps the capture out of a measured window."""
+        plan = part_mod.normalize(participation)
+        if plan is not None:
+            self._ensure_participation(plan)
+        gens = [n["gen"] for n in self._nodes]
+        if plan is not None and self._part_gen is not None:
+            gens.append(self._part_gen)
         saved = [g.get_state() for g in gens]
-        batches = self._stage(block_size)
+        if plan is None:
+            batches, uniforms = self._stage(block_size), None
+        else:
+            batches, uniforms, _ = self._stage_part(block_size, plan)
         for g, st in zip(gens, saved):
             g.set_state(st)
-        self.engine.capture(block_size, self._state(), self._statics,
-                            batches)
+        self.engine.capture(block_size, self._state(plan), self._statics,
+                            batches, plan=plan, uniforms=uniforms)
+
+    def _state(self, plan=None) -> tuple:
+        state = (self._trains, self._opts, self.gbar, self._server_m)
+        return state if plan is None else state + (self._part_state,)
 
     def _run_block(self, m: int, tap=None) -> List[dict]:
         _, metrics = self.engine.run_block(
             self._state(), m, statics=self._statics, batches=self._stage(m),
             tap=tap)
+        return self._record_block(metrics)
+
+    def _record_block(self, metrics: list) -> List[dict]:
         self._views_stale = True
         recs = [self._metrics_record(x) for x in metrics]
         self.history.extend(recs)
         return recs
 
+    def _run_block_part(self, plan, m: int, tap=None) -> List[dict]:
+        """m rounds under ``plan``: one replay and one readback.  Each
+        node's generator ends where the sequential rounds leave it: after
+        as many rounds of draws as the node trained."""
+        batches, uniforms, pos = self._stage_part(m, plan)
+        _, metrics = self.engine.run_block(
+            self._state(plan), m, statics=self._statics, batches=batches,
+            tap=tap, plan=plan, uniforms=uniforms)
+        for i, node in enumerate(self._nodes):
+            trained = sum(round(x["participation"][i]) for x in metrics)
+            node["gen"].set_state(pos[trained][i])
+        return self._record_block(metrics)
+
     def _metrics_record(self, metrics: dict) -> dict:
-        k = self.fed.n_nodes
-        return {"task_loss": sum(metrics["task"]) / k,
-                "geo_loss": sum(metrics["geo"]) / k,
-                "acc": sum(metrics["acc"]) / k,
-                "cross_node_cka": metrics["cross_node_cka"],
-                "uplink_bytes": self._uplink_bytes,
-                "full_model_bytes": self._full_bytes,
-                "weights": list(metrics["weights"])}
+        """A history record from a round's metrics; under participation the
+        per-node scalars are zero off the cohort and average over it."""
+        n = (max(metrics["cohort_size"], 1.0) if "participation" in metrics
+             else self.fed.n_nodes)
+        rec = {"task_loss": sum(metrics["task"]) / n,
+               "geo_loss": sum(metrics["geo"]) / n,
+               "acc": sum(metrics["acc"]) / n,
+               "cross_node_cka": metrics["cross_node_cka"],
+               **self._bytes,
+               "weights": list(metrics["weights"])}
+        if "participation" in metrics:
+            rec["participation"] = list(metrics["participation"])
+            rec["cohort_size"] = int(round(metrics["cohort_size"]))
+        if "delivered" in metrics:
+            for name in engine_mod.ASYNC_FIELDS:
+                rec[name] = list(metrics[name])
+            rec["n_delivered"] = metrics["n_delivered"]
+        return rec
+
+    # ---- participation ---------------------------------------------------
+    def _init_part_state(self, plan):
+        """The sampler's device state for ``plan`` (the async report buffer
+        included) and its generator; (None, None) under ``nodes``."""
+        state = part_mod.init_state(plan, self.fed.n_nodes, self.device)
+        if state is None:
+            return None, None
+        gen = state.pop("gen")
+        if plan.strategy == "async":
+            state = self.engine.init_async_state(
+                self._trains, plan, gram_side=int(self.gbar.shape[0]))
+        return state, gen
+
+    def _ensure_participation(self, plan) -> None:
+        """Install ``plan``: the sampler state carries across calls while
+        the plan is unchanged and starts afresh when it changes."""
+        if getattr(self, "_part_plan", None) != plan:
+            self._part_plan = plan
+            self._part_state, self._part_gen = self._init_part_state(plan)
 
     def run_round(self, participants=None) -> dict:
-        """One round: one replay of the round graph on the card."""
-        if participants is not None:
-            raise NotImplementedError("Federation.run_round(participants=): "
-                                      "participation is not ported yet")
-        return self._run_block(1)[0]
+        """One round: one replay of the round graph on the card.
+        ``participants`` (node ids) runs a one-shot fixed ``nodes`` plan;
+        each DISTINCT cohort captures a graph of its own, as the reference
+        compiles one per cohort -- for cohorts sampled each round use
+        ``run_rounds(participation=)``, which samples inside one graph."""
+        if participants is None:
+            return self._run_block(1)[0]
+        plan = part_mod.ParticipationPlan(
+            strategy="nodes", nodes=tuple(sorted(participants)))
+        self._ensure_participation(plan)
+        return self._run_block_part(plan, 1)[0]
 
     def run_rounds(self, n: int, block_size: int = 1, tap=None,
                    participation=None, checkpoint_path: str = None,
                    checkpoint_every: int = 0) -> List[dict]:
         """``n`` rounds; with ``block_size`` M > 1 as blocks of M rounds (the
         last block takes the rest), each one replay and one readback.
-        ``tap`` is called once per round of a block with its metrics."""
-        if participation not in (None, "full"):
-            raise NotImplementedError("run_rounds(participation=): "
-                                      "participation is not ported yet")
+        ``tap`` is called once per round of a block with its metrics.
+        ``participation`` (a ``ParticipationPlan`` or strategy name) samples
+        each round's cohort on the device inside the round's graph; the
+        sampler state carries across calls while the plan is unchanged.
+        None / "full" is the full-participation round."""
         if checkpoint_path is not None:
             raise NotImplementedError("run_rounds(checkpoint_path=): "
                                       "checkpoints are not ported yet")
-        if block_size <= 1:
-            return [self.run_round() for _ in range(n)]
+        plan = part_mod.normalize(participation)
+        if plan is None:
+            block = lambda m: self._run_block(m, tap)
+            if block_size <= 1:
+                return [self.run_round() for _ in range(n)]
+        else:
+            self._ensure_participation(plan)
+            block = lambda m: self._run_block_part(plan, m, tap)
+            if block_size <= 1:
+                return [block(1)[0] for _ in range(n)]
         recs, done = [], 0
         while done < n:
             m = min(block_size, n - done)
-            recs += self._run_block(m, tap)
+            recs += block(m)
             done += m
         return recs
 
-    def run(self, block_size: int = 1) -> List[dict]:
-        self.run_rounds(self.fed.rounds, block_size)
+    def run(self, block_size: int = 1, participation=None) -> List[dict]:
+        self.run_rounds(self.fed.rounds, block_size,
+                        participation=participation)
         return self.history
 
     def save(self, path: str) -> None:

@@ -15,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.models.common import add_dora, add_lora
+from repro_torch.models.common import add_dora, add_lora, dora_column_norm
 from repro_torch.tree import tree_leaves, tree_map
 
 # attention projections (every attention architecture) and the mixer in /
@@ -108,5 +108,30 @@ def param_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
+# ----------------------------------------------------------------------
+def merge_lora(params: dict, scale: float = 1.0) -> dict:
+    """Fold Delta-W = scale A B (and the DoRA normalisation) into ``w`` and
+    drop the side-cars (deployment export)."""
+    def walk(node, name):
+        if _is_linear(node) and "lora_A" in node:
+            w = node["w"].float()
+            new_w = w + scale * (node["lora_A"].float()
+                                 @ node["lora_B"].float())
+            if "dora_m" in node:
+                norm = dora_column_norm(node["w"], node["lora_A"],
+                                        scale * node["lora_B"])
+                new_w = new_w * (node["dora_m"].float()
+                                 / norm)[..., None, :]
+            return {"w": new_w.to(node["w"].dtype)}
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, name) for v in node)
+        return node
+
+    return walk(params, "")
+
+
 __all__ = ["LoRASpec", "DEFAULT_TARGETS", "attach_lora", "trainable_mask",
-           "shipped_mask", "partition", "combine", "param_bytes"]
+           "shipped_mask", "partition", "combine", "param_bytes",
+           "merge_lora"]

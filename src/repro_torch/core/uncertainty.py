@@ -46,5 +46,54 @@ def precision_weights(node_precisions: torch.Tensor) -> torch.Tensor:
     return p / p.sum().clamp_min(1e-12)
 
 
+def masked_precision_weights(node_precisions: torch.Tensor,
+                             mask: torch.Tensor) -> torch.Tensor:
+    """Partial participation: only REPORTING nodes (``mask`` (K,) 0/1)
+    contribute their precision and the normalisation runs over them, so
+    non-reporters get exactly zero weight.  ``precision_weights`` under a
+    full mask."""
+    p = node_precisions.float().clamp_min(0.0) * mask.float()
+    return p / p.sum().clamp_min(1e-12)
+
+
+def staleness_factor(lag: torch.Tensor, schedule: str = "poly",
+                     alpha: float = 1.0,
+                     max_staleness: int = None) -> torch.Tensor:
+    """FedBuff-style staleness discount f(lag) in [0, 1] for reports that
+    arrive ``lag`` rounds after they were computed: ``poly`` (1 +
+    lag)^-alpha, or ``cutoff`` 1 while lag <= ``max_staleness`` (which it
+    needs) else 0.  Under ``poly``, ``max_staleness`` also gates the
+    factor to zero past the bound.  Elementwise over (K,) int lags."""
+    lag = lag.float().clamp_min(0.0)
+    if schedule == "poly":
+        f = torch.pow(1.0 + lag, -float(alpha))
+    elif schedule == "cutoff":
+        if max_staleness is None:
+            raise ValueError("staleness schedule 'cutoff' needs a "
+                             "max_staleness bound")
+        f = torch.ones_like(lag)
+    else:
+        raise ValueError(f"unknown staleness schedule {schedule!r}")
+    if max_staleness is not None:
+        f = f * (lag <= float(max_staleness)).float()
+    return f
+
+
+def stale_precision_weights(node_precisions: torch.Tensor,
+                            lag: torch.Tensor, mask: torch.Tensor,
+                            schedule: str = "poly", alpha: float = 1.0,
+                            max_staleness: int = None) -> torch.Tensor:
+    """The async server step's weights: p_k f(lag_k) over the DELIVERED
+    reports (``mask`` (K,) 0/1), normalised over them.  All zero when
+    nothing is delivered (or everything staled out): the caller keeps the
+    previous global value.  ``masked_precision_weights`` at lag 0."""
+    f = staleness_factor(lag, schedule, alpha, max_staleness)
+    p = node_precisions.float().clamp_min(0.0) * mask.float() * f
+    s = p.sum()
+    return torch.where(s > 0.0, p / s.clamp_min(1e-12),
+                       torch.zeros_like(p))
+
+
 __all__ = ["lap_uncertainty", "node_precision", "batched_precisions",
-           "precision_weights"]
+           "precision_weights", "masked_precision_weights",
+           "staleness_factor", "stale_precision_weights"]

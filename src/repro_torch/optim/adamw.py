@@ -11,6 +11,7 @@ on the parameters' device, so a step never waits for the device.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -92,4 +93,18 @@ class AdamW:
         return _map(upd, params, m, v), new_state
 
 
-__all__ = ["AdamW"]
+def warmup_cosine(warmup: int, total: int, floor: float = 0.1) -> Callable:
+    """Linear warm-up over ``warmup`` steps, then a cosine from 1 down to
+    ``floor`` at ``total``: step tensor -> f32 multiplier (a
+    ``round_schedule`` on the tensor round counter, read inside a
+    captured round without a host sync)."""
+    def sched(step):
+        step = step.float()
+        warm = step / max(warmup, 1)
+        prog = ((step - warmup) / max(total - warmup, 1)).clamp(0.0, 1.0)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return torch.where(step < warmup, warm, cos)
+    return sched
+
+
+__all__ = ["AdamW", "warmup_cosine"]

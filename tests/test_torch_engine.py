@@ -147,9 +147,7 @@ def test_run_rounds_in_blocks_equals_single_rounds():
 def test_unported_options_raise():
     fed = FederationConfig(method="geolora", **BASE)
     eng = Federation(fed, TINY, device="cpu")
-    for call in (lambda: eng.run_round(participants=[0, 1]),
-                 lambda: eng.run_rounds(2, participation="uniform"),
-                 lambda: eng.run_rounds(2, 2, checkpoint_path="x.npz"),
+    for call in (lambda: eng.run_rounds(2, 2, checkpoint_path="x.npz"),
                  lambda: eng.save("x.npz"), lambda: eng.restore("x.npz"),
                  lambda: Federation(fed, TINY, device="cpu", mesh=object()),
                  lambda: eng.engine.run_block(
