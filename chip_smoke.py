@@ -116,11 +116,40 @@ non-zero and prints no result):
    layers in f32 a ``uniform`` and an ``async`` round, replayed, against
    the eager run of the same round (bit-identical) and against
    ``SequentialFederation`` on the card (cohorts and events equal,
-   records and trainables within ``ENGINE_TOL``).
+   records and trainables within ``ENGINE_TOL``);
+11. checkpoints: ``Federation`` under no plan (4 nodes), ``uniform`` C 4
+   (8 nodes) and ``async`` (8 nodes, 2 layers): the round graph
+   captured, then ``run_rounds(4, block_size=2, checkpoint_path=...,
+   checkpoint_every=1)``, which ends a sub-block at every round: 4
+   replays, 4 readbacks, files at steps 1-4 (sizes and write seconds
+   printed; under ``build/chip_smoke/``, deleted after), exact launches.
+   ``ck_2`` restored in place (same tensors, no capture) and into a
+   fresh federation (its block graph captured first), each followed by
+   2 rounds, must end in the uninterrupted run's state and generators
+   bit for bit;
+12. the LM driver: ``repro_torch.launch.train`` (``parse_args``,
+   ``build``, ``Trainer``: ``main``'s body) on fedmm-small at full width
+   and depth with its default flags (4 nodes x 4 local steps, batch 8 x
+   128, 16 anchors, rank 8, geodora), blocks of 2, then under
+   ``uniform`` C 2: the block graph captured first, then 4 rounds with
+   exact launches (per round 744 lora_matmul, 96 flash, 5 gram), one
+   replay and one readback per block, finite losses, 4 more rounds
+   timed and 2 blocks profiled; at 2 layers in f32 a replayed block
+   against the same block run eagerly, bit for bit.  The kernel phases
+   also hold every shape the driver gives a kernel against its plain
+   version, in bf16 and f32: ``lora_matmul``'s node axis at K 4 and K 2
+   (a C 2 cohort) x M 1024 (the task pass) and M 2048 (the anchor pass),
+   and K 8 x M 512 (the async round's), output, dx and dB; flash at T
+   128, H 12, KV 4 and B 16, 32 and 64 with its gradient; ``gram`` on
+   (4, 16, 768).  They time K 4 x M 1024, K 8 x M 512, flash at (B 32,
+   T 128) and ``gram`` on (4, 16, 768).
 
-Launch counters are set to 0 just before each path (serve, its eager
-oracle, chaos, ssm serve and its oracle, federation, engine, each
-participation round and block) and read
+Peak device memory (allocated and reserved) is printed after each
+federation phase and after each capture, with what the capture added to
+the reserved memory.  Launch counters are set to 0 just before each path
+(serve, its eager oracle, chaos, ssm serve and its oracle, federation,
+engine, each participation round and block, each checkpointed run, each
+driver run) and read
 just after; the kernel checks' own launches never count.  A graph
 replay adds the launches its capture recorded; a capture's warm-up
 launches for real (the chaos phase counts them, the serve phase
@@ -156,7 +185,8 @@ from repro_torch.core.federation import (LOCAL_KEYS,  # noqa: E402
                                          Federation, FederationConfig,
                                          SequentialFederation)
 from repro_torch.core.participation import (  # noqa: E402
-    ParticipationPlan, allocate_cohort)
+    ParticipationPlan, allocate_cohort, n_uniforms)
+from repro_torch.data.pipeline import make_lm_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -167,6 +197,7 @@ from repro_torch.kernels.gram import (  # noqa: E402
 from repro_torch.kernels.lora_matmul import (  # noqa: E402
     _apply as lora_apply, lora_matmul, n_blocks as lora_blocks, tile_plan)
 from repro_torch.kernels.selective_scan import selective_scan  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import (ServeConfig, ServeEngine,  # noqa: E402
                                SimulatedCrash, init_pool_cache,
@@ -500,12 +531,24 @@ def flash_phase() -> dict:
         check_vjp(f"flash_attention round shape (B 32, T 16, H 12, KV 4) "
                   f"{dtype}", flash_attention, ref.flash_attention_ref, qkv,
                   (0, 1, 2), TOL[dtype])
+        # the LM driver's, T 128: the task pass (batch 8 a node) and the
+        # anchor pass (16 anchors a node) over 4 nodes (B 32, B 64) or
+        # over a uniform C 2 cohort (B 16, B 32)
+        for b in (16, 32, 64):
+            qkv = tuple(torch.randn(shape, generator=g,
+                                    device="cuda").to(dtype)
+                        for shape in ((b, 128, 12, 64), (b, 128, 4, 64),
+                                      (b, 128, 4, 64)))
+            check_vjp(f"flash_attention LM driver shape (B {b}, T 128, "
+                      f"H 12, KV 4) {dtype}", flash_attention,
+                      ref.flash_attention_ref, qkv, (0, 1, 2), TOL[dtype])
 
     # timing, bf16: serve's prefill of one 512-token prompt, and the round's
     # (B 32, T 16), where three quarters of each 64 x 64 tile is padding
     timings = []
     for path, (b, t, h, n_kv) in (("serve", (1, 512, 16, 8)),
-                                  ("federation", (32, 16, 12, 4))):
+                                  ("federation", (32, 16, 12, 4)),
+                                  ("LM driver", (32, 128, 12, 4))):
         g = torch.Generator(device="cuda").manual_seed(t)
         q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
             torch.bfloat16) for shape in ((b, t, h, 64), (b, t, n_kv, 64),
@@ -583,7 +626,8 @@ GRAM_CASES = {"loss (32, 768)": (32, 768),
               "ragged (37, 100)": (37, 100),
               "B 1 (1, 768)": (1, 768),
               "d_model 5120 (128, 5120)": (128, 5120),
-              "16 nodes (16, 32, 768)": (16, 32, 768)}
+              "16 nodes (16, 32, 768)": (16, 32, 768),
+              "LM driver anchors (4, 16, 768)": (4, 16, 768)}
 #: gram limits: dtype -> (output, gradient).  The kernel and the plain
 #: version take f32 sums of the same exact products (bf16 values too), so
 #: the output is held to 1e-5 in both dtypes: a cosine off the diagonal is
@@ -626,7 +670,8 @@ def gram_phase() -> dict:
                        copies((torch.zeros(1, device="cuda"),)))
     log(f"  launch floor: one-element add_ {floor_ms:.4f} ms on the device")
     out = []
-    for what, shape in (("loss", (32, 768)), ("upload", (4, 32, 768))):
+    for what, shape in (("loss", (32, 768)), ("upload", (4, 32, 768)),
+                        ("LM driver anchors", (4, 16, 768))):
         x = torch.randn(shape, generator=g, device="cuda")
         x[..., 5, :] *= 1e-6                         # a norm under the clamp
         for dtype in (torch.float32, torch.bfloat16):
@@ -659,7 +704,8 @@ def gram_phase() -> dict:
             f"{floor_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; "
             f"{nbytes(x) + 4 * k * b * b} bytes, {ops} flops); inputs stay "
             f"in L2")
-        out.append(dict(path=f"federation ({what})", shape=str(shape),
+        out.append(dict(path=(what if what.startswith("LM") else
+                              f"federation ({what})"), shape=str(shape),
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=library_ms,
                         composition_ms=composition_ms, floor_ms=floor_ms))
@@ -793,6 +839,20 @@ def lora_nodes_phase() -> list:
                         f"{dtype}", lora_matmul, ref.lora_matmul_ref, args,
                         (0, 3), TOL[dtype])
                     worst[dtype] = max(worst.get(dtype, 0.0), err)
+    # the LM driver's node axes, rank 8: the task pass (batch 8 x 128
+    # tokens a node: M 1024) and the anchor pass (16 x 128: M 2048), over
+    # K 4 nodes, or over the K 2 of a uniform C 2 cohort; and the async
+    # participation round's (K 8 x M 512)
+    for dtype in (torch.bfloat16, torch.float32):
+        for nodes, m in ((4, 1024), (4, 2048), (2, 1024), (2, 2048),
+                         (8, 512)):
+            for n in (768, 256):
+                args = lora_node_inputs(nodes, m, 768, n, 8, dtype,
+                                        seed=nodes * m + n)
+                err = check_vjp(f"lora_matmul K {nodes} ({m}, 768, {n}, r 8)"
+                                f" {dtype}", lora_matmul, ref.lora_matmul_ref,
+                                args, (0, 3), TOL[dtype])
+                worst[dtype] = max(worst[dtype], err)
     log(f"  node axis: worst forward error {worst} (of max(1, |value|))")
 
     def per_node(x, w, a, b):                 # K launches of today's kernel
@@ -805,34 +865,36 @@ def lora_nodes_phase() -> list:
         return lora_apply(dy, w.t(), b.transpose(-1, -2), a.t(), False)[0]
 
     out = []
-    for nodes in (4, 16):
+    for path, nodes, m in (("engine", 4, 512), ("engine", 16, 512),
+                           ("async participation", 8, 512),
+                           ("LM driver", 4, 1024)):
         for n in (768, 256):
-            args = lora_node_inputs(nodes, 512, 768, n, 8, torch.bfloat16,
-                                    seed=nodes + n)
+            args = lora_node_inputs(nodes, m, 768, n, 8, torch.bfloat16,
+                                    seed=nodes + n + m)
             sets = copies(args)
             ms = time_ms(lambda *t: lora_matmul(*t), sets)
             per_node_ms = time_ms(per_node, sets)
             plain_ms = time_ms(lambda *t: ref.lora_matmul_ref(*t), sets)
             composition_ms = time_ms(composition, sets)
-            dy_sets = [(torch.randn((nodes, 512, n), device="cuda").to(
+            dy_sets = [(torch.randn((nodes, m, n), device="cuda").to(
                 torch.bfloat16), *t[1:]) for t in sets]
             dx_ms = time_ms(dx_kernel, dy_sets)
             x, w, a, b = args
-            ops = nodes * (2 * 512 * 768 * n + 2 * 512 * 768 * 8
-                           + 2 * 512 * 8 * n)
-            moved = nbytes(x, w, a, b) + nodes * 512 * n * x.element_size()
+            ops = nodes * (2 * m * 768 * n + 2 * m * 768 * 8
+                           + 2 * m * 8 * n)
+            moved = nbytes(x, w, a, b) + nodes * m * n * x.element_size()
             b_ms, b_by = bound_ms(moved, ops, torch.bfloat16)
-            plan = (tile_plan(512, 768, n, nodes),
-                    lora_blocks(512, 768, n, nodes))
-            log(f"  lora_matmul node-axis timing (bf16, K {nodes}, M 512, "
+            plan = (tile_plan(m, 768, n, nodes),
+                    lora_blocks(m, 768, n, nodes))
+            log(f"  lora_matmul node-axis timing (bf16, K {nodes}, M {m}, "
                 f"K 768, N {n}, r 8): kernel {ms:.4f} ms, dx kernel "
                 f"{dx_ms:.4f} ms, {nodes} launches of the single-node kernel "
                 f"{per_node_ms:.4f} ms, plain {plain_ms:.4f} ms, baddbmm(x @ "
                 f"W, x @ A, B) {composition_ms:.4f} ms, bound {b_ms:.4f} ms "
                 f"({b_by}; {moved} bytes, {ops} flops); (bn, k_split), "
                 f"blocks {plan}")
-            out.append(dict(path=f"engine (node axis, K {nodes})",
-                            shape=f"K {nodes}, M 512, K 768, N {n}, r 8",
+            out.append(dict(path=f"{path} (node axis, K {nodes})",
+                            shape=f"K {nodes}, M {m}, K 768, N {n}, r 8",
                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=None,
                             composition_ms=composition_ms,
@@ -1415,6 +1477,7 @@ def federation_phase(rounds: int = 2, lora_rank: int = 8,
         f"nodes x {fcfg.local_steps} local steps, batch {fcfg.local_batch} "
         f"x {fcfg.n_tokens} tokens, {fcfg.anchors_per_class * fcfg.n_classes}"
         f" anchors, rank {fcfg.lora_rank}, {rounds} rounds")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fed = SequentialFederation(fcfg, cfg, device="cuda")
     torch.cuda.synchronize()
@@ -1461,6 +1524,8 @@ def federation_phase(rounds: int = 2, lora_rank: int = 8,
     if not all(bool(torch.isfinite(t).all()) for t in leaves + [fed.gbar]):
         raise AssertionError("non-finite trainables or consensus Gram")
     log(f"  launches per round as required: {want}")
+    memory(f"the federation phase ({cfg.n_layers} layers, rank "
+           f"{fcfg.lora_rank})")
     return fed, dict(launches=total, walls=walls)
 
 
@@ -1577,6 +1642,7 @@ def engine_phase(rounds: int = 2, block: int = 2):
     cfg = get_config("fedmm-small")
     fcfg = FederationConfig(method="geodora", aggregation="precision",
                             rounds=rounds)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fed = Federation(fcfg, cfg, device="cuda")
     torch.cuda.synchronize()
@@ -1588,14 +1654,11 @@ def engine_phase(rounds: int = 2, block: int = 2):
         f"{fed._bucket_widths}; set-up {time.perf_counter() - t0:.3f} s")
     want = engine_launches(fed)
     for m in (1, block):
-        t0 = time.perf_counter()
-        fed.capture(m)
-        torch.cuda.synchronize()
+        captured(f"the {m}-round graph (one eager warm-up, then the "
+                 f"capture)", lambda: fed.capture(m))
         recorded = fed.engine.captured_launches(m)
         got = {name: recorded[fn.__name__] for name, fn in WRAPPERS.items()}
-        log(f"  captured the {m}-round graph in "
-            f"{time.perf_counter() - t0:.3f} s (one eager warm-up, then the "
-            f"capture); one replay launches {got}")
+        log(f"  one replay of the {m}-round graph launches {got}")
         if got != {k: m * v for k, v in want.items()}:
             raise AssertionError(f"{m}-round graph records {got}, want "
                                  f"{m} x {want}")
@@ -1649,6 +1712,7 @@ def engine_phase(rounds: int = 2, block: int = 2):
         raise AssertionError("engine: non-finite trainables or consensus "
                              "Gram")
     log(f"  engine launches per round as required: {want}")
+    memory("the engine phase")
     return fed, dict(launches=total, block_launches=got, walls=walls,
                      block_wall=block_wall)
 
@@ -1895,15 +1959,13 @@ def participation_phase(fed, plan, name: str, rounds: int = 2,
     ``check_part_block``."""
     want = engine_launches(fed)
     caps = []
+    torch.cuda.reset_peak_memory_stats()
     for m in (1, block) if block else (1,):
-        t0 = time.perf_counter()
-        fed.capture(m, participation=plan)
-        torch.cuda.synchronize()
-        caps.append(time.perf_counter() - t0)
+        caps.append(captured(f"the {m}-round graph ({name})",
+                             lambda: fed.capture(m, participation=plan)))
         recorded = fed.engine.captured_launches(m, plan)
         got = {n: recorded[fn.__name__] for n, fn in WRAPPERS.items()}
-        log(f"  {name}: captured the {m}-round graph in {caps[-1]:.3f} s; "
-            f"one replay launches {got}")
+        log(f"  {name}: one replay of the {m}-round graph launches {got}")
         if got != {k: m * v for k, v in want.items()}:
             raise AssertionError(f"{name}: {m}-round graph records {got}, "
                                  f"want {m} x {want}")
@@ -1950,6 +2012,7 @@ def participation_phase(fed, plan, name: str, rounds: int = 2,
     if any(prev_q[i] < 1 for i in plan.poison_nodes):
         raise AssertionError(f"{name}: a poisoned node never started, so "
                              f"the quarantine guard was not tried")
+    out["memory"] = memory(f"the participation phase ({name})")
     return out
 
 
@@ -2044,6 +2107,333 @@ def participation_oracle_phase() -> dict:
 
 
 # ----------------------------------------------------------------------
+# memory: peaks since the last reset, and what a capture's pool adds
+def memory(what: str) -> dict:
+    """Print and return the peak allocated and reserved device memory since
+    the last ``torch.cuda.reset_peak_memory_stats()``, and the reserved
+    memory now (GiB)."""
+    gib = 2 ** 30
+    out = dict(peak_allocated_gib=torch.cuda.max_memory_allocated() / gib,
+               peak_reserved_gib=torch.cuda.max_memory_reserved() / gib,
+               reserved_gib=torch.cuda.memory_reserved() / gib)
+    log(f"  memory after {what}: peak allocated "
+        f"{out['peak_allocated_gib']:.3f} GiB, peak reserved "
+        f"{out['peak_reserved_gib']:.3f} GiB, reserved now "
+        f"{out['reserved_gib']:.3f} GiB")
+    return out
+
+
+def captured(what: str, capture) -> float:
+    """Run ``capture()``; print its seconds, the reserved memory it added
+    (the graph's private pool and the warm-up's blocks) and the peaks."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    capture()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    added = (torch.cuda.memory_reserved() - before) / 2 ** 30
+    log(f"  captured {what} in {secs:.3f} s; reserved memory +{added:.3f} "
+        f"GiB")
+    memory(f"capturing {what}")
+    return secs
+
+
+# ----------------------------------------------------------------------
+# checkpoint phases: in-block checkpoints, kill and resume, on the card
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def _live(fed, plan) -> tuple:
+    """Clones of the state tensors, and every generator's state."""
+    part_gen = getattr(fed, "_part_gen", None)
+    return ([t.clone() for t in tree_leaves(fed._state(plan))],
+            [n["gen"].get_state() for n in fed._nodes]
+            + ([] if part_gen is None else [part_gen.get_state()]))
+
+
+def _same(a, b) -> bool:
+    return all(len(x) == len(y) and all(torch.equal(u, v)
+                                        for u, v in zip(x, y))
+               for x, y in zip(a, b))
+
+
+def checkpoint_phase(name: str, make, plan) -> dict:
+    """``make()`` (a ``Federation``) runs 4 rounds in blocks of 2 with a
+    checkpoint after every round (design (a): each block of 2 runs as two
+    sub-blocks of 1, so 4 replays, 4 readbacks, 4 files at steps 1-4, with
+    exact launches); then ``ck_2`` is restored into the same federation
+    (in place: no capture, the same tensors) and into a fresh one, each
+    followed by 2 rounds that must end in the uninterrupted run's state
+    and generators bit for bit."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    fed = make()
+    log(f"checkpoint phase ({name}): Federation on fedmm-small "
+        f"({fed.cfg.n_layers} layers, {fed.cfg.dtype}), {fed.fed.n_nodes} "
+        f"nodes, buckets {[len(b) for b in fed._buckets]}")
+    stats = fed.engine.stats
+    caps = [captured(f"the 1-round graph ({name})",
+                     lambda: fed.capture(1, participation=plan))]
+    want = engine_launches(fed)
+    out_dir = CKPT_DIR / f"ck_{name.split()[0]}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    path = str(out_dir / "ck_{step}.npz")
+    before = dict(stats)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    recs = fed.run_rounds(4, block_size=2, participation=plan,
+                          checkpoint_path=path, checkpoint_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    delta = {k: stats[k] - before[k] for k in stats}
+    files = sorted(p.name for p in out_dir.iterdir())
+    writes = list(fed.checkpoint_writes)      # the resume below adds more
+    log(f"  4 rounds, blocks of 2, a checkpoint every round: wall "
+        f"{wall:.3f} s, task {[round(r['task_loss'], 4) for r in recs]}, "
+        f"engine {delta}, files {files}, sizes "
+        f"{[w['bytes'] for w in writes]} bytes, write seconds "
+        f"{[round(w['seconds'], 4) for w in writes]}; launches {got}")
+    if got != {k: 4 * v for k, v in want.items()}:
+        raise AssertionError(f"checkpoint {name}: launches {got}, want 4 x "
+                             f"{want}")
+    if delta != {"captures": 0, "replays": 4, "readbacks": 4}:
+        raise AssertionError(f"checkpoint {name}: engine {delta}, want 4 "
+                             f"replays, 4 readbacks, no capture")
+    if files != [f"ck_{s}.npz" for s in (1, 2, 3, 4)] or \
+            [w["step"] for w in writes] != [1, 2, 3, 4]:
+        raise AssertionError(f"checkpoint {name}: files {files}")
+    for r in recs:
+        if not all(math.isfinite(r[k]) for k in ("task_loss", "geo_loss")):
+            raise AssertionError(f"checkpoint {name}: non-finite {r}")
+    final = _live(fed, plan)
+    ck2 = path.format(step=2)
+
+    # kill after round 2, restore in place: the same tensors, no capture
+    ptrs = [t.data_ptr() for t in tree_leaves(fed._state(plan))]
+    t0 = time.perf_counter()
+    step = fed.restore(ck2)
+    restore_s = time.perf_counter() - t0
+    del fed.history[2:]
+    caps_before = stats["captures"]
+    fed.run_rounds(2, block_size=2, participation=plan,
+                   checkpoint_path=str(out_dir / "again_{step}.npz"),
+                   checkpoint_every=1)
+    same_ptrs = ptrs == [t.data_ptr() for t in tree_leaves(
+        fed._state(plan))]
+    in_place = _same(_live(fed, plan), final)
+    log(f"  restore of ck_2 in place: step {step}, {restore_s:.3f} s, "
+        f"captures after it {stats['captures'] - caps_before}, same tensors "
+        f"{same_ptrs}; 2 rounds later the state and generators equal the "
+        f"uninterrupted run's: {in_place}")
+    if step != 2 or stats["captures"] != caps_before or not same_ptrs \
+            or not in_place:
+        raise AssertionError(f"checkpoint {name}: in-place resume differs")
+    mem = memory(f"the checkpointed run ({name})")
+    del fed
+    gc.collect()
+
+    # restore into a fresh federation (same seeds)
+    fresh = make()
+    caps.append(captured(f"the 2-round graph ({name}, fresh federation)",
+                         lambda: fresh.capture(2, participation=plan)))
+    fresh.restore(ck2)
+    fresh.run_rounds(2, block_size=2, participation=plan)
+    resumed = _same(_live(fresh, plan), final)
+    log(f"  restore of ck_2 into a fresh federation, then one block of 2: "
+        f"state and generators equal the uninterrupted run's: {resumed}; "
+        f"engine {fresh.engine.stats}")
+    if not resumed or fresh.engine.stats != {"captures": 1, "replays": 1,
+                                             "readbacks": 1}:
+        raise AssertionError(f"checkpoint {name}: fresh resume differs")
+    del fresh
+    gc.collect()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return dict(launches=got, wall=wall, capture_s=caps, memory=mem,
+                file_bytes=[w["bytes"] for w in writes],
+                write_s=[w["seconds"] for w in writes],
+                phase_s=time.perf_counter() - t_phase)
+
+
+def checkpoint_phases() -> dict:
+    """The checkpoint phase under no plan (4 nodes, full depth), ``uniform``
+    C 4 (8 nodes, full depth) and ``async`` (8 nodes, 2 layers)."""
+    def four():
+        return Federation(FederationConfig(method="geodora",
+                                           aggregation="precision"),
+                          get_config("fedmm-small"), device="cuda")
+    return {"none": checkpoint_phase("none (4 nodes)", four, None),
+            "uniform": checkpoint_phase("uniform C 4 (8 nodes)",
+                                        part_federation, UNIFORM),
+            "async": checkpoint_phase("async (8 nodes, 2 layers)",
+                                      lambda: part_federation(n_layers=2),
+                                      ASYNC)}
+
+
+# ----------------------------------------------------------------------
+# the LM training driver (repro_torch.launch.train)
+DRIVER_ARGV = ["--arch", "fedmm-small", "--device", "cuda"]   # the defaults
+
+
+def driver_launches(args, cfg) -> dict:
+    """Launches of one driver round by the design: per local step a task
+    pass over the cohort's B x S-token sequences and an anchor pass over
+    its copies of the anchors, each running the trunk once over all the
+    cohort's rows -- every attention linear (wq, wk, wv, wo) one forward
+    launch, and one dx launch wherever its input needs a gradient, which
+    is all but layer 0's wq, wk and wv (their input is the frozen
+    embedding); one flash launch per layer -- and one gram launch on the
+    (K, A, d) anchors; the server one more gram launch."""
+    n_lin = 4 * cfg.n_layers
+    steps = args.local_steps
+    return {"decode_attention": 0,
+            "lora_matmul": steps * 2 * (n_lin + n_lin - 3),
+            "flash_attention": steps * 2 * cfg.n_layers,
+            "gram": steps + 1, "selective_scan": 0}
+
+
+def _random_block(run, args, m: int, seed: int = 0):
+    """Batches and uniforms of the driver's block shapes, random tokens
+    from a generator of their own (the streams do not move): a capture's
+    warm-up inputs, or the oracle's."""
+    k = args.nodes
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b = make_lm_batch(g, run.cfg, m * args.local_steps * k * args.batch,
+                      args.seq)
+    block = {name: v.reshape(m, args.local_steps, k, args.batch, args.seq)
+             for name, v in b.items()}
+    uniforms = None
+    if run.part_gen is not None:
+        uniforms = torch.rand((m, n_uniforms(run.plan), k), generator=g,
+                              device="cuda")
+    return (block,), uniforms
+
+
+def driver_phase(name: str, argv: list, rounds: int = 4) -> dict:
+    """``repro_torch.launch.train`` (``parse_args``, ``build``, ``Trainer``:
+    ``main``'s body) on fedmm-small at full width and depth with the
+    default flags plus ``argv``: the block graph captured outside the
+    counted window, then ``rounds`` rounds in blocks (the next block
+    staged while the card runs this one), with exact launches, one replay
+    and one readback per block and finite losses; then 2 more blocks under
+    ``torch.profiler``: busy share and top device operations."""
+    torch.cuda.reset_peak_memory_stats()
+    args = train.parse_args(DRIVER_ARGV + argv)
+    m = int(args.block_size)
+    t0 = time.perf_counter()
+    run = train.build(args)
+    trainer = train.Trainer(run, args)
+    build_s = time.perf_counter() - t0
+    log(f"driver phase ({name}): {run.cfg.arch_id} ({run.cfg.n_layers} "
+        f"layers, d_model {run.cfg.d_model}, vocab {run.cfg.vocab_size}, "
+        f"{run.cfg.dtype}), {args.method}, {args.nodes} nodes x "
+        f"{args.local_steps} local steps, batch {args.batch} x {args.seq}, "
+        f"{args.anchors} anchors, rank {args.rank}, blocks of {m}; build "
+        f"{build_s:.3f} s (weights; the streams start on first use)")
+    stats = run.engine.stats
+    dummy, dummy_u = _random_block(run, args, m)
+    cap = captured(f"the {m}-round driver graph ({name})",
+                   lambda: run.engine.capture(m, run.state, (None,), dummy,
+                                              plan=run.plan,
+                                              uniforms=dummy_u))
+    per_round = driver_launches(args, run.cfg)
+    recorded = run.engine.captured_launches(m, run.plan)
+    rec = {n: recorded[fn.__name__] for n, fn in WRAPPERS.items()}
+    if rec != {k: m * v for k, v in per_round.items()}:
+        raise AssertionError(f"driver {name}: the graph records {rec}, want "
+                             f"{m} x {per_round}")
+    before = dict(stats)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    final = trainer.train(rounds, m)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    got = read_counts()
+    delta = {k: stats[k] - before[k] for k in stats}
+    recs = list(trainer.records)
+    log(f"  {rounds} rounds in blocks of {m} (the streams start inside): "
+        f"wall {first_wall:.3f} s, final task {final:.4f}, engine {delta}; "
+        f"launches {got}")
+    if got != {k: rounds * v for k, v in per_round.items()}:
+        raise AssertionError(f"driver {name}: launches {got}, want "
+                             f"{rounds} x {per_round}")
+    if delta != {"captures": 0, "replays": rounds // m,
+                 "readbacks": rounds // m}:
+        raise AssertionError(f"driver {name}: engine {delta}, want one "
+                             f"replay and one readback per block")
+    if not all(math.isfinite(v) for r in recs
+               for v in r["task"] + r["geo"] + r["weights"]):
+        raise AssertionError(f"driver {name}: non-finite records")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(2 * rounds, m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.stage(m)
+    stage_block_s = time.perf_counter() - t0
+    log(f"  {2 * rounds} more rounds (streams started): wall {wall:.3f} s, "
+        f"{wall / (2 * rounds):.3f} s a round; host staging of one block "
+        f"alone {stage_block_s:.3f} s")
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train(2 * m, m)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    device_summary(prof, wall_us, f"driver trace ({name}, 2 blocks of {m} "
+                   f"rounds: the first block's staging, then each replay "
+                   f"with the next block staged meanwhile; host staging of "
+                   f"a block alone {stage_block_s:.3f} s)")
+    mem = memory(f"the driver phase ({name})")
+    del run, trainer
+    gc.collect()
+    return dict(launches=got, per_round=per_round, first_wall=first_wall,
+                wall=wall, round_s=wall / (2 * rounds), capture_s=cap,
+                stage_s=stage_block_s, memory=mem)
+
+
+def driver_oracle_phase() -> None:
+    """At 2 layers in f32 (full width), a block of 2 driver rounds replayed
+    and the same block run eagerly from the same state and batches: the
+    records and the state bit for bit, under full participation and
+    ``uniform`` C 2.  The graph is captured on other batches and
+    uniforms, so the replay must read the ones staged for it."""
+    for extra in ([], ["--participation", "uniform", "--cohort-size", "2"]):
+        args = train.parse_args(DRIVER_ARGV + extra)
+        cfg = train.model_config(args).with_(n_layers=2, dtype="float32")
+        run = train.build(args, cfg=cfg)
+        warm, warm_u = _random_block(run, args, 2, seed=1)
+        run.engine.capture(2, run.state, (None,), warm, plan=run.plan,
+                           uniforms=warm_u)
+        batches, uniforms = _random_block(run, args, 2, seed=2)
+        start = [t.clone() for t in tree_leaves(run.state)]
+        _, replayed = run.engine.run_block(run.state, 2, statics=(None,),
+                                           batches=batches, plan=run.plan,
+                                           uniforms=uniforms)
+        after = [t.clone() for t in tree_leaves(run.state)]
+        for t, v in zip(tree_leaves(run.state), start):
+            t.copy_(v)
+        _, eager = run.engine.run_block(run.state, 2, statics=(None,),
+                                        batches=batches, plan=run.plan,
+                                        uniforms=uniforms, eager=True)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(run.state), after))
+        log(f"driver oracle (2 layers, f32, {args.participation}): replayed "
+            f"block == eager block: records {replayed == eager}, state "
+            f"{same}; task {[round(sum(r['task']), 4) for r in replayed]}")
+        if replayed != eager or not same:
+            raise AssertionError("driver oracle: replay and eager differ")
+        del run
+        gc.collect()
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's smoke run "
@@ -2119,6 +2509,18 @@ def main() -> int:
     participation_oracle_phase()
     part_s = time.perf_counter() - t_part
 
+    t_ck = time.perf_counter()
+    ckpt = checkpoint_phases()
+    ckpt_s = time.perf_counter() - t_ck
+    t_drv = time.perf_counter()
+    driver = {"full": driver_phase("full participation",
+                                   ["--block-size", "2"]),
+              "uniform": driver_phase("uniform C 2",
+                                      ["--block-size", "2", "--participation",
+                                       "uniform", "--cohort-size", "2"])}
+    driver_oracle_phase()
+    driver_s = time.perf_counter() - t_drv
+
     sources = {"decode_attention": "src/repro/kernels/decode_attention.py:77",
                "flash_attention": "src/repro/kernels/flash_attention.py:69",
                "gram": "src/repro/kernels/gram.py:31",
@@ -2151,7 +2553,17 @@ def main() -> int:
                    "participation precision C 4 (2 layers, one round)":
                        part["precision"]["launches"][k],
                    "participation dropout 0.25 (2 layers, one round)":
-                       part["dropout"]["launches"][k]} for k in rows}
+                       part["dropout"]["launches"][k],
+                   "checkpoint, no plan (4 rounds, a file a round)":
+                       ckpt["none"]["launches"][k],
+                   "checkpoint, uniform C 4 (4 rounds, a file a round)":
+                       ckpt["uniform"]["launches"][k],
+                   "checkpoint, async (2 layers, 4 rounds, a file a round)":
+                       ckpt["async"]["launches"][k],
+                   "LM driver (4 rounds, blocks of 2)":
+                       driver["full"]["launches"][k],
+                   "LM driver uniform C 2 (4 rounds, blocks of 2)":
+                       driver["uniform"]["launches"][k]} for k in rows}
     # the top-level times are the first timed shape's; ``timings`` holds
     # every timed shape with its path
     kernels = [dict(name=k, route="cuda",
@@ -2180,6 +2592,21 @@ def main() -> int:
             + f"; captures {v['capture_s']} s")
     log(f"participation phases (captures, rounds, traces, oracle): "
         f"{part_s:.1f} s")
+    for k, v in ckpt.items():
+        log(f"checkpoint {k}: 4 rounds with a file a round {v['wall']} s; "
+            f"files {v['file_bytes']} bytes written in {v['write_s']} s; "
+            f"captures {v['capture_s']} s; peak allocated "
+            f"{v['memory']['peak_allocated_gib']} GiB, reserved "
+            f"{v['memory']['peak_reserved_gib']} GiB")
+    log(f"checkpoint phases: {ckpt_s:.1f} s")
+    for k, v in driver.items():
+        log(f"LM driver {k}: {v['round_s']} s a round (blocks of 2, "
+            f"streams started), first 4 rounds {v['first_wall']} s, host "
+            f"staging of a block {v['stage_s']} s, capture "
+            f"{v['capture_s']} s, launches per round {v['per_round']}, peak "
+            f"allocated {v['memory']['peak_allocated_gib']} GiB, reserved "
+            f"{v['memory']['peak_reserved_gib']} GiB")
+    log(f"driver phases: {driver_s:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

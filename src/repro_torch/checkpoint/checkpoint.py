@@ -94,6 +94,15 @@ def _from_numpy(arr: np.ndarray, dtype: str, like):
     return arr
 
 
+def jax_key_layout(seed: int) -> np.ndarray:
+    """The uint32 (2,) words of ``jax.random.PRNGKey(seed)`` (threefry):
+    ``[seed >> 32, seed & 0xFFFFFFFF]`` for a seed in [0, 2**64).  The port
+    draws with torch generators; it writes such leaves so its files carry
+    the JAX package's leaf set, and never reads them back."""
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                    dtype=np.uint32)
+
+
 def save_checkpoint(path: str, tree, step: int = 0,
                     meta: Dict[str, Any] = None) -> None:
     """``meta`` is an optional JSON-serialisable dict stored alongside the
@@ -206,4 +215,4 @@ def load_checkpoint(path: str, like) -> Tuple[Any, int]:
 
 
 __all__ = ["save_checkpoint", "load_checkpoint", "read_meta",
-           "CheckpointError"]
+           "jax_key_layout", "CheckpointError"]

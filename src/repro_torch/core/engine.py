@@ -45,13 +45,39 @@ each node reads its own next round of staged draws through a per-node
 count of rounds trained (the caller re-positions the generators from
 the readback).
 
-Not ported: in-block checkpoints (``state_tap``) and ``mesh=`` (with
-the sharded participation and async rounds); they raise
-``NotImplementedError``.
+Batches the caller passes per round (the LM driver's, ``per_round_draws``)
+are read at slot r by every node in round r, whether it trained before or
+not, as the reference hands every node round r's batch.
+
+In-block checkpoints (``run_block(state_tap=)``).  A host write cannot
+run inside a replay, so a block of m rounds with a tap every ``e`` rounds
+runs as sub-blocks: the e-round graph ``m // e`` times, then the
+remainder's graph, each sub-block followed by the tap on the live state.
+The tap fires where the reference's in-scan tap fires -- after round
+``ridx`` of the block where ``(ridx + 1) % e == 0``, at step
+``round_offset + ridx + 1`` -- so a kill loses fewer than e rounds.  The
+cost: ``m // e + (m % e > 0)`` replays instead of one, and the tap's
+device-to-host copy of the state each time.  The block's metrics still
+come back in one readback.  ``tap_spans`` is the one split both callers
+use.  The canonical checkpoint path is
+``Federation.run_rounds(checkpoint_path=)``: it runs each sub-block as a
+block of its own, since each file must hold the data generators
+positioned at its round, and writes the files.  ``state_tap`` is the
+engine-level hook for a caller that passes its batches per round and
+owns no generator to reposition; no caller of the port uses it yet (the
+LM driver writes no checkpoints, as in the reference).
+
+``submit_block`` enqueues a block and returns before its readback, so a
+driver can stage the next block on the host while the card runs this one
+(the reference's double buffering); ``run_block`` is submit then read.
+
+Not ported: ``mesh=`` (with the sharded participation and async rounds);
+it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import logging
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
@@ -67,6 +93,21 @@ from repro_torch.kernels.gram import cosine_gram
 from repro_torch.tree import copy_into, tree_leaves, tree_map
 
 SCALARS = ("task", "geo", "acc")
+
+
+def auto_block_size(dispatch_s: float, round_s: float, *,
+                    target: float = 0.05, cap: int = 64) -> int:
+    """Pick the fused-block size M from measured host dispatch overhead:
+    the per-round host work under M-round blocks is ~``dispatch_s / M``,
+    so the smallest M with ``dispatch_s / M < target * round_s`` keeps
+    host work under ``target`` (default 5%) of round time.  Clamped to
+    [1, cap]; degenerate measurements (zero/negative round time) take the
+    cap.  Drivers measure once at startup (``--block-size auto``)."""
+    if round_s <= 0 or dispatch_s <= 0:
+        return cap if round_s <= 0 else 1
+    m = math.ceil(dispatch_s / (target * round_s))
+    return max(1, min(int(m), cap))
+
 
 # local_step(trains, opts, gbar, statics, batch) -> (trains, opts, aux): one
 # local step of every node; trains / opts / statics / batch are tuples per
@@ -88,6 +129,10 @@ class EngineConfig:
     # FedAvgM coefficient on the round's pseudo-gradient; None is off (no
     # carried server state), 0.0 carries it and reduces to the average
     server_momentum: Optional[float] = None
+    # under a plan, which staged round a node reads: False, its own count
+    # of rounds trained in the block (Federation: each node's k-th round
+    # of draws); True, the round's index (batches passed per round)
+    per_round_draws: bool = False
 
 
 def pad_axis(x: torch.Tensor, width: int, axis: int = -1) -> torch.Tensor:
@@ -147,6 +192,15 @@ def _pick_draws(batches, slots: torch.Tensor, rows: torch.Tensor):
     the cohort schedule."""
     return tree_map(lambda x: None if x is None
                     else x[slots, :, rows].transpose(0, 1), batches)
+
+
+def tap_spans(m: int, every: int) -> list:
+    """The sub-blocks of an m-round block with a state tap every ``every``
+    rounds: ``(start, rounds, tap)`` each, ``tap`` true after a full one
+    -- after round ``ridx`` of the block where ``(ridx + 1) % every ==
+    0``, as the reference's in-scan tap fires."""
+    return [(s, min(every, m - s), min(every, m - s) == every)
+            for s in range(0, m, every)]
 
 
 def _safe_tap(fn, *args) -> None:
@@ -651,6 +705,8 @@ class RoundEngine:
             trains, opts, gbar, server_m, part, metrics, slots = body(
                 plan, trains, opts, gbar, server_m, part, statics, batches,
                 None if uniforms is None else uniforms[i], slots)
+            if self.ecfg.per_round_draws:
+                slots = tuple(torch.full_like(s, i + 1) for s in slots)
             rows.append(self._pack_part(metrics))
         copy_into(state, (trains, opts, gbar, server_m, part))
         return torch.stack(rows)
@@ -706,42 +762,94 @@ class RoundEngine:
         return out
 
     # ------------------------------------------------------------------
-    def run_block(self, state, m: int, *, statics, batches, tap=None,
-                  state_tap=None, eager: bool = False, plan=None,
-                  uniforms=None):
+    def submit_block(self, state, m: int, *, statics, batches, tap=None,
+                     state_tap=None, state_tap_every: int = 0,
+                     round_offset: int = 0, eager: bool = False, plan=None,
+                     uniforms=None) -> "BlockResult":
         """Run m rounds on ``state`` in place: one graph replay on the card
         (``eager``: the same work without the graph, a replay's oracle),
         eagerly on the CPU.  ``batches`` is a tuple per bucket of trees
         whose leaves lead with (m, E, k_b).  Under a participation
         ``plan``, ``state`` carries the sampler's device state as a fifth
         element and ``uniforms`` is the (m, n_u, K) staged uniforms (None
-        under ``nodes``); each record then also holds ``participation``
-        and ``cohort_size`` (and the async fields).  Reads the device
-        once; returns ``(state, metrics)``, metrics a list of m per-round
-        dicts, and calls ``tap(metrics of round i, with "round_in_block":
-        i)`` once per round."""
-        if state_tap is not None:
-            raise NotImplementedError("in-block checkpoints (state_tap) wait "
-                                      "for the port of checkpoint/")
+        under ``nodes``).  Returns before the readback: the result's
+        ``metrics()`` reads the device once and calls ``tap(metrics of
+        round i, with "round_in_block": i)`` once per round.
+
+        ``state_tap(step, state)`` arms the in-block checkpoint: the block
+        runs as the sub-blocks of ``tap_spans(m, state_tap_every)`` and
+        the tap fires after each full one with the live state, at step
+        ``round_offset`` + rounds done (see the module docstring).  It
+        needs batches read by round (no plan, or ``per_round_draws``).  A
+        raising tap is logged and dropped.  A ``Federation`` checkpoints
+        through ``run_rounds(checkpoint_path=)``, not through this hook:
+        its files must hold generators positioned per sub-block."""
         if m < 1:
             raise ValueError(f"block size must be >= 1, got {m}")
         plan = part_mod.normalize(plan)
+        every = m
+        if state_tap is not None:
+            if not 1 <= state_tap_every <= m:
+                raise ValueError(f"state_tap_every {state_tap_every} "
+                                 f"outside [1, {m}]")
+            if plan is not None and not self.ecfg.per_round_draws:
+                raise ValueError(
+                    "state_tap under a plan needs per_round_draws: a node "
+                    "reads its own count of rounds trained, which a "
+                    "sub-block cannot slice (Federation splits its blocks "
+                    "itself)")
+            every = state_tap_every
+        outs = []
+        for start, mm, full in tap_spans(m, every):
+            cut = (lambda t, a=start, b=start + mm: None if t is None
+                   else t[a:b])
+            sub_b = batches if mm == m else tree_map(cut, batches)
+            sub_u = (uniforms if mm == m or uniforms is None
+                     else uniforms[start:start + mm])
+            outs.append(self._run_sub(mm, state, statics, sub_b, plan, sub_u,
+                                      eager))
+            if state_tap is not None and full:
+                _safe_tap(state_tap, round_offset + start + mm, state)
+        out = outs[0] if len(outs) == 1 else torch.cat(outs)
+        return BlockResult(self, out, plan, tap)
+
+    def _run_sub(self, m: int, state, statics, batches, plan, uniforms,
+                 eager: bool) -> torch.Tensor:
+        """The packed metrics of m rounds, replayed or eager.  A replay's
+        output buffer is rewritten by the next replay of its graph, and
+        the read is deferred, so it is cloned."""
         if state[2].device.type == "cuda" and not eager:
             out = self._replay(m, state, statics, batches, plan, uniforms)
-        else:
-            with torch.enable_grad():
-                out = (self._block(m, state, statics, batches)
-                       if plan is None else self._block_part(
-                           plan, m, state, statics, (batches, uniforms)))
-        host = out.tolist()                                  # one readback
-        self.stats["readbacks"] += 1
-        metrics = [self._unpack(row) if plan is None
-                   else self._unpack_part(row, plan) for row in host]
-        if tap is not None:
+            return out.clone()
+        with torch.enable_grad():
+            return (self._block(m, state, statics, batches)
+                    if plan is None else self._block_part(
+                        plan, m, state, statics, (batches, uniforms)))
+
+    def run_block(self, state, m: int, **kw):
+        """``submit_block`` then its one readback: returns ``(state,
+        metrics)``, metrics a list of m per-round dicts."""
+        return state, self.submit_block(state, m, **kw).metrics()
+
+
+class BlockResult:
+    """A submitted block's packed metrics, still on the device."""
+
+    def __init__(self, engine: RoundEngine, out: torch.Tensor, plan, tap):
+        self._engine, self._out, self._plan, self._tap = engine, out, plan, tap
+
+    def metrics(self) -> list:
+        """Read the device once; the per-round dicts (``tap`` fired)."""
+        eng, plan = self._engine, self._plan
+        host = self._out.tolist()                            # one readback
+        eng.stats["readbacks"] += 1
+        metrics = [eng._unpack(row) if plan is None
+                   else eng._unpack_part(row, plan) for row in host]
+        if self._tap is not None:
             for i, rec in enumerate(metrics):
-                _safe_tap(tap, dict(rec, round_in_block=i))
-        return state, metrics
+                _safe_tap(self._tap, dict(rec, round_in_block=i))
+        return metrics
 
 
-__all__ = ["EngineConfig", "RoundEngine", "pad_axis", "stack_nodes",
-           "masked_select", "COUNTED"]
+__all__ = ["EngineConfig", "RoundEngine", "BlockResult", "auto_block_size",
+           "pad_axis", "stack_nodes", "masked_select", "tap_spans", "COUNTED"]

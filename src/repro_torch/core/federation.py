@@ -32,17 +32,38 @@ straggler masks and the async buffered server step); the sequential
 round is the oracle of the engine's, with the same cohort and event
 streams from the same plan seed.
 
-Not ported yet: in-block and engine checkpoints (``save`` /
-``restore``), ``mesh=``.
+Checkpoints are the JAX package's files (``checkpoint/``) with its leaf
+set, so they load in either package: ``SequentialFederation`` saves the
+consensus Gram and each node's trainables, AdamW state and key;
+``Federation`` the bucketed engine state (``gbar``, ``train``, ``opt``,
+``keys`` per bucket, ``server_m`` with server momentum, ``part`` under a
+plan) with the reference's meta.  The port draws with torch generators,
+not JAX keys: it writes ``keys`` (and the sampler's ``key``) in the JAX
+layout and never reads them back, and it keeps every generator's state
+in the meta under ``torch_generators``, a key the JAX package ignores.
+A file without that state (the JAX package's, or one written on another
+device type) restarts the generators from their construction seeds, so
+the two packages cannot resume each other's random streams.
+``Federation.restore`` writes into the live state tensors, so every
+captured graph stays valid.  ``run_rounds(checkpoint_path=)`` writes
+in-block checkpoints by splitting each block at its checkpoint rounds
+(``core.engine``'s module docstring says why).
+
+Not ported yet: ``mesh=``.
 """
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import (jax_key_layout, load_checkpoint,
+                                   read_meta, save_checkpoint)
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.configs.fedmm_base import MODALITY_TOKENIZER_DIMS
 from repro_torch.core import aggregation as agg
@@ -57,7 +78,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import (cross_entropy_loss, dora_w_terms,
                                        linear, make_linear)
 from repro_torch.optim.adamw import AdamW
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import copy_into, tree_leaves, tree_map
 
 METHODS = ("geolora", "geodora", "fedavg_full")
 
@@ -107,7 +128,7 @@ def _detach_named(tree, names=("dora_m",)):
     return walk(tree, "")
 
 
-def _per_node_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def per_node_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """``cross_entropy_loss`` over the last batch axis: logits (..., B, C),
     labels (..., B) or (B,) -> (...,); (B, C) gives the scalar."""
     logits32 = logits.float()
@@ -131,6 +152,32 @@ def _shipped(trainable: dict) -> dict:
     mask = lora_mod.shipped_mask(trainable)
     view = tree_map(lambda p, m: p if m else None, trainable, mask)
     return {k: v for k, v in view.items() if tree_leaves(v)}
+
+
+def jax_keys(ids, seed: int) -> np.ndarray:
+    """The files' per-node ``key`` leaves, uint32 (n, 2): node i's row is
+    ``jax_key_layout(i << 32 | seed)``, ``[i, seed]``, distinct per node
+    (never read back)."""
+    return np.stack([jax_key_layout(i << 32 | seed) for i in ids]
+                    ).reshape(-1, 2)
+
+
+def _gen_states(gens) -> list:
+    return [None if g is None else g.get_state().tolist() for g in gens]
+
+
+def _set_gen(gen, saved, fresh) -> None:
+    """``gen`` to its saved state, or to ``fresh``'s (a generator made
+    from the construction seed) where none was saved."""
+    gen.set_state(fresh.get_state() if saved is None
+                  else torch.tensor(saved, dtype=torch.uint8))
+
+
+def _saved_gens(meta: dict, device: torch.device) -> Optional[dict]:
+    """The meta's generator states when they were written on this device
+    type (a generator's state is not portable across device types)."""
+    g = meta.get("torch_generators")
+    return g if g and g.get("device") == device.type else None
 
 
 class SequentialFederation:
@@ -274,8 +321,8 @@ class SequentialFederation:
         z2 = z2 / torch.linalg.norm(z2, dim=-1, keepdim=True).clamp_min(1e-8)
         sim = (z1 @ z2.transpose(-1, -2)) / tau
         labels = torch.arange(z1.shape[-2], device=z1.device)
-        return 0.5 * (_per_node_ce(sim, labels)
-                      + _per_node_ce(sim.transpose(-1, -2), labels))
+        return 0.5 * (per_node_ce(sim, labels)
+                      + per_node_ce(sim.transpose(-1, -2), labels))
 
     def _grads(self, trainable, frozen, tokens, labels, anchor_tokens, gbar,
                tokens2=None):
@@ -608,15 +655,55 @@ class SequentialFederation:
         self.history.append(rec)
         return rec
 
+    # ------------------------------------------------------------------
+    # checkpoints: the consensus Gram and per node its trainables, AdamW
+    # state and key (JAX layout); the frozen base, tokenizers and anchors
+    # are rebuilt from the config seed
+    def _ckpt_nodes(self) -> dict:
+        return {"gbar": self.gbar,
+                "nodes": [{"trainable": n["trainable"],
+                           "opt_state": n["opt_state"], "key": key}
+                          for n, key in zip(self.nodes, jax_keys(
+                              range(len(self.nodes)), self.fed.seed))]}
+
+    def save(self, path: str) -> None:
+        """The reference's file (step = rounds run), with each node's data
+        generator under ``torch_generators`` in the meta."""
+        save_checkpoint(path, self._ckpt_nodes(), step=len(self.history),
+                        meta={"torch_generators": {
+                            "device": self.device.type,
+                            "nodes": _gen_states(n["gen"]
+                                                 for n in self.nodes)}})
+
+    def restore(self, path: str) -> int:
+        """Load a file of either package into this federation (same
+        config); returns its step.  Node generators continue from the
+        file's states, or restart from their seeds when it has none for
+        this device type."""
+        state, step = load_checkpoint(path, self._ckpt_nodes())
+        gens = _saved_gens(read_meta(path), self.device)
+        self.gbar = state["gbar"]
+        for i, (node, saved) in enumerate(zip(self.nodes, state["nodes"])):
+            node["trainable"] = saved["trainable"]
+            node["opt_state"] = saved["opt_state"]
+            _set_gen(node["gen"], gens and gens["nodes"][i],
+                     stream(self.device, self.fed.seed, "data", i))
+        return step
+
+    def node_params(self, i: int) -> dict:
+        """Node i's full parameter tree (trainables over the frozen)."""
+        node = self.nodes[i]
+        return lora_mod.combine(node["trainable"], self._frozen_for(node))
+
 
 # ======================================================================
-def _merge(train, frozen):
+def merge_params(train, frozen):
     """``lora.combine`` that keeps keys only ``frozen`` has (the engine's
     precomputed GeoDoRA terms): the union of both trees, the trainable leaf
     where it is not None."""
     if isinstance(train, dict) or isinstance(frozen, dict):
         train, frozen = train or {}, frozen or {}
-        return {k: _merge(train.get(k), frozen.get(k))
+        return {k: merge_params(train.get(k), frozen.get(k))
                 for k in {**frozen, **train}}
     return frozen if train is None else train
 
@@ -630,6 +717,26 @@ def _cat_nodes(trees: list):
 
 
 LOCAL_KEYS = ("adapter", "adapter2")
+
+
+def layer_major(shared: dict) -> dict:
+    """Node-stacked trainables with the stacked blocks' layer axis first and
+    the node axis second, so the stack's per-layer views carry the node
+    axis."""
+    return dict(shared, blocks=tree_map(
+        lambda t: None if t is None else t.transpose(0, 1),
+        shared["blocks"]))
+
+
+def with_dora_terms(frozen: dict) -> dict:
+    """The frozen tree with the GeoDoRA norm's W-only terms added to every
+    linear with ``dora_m`` (W and A are frozen and shared: computed once)."""
+    if isinstance(frozen, dict) and frozen.get("lora_A") is not None \
+            and "dora_m" in frozen:
+        return dict(frozen, **dora_w_terms(frozen["w"], frozen["lora_A"]))
+    if isinstance(frozen, dict):
+        return {k: with_dora_terms(v) for k, v in frozen.items()}
+    return frozen
 
 
 class Federation(SequentialFederation):
@@ -656,6 +763,8 @@ class Federation(SequentialFederation):
                                       "is not ported yet")
         super().__init__(fed, model, device=device)
         self._width_bucketing = width_bucketing
+        #: the in-block checkpoints written: step, path, seconds, bytes
+        self.checkpoint_writes: List[dict] = []
         self._build_engine()
 
     @property
@@ -753,16 +862,8 @@ class Federation(SequentialFederation):
                     cols.setdefault(k, []).append(v)
             statics.append({k: torch.stack(v) for k, v in cols.items()})
         self._statics = tuple(statics)
-        frozen = self.frozen_bridge if self._has_bridges else self.frozen
-
-        def with_terms(node):
-            if isinstance(node, dict) and node.get("lora_A") is not None \
-                    and "dora_m" in node:
-                return dict(node, **dora_w_terms(node["w"], node["lora_A"]))
-            if isinstance(node, dict):
-                return {k: with_terms(v) for k, v in node.items()}
-            return node
-        self._frozen_engine = with_terms(frozen)
+        self._frozen_engine = with_dora_terms(
+            self.frozen_bridge if self._has_bridges else self.frozen)
 
     # ------------------------------------------------------------------
     def _tokenize(self, raw, w1, b1, w2):
@@ -782,13 +883,6 @@ class Federation(SequentialFederation):
             k * n, *embeds.shape[2:])}, self.cfg)
         return pooled.reshape(k, n, -1)
 
-    def _layer_major(self, shared: dict) -> dict:
-        """The stacked blocks with the layer axis first and the node axis
-        second, so the stack's per-layer views carry the node axis."""
-        return dict(shared, blocks=tree_map(
-            lambda t: None if t is None else t.transpose(0, 1),
-            shared["blocks"]))
-
     def _local_step_nodes(self, trains, opts, gbar, statics, batch):
         """One local step of every node (Eq. 3, plus the bridge term where
         ``bridge`` is 1): the gradient of the sum of the nodes' losses,
@@ -797,11 +891,11 @@ class Federation(SequentialFederation):
         live = tuple(tree_map(lambda t: None if t is None
                               else t.detach().requires_grad_(), tr)
                      for tr in trains)
-        shared = self._layer_major(_cat_nodes([
+        shared = layer_major(_cat_nodes([
             {k: v for k, v in tr.items() if k not in LOCAL_KEYS}
             for tr in live]))
-        params = _merge(shared, self._frozen_engine)
-        params_geo = _merge(_detach_named(shared), self._frozen_engine)
+        params = merge_params(shared, self._frozen_engine)
+        params_geo = merge_params(_detach_named(shared), self._frozen_engine)
         tokens = [self._tokenize(b["raw"], st["tok_w1"], st["tok_b1"],
                                  st["tok_w2"])
                   for b, st in zip(batch, statics)]
@@ -809,7 +903,7 @@ class Federation(SequentialFederation):
                                     [tr["adapter"] for tr in live])
         logits = linear(pooled, params["cls_head"])
         labels = torch.cat([b["labels"] for b in batch])
-        task = _per_node_ce(logits, labels)
+        task = per_node_ce(logits, labels)
         pooled_a = self._pooled_nodes(params_geo,
                                       [st["anchors"] for st in statics],
                                       [tr["adapter"] for tr in live])
@@ -995,39 +1089,151 @@ class Federation(SequentialFederation):
         ``participation`` (a ``ParticipationPlan`` or strategy name) samples
         each round's cohort on the device inside the round's graph; the
         sampler state carries across calls while the plan is unchanged.
-        None / "full" is the full-participation round."""
-        if checkpoint_path is not None:
-            raise NotImplementedError("run_rounds(checkpoint_path=): "
-                                      "checkpoints are not ported yet")
+        None / "full" is the full-participation round.
+
+        ``checkpoint_path`` + ``checkpoint_every`` (block mode) write a
+        ``restore()``-able checkpoint every ``e = min(checkpoint_every, m)``
+        rounds of each block of m, at the reference's steps (the rounds
+        run so far): the block runs as sub-blocks of e rounds and the rest,
+        one replay and one readback each, with the write after each full
+        one, so a kill loses fewer than e rounds.  ``{step}`` in the path
+        gives one file per checkpoint; otherwise the file is replaced
+        atomically.  A failing write is logged and dropped.  With
+        ``block_size`` 1 no file is written, as in the reference.  This is
+        the port's checkpoint path; it splits blocks by the engine's
+        ``tap_spans``, but runs each sub-block as a block of its own
+        (staged, replayed, read back) rather than through
+        ``RoundEngine.submit_block(state_tap=)``, so that each file holds
+        the data generators at its own round."""
         plan = part_mod.normalize(participation)
         if plan is None:
-            block = lambda m: self._run_block(m, tap)
+            block = lambda m, t: self._run_block(m, t)
             if block_size <= 1:
                 return [self.run_round() for _ in range(n)]
         else:
             self._ensure_participation(plan)
-            block = lambda m: self._run_block_part(plan, m, tap)
+            block = lambda m, t: self._run_block_part(plan, m, t)
             if block_size <= 1:
-                return [block(1)[0] for _ in range(n)]
+                return [block(1, tap)[0] for _ in range(n)]
         recs, done = [], 0
         while done < n:
             m = min(block_size, n - done)
-            recs += block(m)
+            every = (min(max(1, checkpoint_every), m) if checkpoint_path
+                     else m)
+            for start, mm, full in engine_mod.tap_spans(m, every):
+                sub_tap = tap
+                if tap is not None and start:     # index within the block
+                    sub_tap = (lambda rec, s=start: tap(dict(
+                        rec, round_in_block=rec["round_in_block"] + s)))
+                recs += block(mm, sub_tap)
+                if checkpoint_path and full:
+                    engine_mod._safe_tap(self._write_checkpoint,
+                                         checkpoint_path)
             done += m
         return recs
+
+    def _write_checkpoint(self, path: str) -> None:
+        """``save`` at the rounds run so far, into ``path`` (its ``{step}``
+        filled in); each write's step, path, seconds and bytes go to
+        ``checkpoint_writes``."""
+        step = len(self.history)
+        path = path.format(step=step) if "{step}" in path else path
+        t0 = time.perf_counter()
+        self.save(path)
+        self.checkpoint_writes.append({
+            "step": step, "path": path, "seconds": time.perf_counter() - t0,
+            "bytes": os.path.getsize(path)})
 
     def run(self, block_size: int = 1, participation=None) -> List[dict]:
         self.run_rounds(self.fed.rounds, block_size,
                         participation=participation)
         return self.history
 
+    # ---- checkpoints -----------------------------------------------------
+    # the file is the engine's bucketed state under the reference's leaf
+    # names; the bucket layout is rebuilt from the config, so a restore
+    # into a federation with the same config and ``width_bucketing`` lands
+    # every node back at its row
+    def _ckpt_state(self, keys: bool = True) -> dict:
+        """The live state tensors as the file's tree; ``keys`` adds the
+        JAX-layout key leaves the reference's files hold."""
+        state = {"gbar": self.gbar, "train": self._trains, "opt": self._opts}
+        if keys:
+            state["keys"] = tuple(jax_keys(m, self.fed.seed)
+                                  for m in self._buckets)
+        if self._server_m is not None:
+            state["server_m"] = self._server_m
+        part = getattr(self, "_part_state", None)
+        if part is not None:
+            if keys:
+                key = jax_key_layout(self._part_plan.seed)
+                part = ({"ctl": dict(part["ctl"], key=key),
+                         "buf": part["buf"]} if "ctl" in part
+                        else dict(part, key=key))
+            state["part"] = part
+        return state
+
     def save(self, path: str) -> None:
-        raise NotImplementedError("Federation.save: checkpoints are not "
-                                  "ported yet")
+        """The reference's checkpoint of the block carry (step = rounds
+        run) with its meta (``server_momentum``, ``n_buckets``,
+        ``round_schedule``, ``participation``), plus every generator's
+        state under ``torch_generators``: a save at a block boundary holds
+        everything a resumed run needs to continue bit for bit, the cohort
+        stream included."""
+        part_gen = getattr(self, "_part_gen", None)
+        save_checkpoint(path, self._ckpt_state(), step=len(self.history),
+                        meta={"server_momentum": self.fed.server_momentum,
+                              "n_buckets": len(self._trains),
+                              "round_schedule":
+                                  self.fed.round_lr_schedule is not None,
+                              "participation": part_mod.plan_meta(
+                                  getattr(self, "_part_plan", None)),
+                              "torch_generators": {
+                                  "device": self.device.type,
+                                  "nodes": _gen_states(
+                                      n["gen"] for n in self._nodes),
+                                  "participation": _gen_states(
+                                      [part_gen])[0]}})
 
     def restore(self, path: str) -> int:
-        raise NotImplementedError("Federation.restore: checkpoints are not "
-                                  "ported yet")
+        """Load a checkpoint of either package (same config and
+        ``width_bucketing``) into the live state tensors, in place, so
+        captured graphs stay valid and nothing is captured anew; returns
+        its step.  A mismatched ``server_momentum`` or ``round_schedule``
+        raises ``ValueError``.  The file's plan is installed (its sampler
+        state continues), or a stale one dropped.  Generators continue
+        from the file's states, or restart from their construction seeds
+        when it has none for this device type (a JAX file)."""
+        meta = read_meta(path)
+        if meta.get("server_momentum") != self.fed.server_momentum:
+            raise ValueError(
+                f"checkpoint server_momentum={meta.get('server_momentum')} "
+                f"does not match config {self.fed.server_momentum}; the "
+                f"block carry structure differs")
+        if bool(meta.get("round_schedule", False)) != \
+                (self.fed.round_lr_schedule is not None):
+            raise ValueError(
+                f"checkpoint round_schedule="
+                f"{bool(meta.get('round_schedule', False))} does not match "
+                f"config round_lr_schedule="
+                f"{self.fed.round_lr_schedule is not None}; the optimizer "
+                f"carry structure (round counter) differs")
+        plan = part_mod.plan_from_meta(meta.get("participation"))
+        if plan is None:
+            self._part_plan = self._part_state = self._part_gen = None
+        else:
+            self._ensure_participation(plan)
+        state, step = load_checkpoint(path, self._ckpt_state())
+        copy_into(self._ckpt_state(keys=False), state)
+        gens = _saved_gens(meta, self.device)
+        for i, node in enumerate(self._nodes):
+            _set_gen(node["gen"], gens and gens["nodes"][i],
+                     stream(self.device, self.fed.seed, "data", i))
+        if self._part_gen is not None:
+            _set_gen(self._part_gen, gens and gens["participation"],
+                     stream(self.device, plan.seed, "participation"))
+        self._views_stale = True
+        return step
 
     # ------------------------------------------------------------------
     def _unpad_node_tree(self, tree: dict, node: dict) -> dict:

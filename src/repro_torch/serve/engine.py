@@ -65,7 +65,8 @@ import torch
 
 from repro_torch import graphs
 from repro_torch import resolve_device
-from repro_torch.checkpoint import load_checkpoint, read_meta, save_checkpoint
+from repro_torch.checkpoint import (jax_key_layout, load_checkpoint,
+                                   read_meta, save_checkpoint)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.serve import faults as F
@@ -120,15 +121,6 @@ def _sample(logits: torch.Tensor, temperature: float,
     cdf = torch.softmax(lg / temperature, dim=-1).cumsum(dim=-1)
     idx = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)
     return idx[:, 0].clamp(max=logits.shape[-1] - 1).to(torch.int32)
-
-
-def _jax_key_layout(seed: int) -> np.ndarray:
-    """The uint32 (2,) words of ``jax.random.PRNGKey(seed)`` (threefry):
-    ``[0, seed]`` for a seed in [0, 2**32).  The port draws with torch
-    generators; it writes this leaf so its snapshots carry the reference's
-    leaf set, and never reads it back."""
-    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
-                    dtype=np.uint32)
 
 
 class ServeEngine:
@@ -517,7 +509,7 @@ class ServeEngine:
     def _snapshot_tree(self) -> dict:
         """The state under the reference's leaf names, shapes and dtypes,
         with the JAX PRNG key's layout as ``key``."""
-        return dict(self.state, key=_jax_key_layout(self.scfg.seed))
+        return dict(self.state, key=jax_key_layout(self.scfg.seed))
 
     def snapshot(self, path: str,
                  sched: Optional[FifoScheduler] = None) -> None:

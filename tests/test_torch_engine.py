@@ -147,12 +147,10 @@ def test_run_rounds_in_blocks_equals_single_rounds():
 def test_unported_options_raise():
     fed = FederationConfig(method="geolora", **BASE)
     eng = Federation(fed, TINY, device="cpu")
-    for call in (lambda: eng.run_rounds(2, 2, checkpoint_path="x.npz"),
-                 lambda: eng.save("x.npz"), lambda: eng.restore("x.npz"),
-                 lambda: Federation(fed, TINY, device="cpu", mesh=object()),
-                 lambda: eng.engine.run_block(
-                     eng._state(), 1, statics=eng._statics,
-                     batches=eng._stage(1), state_tap=print)):
+    for call in (lambda: Federation(fed, TINY, device="cpu", mesh=object()),
+                 lambda: type(eng.engine)(eng.engine.ecfg, eng._local_step,
+                                          eng.engine.shipped_masks,
+                                          device="cpu", mesh=object())):
         with pytest.raises(NotImplementedError):
             call()
     if not torch.cuda.is_available():
