@@ -27,14 +27,24 @@ non-zero and prints no result):
    beside ``torch.matmul(x, W)`` too, and at ranks 33 and 64) and
    selective_scan (Falcon-Mamba's prefill, B 1, S 512 and 128, C =
    d_inner * N = 131,072; a ragged (3, 37, 1000) and S 1 from a nonzero
-   h0; h_all and h_last).  Each is timed, in bf16 at each path's
+   h0; RecurrentGemma's prefill, B 1, S 2,560, C = lru_width = 4,096;
+   h_all and h_last).  Also the sliding window and dh 256:
+   flash at the hybrid's (B 1, T 2,560 and 1,024, H 16, KV 1, dh 256,
+   window 2,048) and the windowed fedmm-base's (T 8,448, H 16, KV 8, dh
+   64, window 8,192), smaller windowed / dh 256 cases and a windowed
+   gradient; decode over the hybrid's ring (S 8, C 2,048, KV 1, rep 16,
+   dh 256, slots wrapped) and fedmm-base's (S 4, C 8,192, KV 8, rep 2),
+   and a window narrower than the ring.  Each is timed, in bf16 at each path's
    shapes (the scan in f32, as the prefill gives it), beside its
    plain version, its bound and a PyTorch yardstick the port never
-   calls: one call where one computes the same function (SDPA;
+   calls: one call where one computes the same function (SDPA, with a
+   boolean mask for a window;
    ``F.cosine_similarity`` for gram; as ``library_ms``; none computes
    the scan's recurrence), and for gram
    and lora_matmul a composition of calls (``F.normalize`` + ``@``;
-   ``torch.addmm(x @ W, x @ A, B)``; as ``composition_ms``);
+   ``torch.addmm(x @ W, x @ A, B)``; as ``composition_ms``).  The
+   attention kernels' forward checks hold bf16 outputs element by
+   element to ``ATTN_BF16``'s atol + rtol |want| besides ``TOL``;
 3. serve: ``ServeEngine`` on fedmm-base at full width (24 layers, bf16,
    random weights from seed 0) serves 16 requests with prompts of 128 to
    512 tokens through 8 slots, M = 8, every decode block one CUDA-graph
@@ -66,7 +76,26 @@ non-zero and prints no result):
    by kernel, and one request through a 2-layer model at full width is
    held against the CPU in f32 (prefill logits and 8 decode steps, within
    ``TOL`` of max |logit|);
-6. federation: ``SequentialFederation`` on fedmm-small at full width
+6. hybrid: ``ServeEngine`` on recurrentgemma-9b at full width and depth
+   (38 layers: 12 stacked (recurrent, recurrent, attention) groups and a
+   tail of 2 recurrent layers; d_model 4096, 16 heads over 1 KV head of
+   dh 256, local window 2,048, vocab 256,000; bf16, random weights from
+   seed 0, 19.5 GiB) serves 16 requests of 2,200-3,000 prompt tokens x
+   64 through 8 slots x 3,072 (rings of 2,048), M = 8, blocks replayed
+   as in 3: exactly 12 flash and 26 scan launches per admission and 12
+   decode launches per decode step; the eager stream must match the
+   replayed one, and a profiled run reports busy share and time by
+   kernel.  At 5 layers (one group and the tail) and full width: the
+   reference's freeze-and-resume scenario (slot 0 frozen at decode steps
+   3-5, stall watchdog 2 and off) must end token-identical to the clean
+   run, and a 2,100-token prompt is held against the CPU in f32;
+7. windowed dense: fedmm-base at full size under
+   ``Runtime(window_override=8192)`` serves 4 requests of 8,300-8,600
+   prompt tokens x 32 through 4 slots x 8,704 (rings of 8,192), blocks
+   replayed, eager blocks identical, exact launches, positions past the
+   config's ``max_seq_len`` of 4,096; a 2-layer model at full width is
+   held against the CPU in f32;
+8. federation: ``SequentialFederation`` on fedmm-small at full width
    (12 layers, bf16, geodora, precision aggregation, the default 4 nodes
    x 10 local steps, batch 32 x 16 tokens, rank 8) runs 2 rounds; each
    must launch exactly 7,680 lora_matmul (48 GeoLoRA linears, forward
@@ -76,11 +105,11 @@ non-zero and prints no result):
    and the host's op count.  Then one round at rank 64, the top of the
    kernel's range, on fedmm-small at full width cut to 2 layers, with
    exact launch counts and finite records;
-7. federation oracle: one local step from the state the rounds left,
+9. federation oracle: one local step from the state the rounds left,
    on the card in bf16 and f32 and through the plain versions on the
    CPU in f32: losses, pooled activations and every gradient must
    agree;
-8. engine: the node-stacked ``Federation`` on the same model and
+10. engine: the node-stacked ``Federation`` on the same model and
    configuration.  Before it, the node axis of ``lora_matmul`` (x (K,
    512, 768), W and A shared, B per node; K 1, 4 and 16, N 768 and 256,
    r 8 and 64, bf16 and f32; output, dx and dB) is held against its
@@ -94,11 +123,11 @@ non-zero and prints no result):
    11 gram), with one replay and one readback, finite records and
    weights summing to 1.  One replayed round under ``torch.profiler``
    reports its device busy share and launches;
-9. engine oracle: from one seed, one round through ``Federation``
+11. engine oracle: from one seed, one round through ``Federation``
    (replayed) and one through ``SequentialFederation`` on the card, in
    bf16 and f32, records and trainables within ``ENGINE_TOL``; then one
    eager round of the engine against its replay from the same state;
-10. participation: ``Federation`` on the same model with 8 nodes (4
+12. participation: ``Federation`` on the same model with 8 nodes (4
    modalities x 2: 4 width buckets of 2).  Under ``uniform`` C 4 (the
    compact path, one cohort row per bucket) and under ``async``
    (geometric lag p 0.5 capped at 3, transient 0.2, crash 0.1, rejoin
@@ -117,7 +146,7 @@ non-zero and prints no result):
    the eager run of the same round (bit-identical) and against
    ``SequentialFederation`` on the card (cohorts and events equal,
    records and trainables within ``ENGINE_TOL``);
-11. checkpoints: ``Federation`` under no plan (4 nodes), ``uniform`` C 4
+13. checkpoints: ``Federation`` under no plan (4 nodes), ``uniform`` C 4
    (8 nodes) and ``async`` (8 nodes, 2 layers): the round graph
    captured, then ``run_rounds(4, block_size=2, checkpoint_path=...,
    checkpoint_every=1)``, which ends a sub-block at every round: 4
@@ -127,7 +156,7 @@ non-zero and prints no result):
    fresh federation (its block graph captured first), each followed by
    2 rounds, must end in the uninterrupted run's state and generators
    bit for bit;
-12. the LM driver: ``repro_torch.launch.train`` (``parse_args``,
+14. the LM driver: ``repro_torch.launch.train`` (``parse_args``,
    ``build``, ``Trainer``: ``main``'s body) on fedmm-small at full width
    and depth with its default flags (4 nodes x 4 local steps, batch 8 x
    128, 16 anchors, rank 8, geodora), blocks of 2, then under
@@ -147,9 +176,10 @@ non-zero and prints no result):
 Peak device memory (allocated and reserved) is printed after each
 federation phase and after each capture, with what the capture added to
 the reserved memory.  Launch counters are set to 0 just before each path
-(serve, its eager oracle, chaos, ssm serve and its oracle, federation,
-engine, each participation round and block, each checkpointed run, each
-driver run) and read
+(serve, its eager oracle, chaos, ssm serve and its oracle, the hybrid
+and windowed serves and their oracles, the hybrid freeze runs,
+federation, engine, each participation round and block, each
+checkpointed run, each driver run) and read
 just after; the kernel checks' own launches never count.  A graph
 replay adds the launches its capture recorded; a capture's warm-up
 launches for real (the chaos phase counts them, the serve phase
@@ -199,8 +229,8 @@ from repro_torch.kernels.lora_matmul import (  # noqa: E402
 from repro_torch.kernels.selective_scan import selective_scan  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.serve import (ServeConfig, ServeEngine,  # noqa: E402
-                               SimulatedCrash, init_pool_cache,
+from repro_torch.serve import (FaultPlan, ServeConfig,  # noqa: E402
+                               ServeEngine, SimulatedCrash, init_pool_cache,
                                poisson_requests, scatter_slot, seeded_plan,
                                state_counts)
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -210,6 +240,15 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12,           # bf16 tensor cores, dense
             torch.float32: 67e12}             # f32 outside the tensor cores
 TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+#: the attention kernels' bf16 outputs are also held element by element,
+#: scaled to the plain version's: |got - want| <= atol + rtol * |want|,
+#: (rtol, atol) by kernel.  ``TOL`` alone is as large as a typical output
+#: where a row sees thousands of keys (its spread is ~sqrt(e / N): 0.036
+#: at N 2,048).  Decode keeps P in f32 and differs from the plain version
+#: by the output's rounding; flash rounds P to bf16 for its P.V product,
+#: so an output near 0 summed from terms near 1 is off by a few 1e-3
+#: (the log prints each check's worst element as a share of its limit)
+ATTN_BF16 = {"decode": (2 ** -6, 1e-3), "flash": (2 ** -5, 5e-3)}
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -358,15 +397,31 @@ def decode_inputs(s, c, n_kv, rep, dh, lens, dtype, window=0, seed=0):
     return q, k, v, q_pos, pos.to(torch.int32).contiguous()
 
 
+def attn_err(kernel: str, name: str, got, want) -> float:
+    """max |got - want| of the ``kernel`` ("flash" or "decode") attention
+    kernel against its plain version, held to ``TOL`` and, in bf16, to
+    ``ATTN_BF16[kernel]`` element by element; raises past either."""
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err, tol = diff.max().item(), TOL[got.dtype]
+    ok, note = err <= tol, f"tol {tol}"
+    if got.dtype == torch.bfloat16:
+        rtol, atol = ATTN_BF16[kernel]
+        scaled = (diff / (atol + rtol * want.float().abs())).max().item()
+        ok &= scaled <= 1.0
+        note += (f"; elementwise {scaled:.3g} of {atol} + {rtol} |want|, "
+                 f"want rms {want.float().square().mean().sqrt():.3g}")
+    name = f"{kernel}_attention {name}"
+    log(f"  {name}: max_abs_err {err:.3g} ({note})")
+    if not ok:
+        raise AssertionError(f"{name}: max_abs_err {err} ({note})")
+    return err
+
+
 def check_decode(name, args, window=0, zero_slots=()):
     got = decode_attention(*args, window=window)
-    want = ref.decode_attention_ref(*args, window=window)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    tol = TOL[args[0].dtype]
-    log(f"  decode_attention {name}: max_abs_err {err:.3g} (tol {tol})")
-    if not err <= tol:
-        raise AssertionError(f"decode_attention {name}: {err} > {tol}")
+    err = attn_err("decode", name, got,
+                   ref.decode_attention_ref(*args, window=window))
     for s in zero_slots:
         if got[s].abs().max().item() != 0.0:
             raise AssertionError(f"decode_attention {name}: fully masked "
@@ -406,7 +461,7 @@ def decode_phase() -> dict:
         pos[3] = SENTINEL
         pos[3, 400:450] = torch.arange(50, dtype=torch.int32, device="cuda")
         q_pos[3] = 49
-        bounds = split_bounds(1024, *split_plan(8, 8, 1024, 64))
+        bounds = split_bounds(1024, *split_plan(8, 8, 1024, 64, 2))
         seen = [bool((pos[3, a:b] <= q_pos[3]).any())
                 for a, b in zip(bounds[:-1], bounds[1:])]
         if sum(seen) != 1 or len(seen) < 2:
@@ -414,12 +469,12 @@ def decode_phase() -> dict:
         check_decode(f"visible in one of {len(seen)} chunks {dtype}",
                      (q, k, v, q_pos, pos), zero_slots=(4,))
         # 64 slots x 8 KV heads fill the card: one chunk, no combine pass
-        if split_plan(64, 8, 128, 64)[0] != 1:
+        if split_plan(64, 8, 128, 64, 2)[0] != 1:
             raise AssertionError("S 64, KV 8 should run one chunk")
         check_decode(f"n_split 1 (S 64, C 128) {dtype}", decode_inputs(
             64, 128, 8, 2, 64, [(37 * i) % 129 for i in range(64)], dtype,
             seed=5), zero_slots=(0,))
-    n_split, split_len = split_plan(8, 8, 1024, 64)
+    n_split, split_len = split_plan(8, 8, 1024, 64, 2)
     log(f"  decode_attention split at fedmm-base: {n_split} chunks of "
         f"{split_len} positions, {n_split * 8 * 8} blocks of (chunk, KV head,"
         f" slot), then the combine's 64")
@@ -432,17 +487,27 @@ def decode_phase() -> dict:
     return dict(max_abs_err=errs[torch.bfloat16], timings=timings)
 
 
-def decode_timing(path, s_slots, c, lens) -> dict:
-    """Kernel, plain and SDPA times (bf16, KV 8, rep 2, dh 64) and the
-    bound of this pool's visible entries."""
-    q, k, v, q_pos, pos = decode_inputs(s_slots, c, 8, 2, 64, lens,
-                                        torch.bfloat16)
+def decode_timing(path, s_slots, c, lens, n_kv=8, rep=2, dh=64,
+                  window=0) -> dict:
+    """Kernel, plain and SDPA times (bf16) and the bound of this pool's
+    visible entries."""
+    q, k, v, q_pos, pos = decode_inputs(s_slots, c, n_kv, rep, dh, lens,
+                                        torch.bfloat16, window=window)
     sets = copies((q, k, v, q_pos, pos))
-    ms = time_ms(lambda *x: decode_attention(*x), sets)
-    issue_ms = host_ms(lambda *x: decode_attention(*x), sets)
-    plain_ms = time_ms(lambda *x: ref.decode_attention_ref(*x), sets)
+
+    def kernel(*x):
+        return decode_attention(*x, window=window)
+
+    def plain(*x):
+        return ref.decode_attention_ref(*x, window=window)
+
+    ms = time_ms(kernel, sets)
+    issue_ms = host_ms(kernel, sets)
+    plain_ms = time_ms(plain, sets)
     s, h, dh = q.shape
     ok = (pos <= q_pos[:, None])                       # visible entries
+    if window:
+        ok &= q_pos[:, None] - pos < window
     lib_sets = [(x[0].reshape(s, h, 1, dh),
                  x[1].permute(0, 2, 1, 3).contiguous(),
                  x[2].permute(0, 2, 1, 3).contiguous(), ok[:, None, None, :])
@@ -450,7 +515,7 @@ def decode_timing(path, s_slots, c, lens) -> dict:
     library_ms = time_ms(sdpa_decode, lib_sets)
     live = [i for i, n in enumerate(lens) if n]
     lib_out = sdpa_decode(*lib_sets[0])[:, :, 0]
-    lib_err = (lib_out[live].float() - ref.decode_attention_ref(
+    lib_err = (lib_out[live].float() - plain(
         q, k, v, q_pos, pos)[live].float()).abs().max().item()
     if not lib_err <= TOL[torch.bfloat16]:
         raise AssertionError(f"SDPA yardstick computes another function "
@@ -462,14 +527,52 @@ def decode_timing(path, s_slots, c, lens) -> dict:
     moved = 2 * nbytes(q) + nbytes(q_pos, pos) + 2 * n_vis * entry
     ops = 4 * n_vis * h * dh                           # q.k and p.v per head
     b_ms, b_by = bound_ms(moved, ops, torch.bfloat16)
-    shape = f"S {s_slots}, C {c}, KV 8, rep 2, dh 64"
+    shape = (f"S {s_slots}, C {c}, KV {n_kv}, rep {rep}, dh {dh}"
+             + (f", window {window}" if window else ""))
     log(f"  decode_attention timing ({path}, bf16, {shape}, "
-        f"{split_plan(s_slots, 8, c, 64)[0]} chunks): kernel {ms:.4f} ms"
-        f" on the device ({issue_ms:.4f} ms to issue on the host), plain "
-        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
+        f"{split_plan(s_slots, n_kv, c, dh, rep)[0]} chunks): kernel "
+        f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue on the "
+        f"host), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} flops)")
     return dict(path=path, shape=shape, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+#: the sliding-window pools of this slice: name -> (S, C, KV, rep, dh,
+#: lens), the ring as wide as the window; every slot past the ring has
+#: wrapped, slot 5 is empty
+WINDOW_POOLS = {
+    "hybrid (RecurrentGemma ring)": (8, 2048, 1, 16, 256,
+                                     [2200, 3000, 2048, 2500, 1, 0, 2049,
+                                      2900]),
+    "windowed fedmm-base ring": (4, 8192, 8, 2, 64, [8300, 8600, 8450, 8192]),
+}
+
+
+def window_decode_phase() -> list:
+    """Decode over the sliding-window rings this slice serves (dh 256 at
+    rep 16 over one KV head, and fedmm-base's 8,192 ring), held against
+    the plain version in bf16 and f32 and timed in bf16 beside SDPA with
+    a boolean mask."""
+    log("kernel phase: decode_attention over sliding-window rings")
+    for what, (s, c, n_kv, rep, dh, lens) in WINDOW_POOLS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            a = decode_inputs(s, c, n_kv, rep, dh, lens, dtype, window=c,
+                              seed=c)
+            check_decode(f"{what} {dtype}", a, window=c,
+                         zero_slots=[i for i, n in enumerate(lens) if not n])
+        n_split, split_len = split_plan(s, n_kv, c, dh, rep)
+        log(f"  {what}: split into {n_split} chunks of {split_len} "
+            f"positions, {n_split * s * n_kv} blocks of (chunk, KV head, "
+            f"slot)")
+    # a window narrower than the ring (the ring is cache_len wide when
+    # cache_len < window is refused; a narrower window masks by position)
+    check_decode("dh 256, window 700 over a ring of 1024 bf16",
+                 decode_inputs(4, 1024, 1, 16, 256, [900, 2000, 1024, 3],
+                               torch.bfloat16, window=1024, seed=5),
+                 window=700)
+    return [decode_timing(what, s, c, lens, n_kv, rep, dh, window=c)
+            for what, (s, c, n_kv, rep, dh, lens) in WINDOW_POOLS.items()]
 
 
 # ----------------------------------------------------------------------
@@ -499,30 +602,17 @@ def flash_phase() -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         for t in (512, 300):
             a = flash_inputs(t, 16, 8, 64, dtype, seed=t)
-            got = flash_attention(*a)
-            want = ref.flash_attention_ref(*a)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = TOL[dtype]
-            log(f"  flash_attention T {t} {dtype}: max_abs_err {err:.3g} "
-                f"(tol {tol})")
-            if not err <= tol:
-                raise AssertionError(f"flash_attention T {t}: {err}")
+            err = attn_err("flash", f"T {t} {dtype}",
+                           flash_attention(*a), ref.flash_attention_ref(*a))
             if t == 512:
                 errs[dtype] = err
         for what, (b, t, sk, h, n_kv, dh) in FLASH_CASES.items():
             a = flash_inputs(t, h, n_kv, dh, dtype, seed=t + sk, b=b, s=sk)
-            err = (flash_attention(*a).float()
-                   - ref.flash_attention_ref(*a).float()).abs().max().item()
-            log(f"  flash_attention {what} {dtype}: max_abs_err {err:.3g}")
-            if not err <= TOL[dtype]:
-                raise AssertionError(f"flash_attention {what}: {err}")
+            attn_err("flash", f"{what} {dtype}", flash_attention(*a),
+                     ref.flash_attention_ref(*a))
         a = flash_inputs(200, 16, 4, 128, dtype, seed=9)   # dh 128, rep 4
-        err = (flash_attention(*a).float()
-               - ref.flash_attention_ref(*a).float()).abs().max().item()
-        log(f"  flash_attention dh 128 rep 4 {dtype}: max_abs_err {err:.3g}")
-        if not err <= TOL[dtype]:
-            raise AssertionError(f"flash_attention dh 128: {err}")
+        attn_err("flash", f"dh 128 rep 4 {dtype}", flash_attention(*a),
+                 ref.flash_attention_ref(*a))
         # the federated round's shape, with the gradient (plain backward)
         g = torch.Generator(device="cuda").manual_seed(11)
         qkv = tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -545,41 +635,112 @@ def flash_phase() -> dict:
 
     # timing, bf16: serve's prefill of one 512-token prompt, and the round's
     # (B 32, T 16), where three quarters of each 64 x 64 tile is padding
-    timings = []
-    for path, (b, t, h, n_kv) in (("serve", (1, 512, 16, 8)),
-                                  ("federation", (32, 16, 12, 4)),
-                                  ("LM driver", (32, 128, 12, 4))):
-        g = torch.Generator(device="cuda").manual_seed(t)
-        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
-            torch.bfloat16) for shape in ((b, t, h, 64), (b, t, n_kv, 64),
-                                          (b, t, n_kv, 64)))
-        sets = copies((q, k, v))
-        ms = time_ms(lambda *x: flash_attention(*x), sets)
-        issue_ms = host_ms(lambda *x: flash_attention(*x), sets)
-        plain_ms = time_ms(lambda *x: ref.flash_attention_ref(*x), sets)
-        lib_sets = [tuple(a.transpose(1, 2).contiguous() for a in x)
-                    for x in sets]
-        library_ms = time_ms(lambda *x: F.scaled_dot_product_attention(
-            *x, is_causal=True, enable_gqa=True), lib_sets)
-        lib_err = (F.scaled_dot_product_attention(
-            *lib_sets[0], is_causal=True, enable_gqa=True).transpose(1, 2)
-            .float() - ref.flash_attention_ref(*sets[0]).float()
-        ).abs().max().item()
-        if not lib_err <= TOL[torch.bfloat16]:
-            raise AssertionError(f"SDPA yardstick computes another function "
-                                 f"({lib_err})")
-        ops = 4 * b * h * 64 * t * (t + 1) // 2        # causal pairs only
-        b_ms, b_by = bound_ms(nbytes(q, k, v) + nbytes(q), ops,
-                              torch.bfloat16)
-        shape = f"B {b}, T {t}, H {h}, KV {n_kv}, dh 64"
-        log(f"  flash_attention timing ({path}, bf16, {shape}): kernel "
-            f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), plain "
-            f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
-            f"bound {b_ms:.6f} ms ({b_by}; {ops} flops)")
-        timings.append(dict(path=path, shape=shape, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by,
-                            library_ms=library_ms))
+    timings = [flash_timing(path, b, t, h, n_kv, 64)
+               for path, (b, t, h, n_kv) in (("serve", (1, 512, 16, 8)),
+                                             ("federation", (32, 16, 12, 4)),
+                                             ("LM driver", (32, 128, 12, 4)))]
     return dict(max_abs_err=errs[torch.bfloat16], timings=timings)
+
+
+def window_mask(t: int, s: int, window: int) -> torch.Tensor:
+    """(T, S) bool: the keys each query row sees under the sliding mask,
+    aligned bottom-right as the kernel aligns it (causal when window 0)."""
+    qi = torch.arange(t, device="cuda")[:, None] + (s - t)
+    ki = torch.arange(s, device="cuda")[None, :]
+    ok = ki <= qi
+    return ok & (qi - ki < window) if window else ok
+
+
+def flash_timing(path, b, t, h, n_kv, dh, window=0) -> dict:
+    """Kernel, plain and SDPA times (bf16) and the bound of the visible
+    (query, key) pairs.  SDPA runs ``is_causal`` for the causal mask and a
+    boolean (T, S) mask for a window."""
+    g = torch.Generator(device="cuda").manual_seed(t)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
+        torch.bfloat16) for shape in ((b, t, h, dh), (b, t, n_kv, dh),
+                                      (b, t, n_kv, dh)))
+    sets = copies((q, k, v))
+
+    def kernel(*x):
+        return flash_attention(*x, window=window)
+
+    def plain(*x):
+        return ref.flash_attention_ref(*x, window=window)
+
+    mask = window_mask(t, t, window)
+    sdpa = dict(is_causal=True) if not window else dict(attn_mask=mask)
+
+    def library(*x):
+        return F.scaled_dot_product_attention(*x, enable_gqa=True, **sdpa)
+
+    ms = time_ms(kernel, sets)
+    issue_ms = host_ms(kernel, sets)
+    plain_ms = time_ms(plain, sets, iters=10 if window else 30)
+    lib_sets = [tuple(a.transpose(1, 2).contiguous() for a in x)
+                for x in sets]
+    library_ms = time_ms(library, lib_sets)
+    lib_err = (library(*lib_sets[0]).transpose(1, 2).float()
+               - plain(*sets[0]).float()).abs().max().item()
+    if not lib_err <= TOL[torch.bfloat16]:
+        raise AssertionError(f"SDPA yardstick computes another function "
+                             f"({lib_err})")
+    ops = 4 * b * h * dh * int(mask.sum())             # visible pairs only
+    b_ms, b_by = bound_ms(nbytes(q, k, v) + nbytes(q), ops, torch.bfloat16)
+    shape = (f"B {b}, T {t}, H {h}, KV {n_kv}, dh {dh}"
+             + (f", window {window}" if window else ""))
+    log(f"  flash_attention timing ({path}, bf16, {shape}): kernel "
+        f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), plain "
+        f"{plain_ms:.4f} ms, SDPA{' (bool mask)' if window else ''} "
+        f"{library_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {ops} flops)")
+    return dict(path=path, shape=shape, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+#: the sliding-window prefills of this slice: name -> (B, T, H, KV, dh,
+#: window); T 1,024 lies under the hybrid's window
+WINDOW_FLASH = {
+    "hybrid (RecurrentGemma local attention)": (1, 2560, 16, 1, 256, 2048),
+    "hybrid, T under the window": (1, 1024, 16, 1, 256, 2048),
+    "windowed fedmm-base": (1, 8448, 16, 8, 64, 8192),
+}
+#: smaller masks and shapes: name -> (B, T, S, H, KV, dh, window)
+WINDOW_FLASH_CASES = {
+    "dh 256 causal, ragged T 300": (1, 300, 300, 16, 1, 256, 0),
+    "dh 256, B 2, T 200, window 50": (2, 200, 200, 8, 2, 256, 50),
+    "dh 256, T 100, S 300, window 120 (bottom-right)":
+        (1, 100, 300, 16, 1, 256, 120),
+    "dh 64, window 1 (the diagonal)": (1, 130, 130, 16, 8, 64, 1),
+    "dh 64, window 100, T 1000": (1, 1000, 1000, 16, 8, 64, 100),
+    "dh 128, window 33, rep 4": (2, 150, 150, 16, 4, 128, 33),
+}
+
+
+def window_flash_phase() -> list:
+    """Flash under the sliding mask and at dh 256: the slice's prefill
+    shapes and the smaller cases, held against the plain version in bf16
+    and f32; one windowed gradient check; then the three prefill shapes
+    timed in bf16 beside SDPA with a boolean mask."""
+    log("kernel phase: flash_attention with a sliding window and at dh 256")
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, (b, t, h, n_kv, dh, w) in WINDOW_FLASH.items():
+            a = flash_inputs(t, h, n_kv, dh, dtype, seed=t, b=b)
+            attn_err("flash", f"{what} (B {b}, T {t}, H {h}, KV "
+                     f"{n_kv}, dh {dh}, window {w}) {dtype}",
+                     flash_attention(*a, window=w),
+                     ref.flash_attention_ref(*a, window=w))
+        for what, (b, t, sk, h, n_kv, dh, w) in WINDOW_FLASH_CASES.items():
+            a = flash_inputs(t, h, n_kv, dh, dtype, seed=t + sk, b=b, s=sk)
+            attn_err("flash", f"{what} {dtype}",
+                     flash_attention(*a, window=w),
+                     ref.flash_attention_ref(*a, window=w))
+        check_vjp(f"flash_attention windowed gradient (B 1, T 384, H 16, "
+                  f"KV 1, dh 256, window 200) {dtype}",
+                  lambda *x: flash_attention(*x, window=200),
+                  lambda *x: ref.flash_attention_ref(*x, window=200),
+                  flash_inputs(384, 16, 1, 256, dtype, seed=384), (0, 1, 2),
+                  TOL[dtype])
+    return [flash_timing(what, b, t, h, n_kv, dh, w)
+            for what, (b, t, h, n_kv, dh, w) in WINDOW_FLASH.items()]
 
 
 # ----------------------------------------------------------------------
@@ -905,6 +1066,7 @@ def lora_nodes_phase() -> list:
 # ----------------------------------------------------------------------
 # kernel phase: selective scan
 MAMBA_C = 8192 * 16                    # falcon-mamba-7b: d_inner x state
+LRU_C = 4096                           # recurrentgemma-9b: lru_width
 
 
 def scan_inputs(b, s, c, dtype, h0_zero=True, seed=0):
@@ -929,7 +1091,8 @@ def scan_phase() -> dict:
                 ("falcon-mamba prefill (1, 128, 131072)", (1, 128, MAMBA_C),
                  True),
                 ("ragged (3, 37, 1000), h0 != 0", (3, 37, 1000), False),
-                ("S 1 (2, 1, 131072), h0 != 0", (2, 1, MAMBA_C), False)):
+                ("S 1 (2, 1, 131072), h0 != 0", (2, 1, MAMBA_C), False),
+                ("hybrid prefill (1, 2560, 4096)", (1, 2560, LRU_C), True)):
             args = scan_inputs(*shape, dtype, zero, seed=shape[1])
             got = selective_scan(*args)
             want = ref.selective_scan_ref(*args)
@@ -947,8 +1110,9 @@ def scan_phase() -> dict:
             errs.setdefault(dtype, err)
 
     timings = []
-    for s in (512, 128):
-        sets = copies(scan_inputs(1, s, MAMBA_C, torch.float32))
+    for path, s, c in (("ssm serve", 512, MAMBA_C), ("ssm serve", 128, MAMBA_C),
+                       ("hybrid serve", 2560, LRU_C)):
+        sets = copies(scan_inputs(1, s, c, torch.float32))
         ms = time_ms(lambda *x: selective_scan(*x), sets)
         issue_ms = host_ms(lambda *x: selective_scan(*x), sets)
         plain_ms = time_ms(lambda *x: ref.selective_scan_ref(*x), sets,
@@ -957,12 +1121,12 @@ def scan_phase() -> dict:
         moved = nbytes(da, dbx, h0) + 4 * (da.numel() + h0.numel())
         ops = 2 * da.numel()                           # one mul, one add
         b_ms, b_by = bound_ms(moved, ops, torch.float32)
-        shape = f"B 1, S {s}, C {MAMBA_C}, f32"
-        log(f"  selective_scan timing (ssm serve prefill, {shape}): kernel "
+        shape = f"B 1, S {s}, C {c}, f32"
+        log(f"  selective_scan timing ({path} prefill, {shape}): kernel "
             f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), plain "
             f"{plain_ms:.4f} ms, no single PyTorch call, bound {b_ms:.4f} ms"
             f" ({b_by}; {moved} bytes, {ops} flops)")
-        timings.append(dict(path="ssm serve", shape=shape, ms=ms,
+        timings.append(dict(path=path, shape=shape, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=None))
     return dict(max_abs_err=errs[torch.float32], timings=timings)
@@ -1004,20 +1168,32 @@ SERVE_CFG = ServeConfig(n_slots=8, cache_len=1024, block_steps=8,
                         max_new_tokens=64)
 
 
-def serve_launches(cfg, eng) -> dict:
-    """What ``eng``'s runs so far launched by the design: the prefill
-    kernel (flash, or the scan for ssm) once per layer per admission, and
-    for the dense family the decode kernel once per layer per decode step
-    -- the replayed blocks' steps and each capture's warm-up block."""
-    want = dict.fromkeys(WRAPPERS, 0)
-    admits = eng.stats["admit_dispatches"]
+def layer_kinds(cfg) -> tuple:
+    """(attention layers, recurrent layers) of a model: every dense layer
+    attends, every ssm layer recurs, and the hybrid's pattern decides."""
     if cfg.family == "ssm":
-        want["selective_scan"] = cfg.n_layers * admits
-        return want
+        return 0, cfg.n_layers
+    if cfg.family != "hybrid":
+        return cfg.n_layers, 0
+    pat = cfg.rglru.block_pattern
+    n_att = sum(pat[i % len(pat)] == "attention" for i in range(cfg.n_layers))
+    return n_att, cfg.n_layers - n_att
+
+
+def serve_launches(cfg, eng) -> dict:
+    """What ``eng``'s runs so far launched by the design: per admission
+    the flash kernel once per attention layer and the scan once per
+    recurrent layer (ssm, RG-LRU), and per decode step the decode kernel
+    once per attention layer -- the replayed blocks' steps and each
+    capture's warm-up block."""
+    n_att, n_rec = layer_kinds(cfg)
+    admits = eng.stats["admit_dispatches"]
     steps = eng.scfg.block_steps * (eng.stats["block_dispatches"]
                                     + eng.graph_stats["captures"])
-    want.update(decode_attention=cfg.n_layers * steps,
-                flash_attention=cfg.n_layers * admits)
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(decode_attention=n_att * steps,
+                flash_attention=n_att * admits,
+                selective_scan=n_rec * admits)
     return want
 
 
@@ -1025,30 +1201,36 @@ def sum_counts(*counts) -> dict:
     return {k: sum(c[k] for c in counts) for k in WRAPPERS}
 
 
-def serve_phase(cfg, params) -> dict:
-    """The 16 requests through 8 slots, every decode block one CUDA-graph
-    replay: the graph is captured first, outside the counted window; then
-    every admission must run its prefill kernel (flash, or the scan for
-    ssm) once per layer, every dense decode step the decode kernel once per
-    layer, nothing else may launch a kernel, and each block must be one
-    replay and one readback."""
-    scfg = SERVE_CFG
+def serve_phase(cfg, params, scfg=SERVE_CFG, reqs=None, rt=None) -> dict:
+    """The requests (by default the 16 of ``serve_requests``) through the
+    slots, every decode block one CUDA-graph replay: the graph is captured
+    first, outside the counted window; then every admission must run the
+    flash kernel once per attention layer and the scan once per recurrent
+    layer, every decode step the decode kernel once per attention layer,
+    nothing else may launch a kernel, and each block must be one replay
+    and one readback."""
+    reqs = reqs or serve_requests(cfg)
+    max_new = reqs[0].max_new
     log(f"serve phase: {cfg.arch_id}, {cfg.family}, {cfg.n_layers} layers, "
-        f"d_model {cfg.d_model}, {cfg.dtype}, 8 slots x 1024, M = 8, 16 "
-        f"requests x 64 tokens, decode blocks replayed from a CUDA graph")
+        f"d_model {cfg.d_model}, {cfg.dtype}"
+        + (f", window_override {rt.window_override}" if rt else "")
+        + f", {scfg.n_slots} slots x {scfg.cache_len}, M = "
+        f"{scfg.block_steps}, {len(reqs)} requests x {max_new} tokens "
+        f"(prompts {min(len(r.tokens) for r in reqs)}.."
+        f"{max(len(r.tokens) for r in reqs)}), decode blocks replayed from a "
+        f"CUDA graph")
     # warm-up (cuBLAS handles, allocator) on its own engine, not counted
     ServeEngine(params, cfg, dataclasses.replace(scfg, max_new_tokens=9),
-                device="cuda").serve(serve_requests(cfg, 1, 9)[:2])
+                rt=rt, device="cuda").serve(
+        [dataclasses.replace(r, max_new=9) for r in reqs[:2]])
     torch.cuda.synchronize()
-    reqs = serve_requests(cfg)
-    eng = ServeEngine(params, cfg, scfg, device="cuda")
+    eng = ServeEngine(params, cfg, scfg, rt=rt, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     graph = eng.capture()
     per_replay = {name: graph.launches_by_name()[fn.__name__]
                   for name, fn in WRAPPERS.items()}
     want_replay = dict.fromkeys(WRAPPERS, 0)
-    if cfg.family != "ssm":
-        want_replay["decode_attention"] = cfg.n_layers * scfg.block_steps
+    want_replay["decode_attention"] = layer_kinds(cfg)[0] * scfg.block_steps
     if per_replay != want_replay:
         raise AssertionError(f"the decode block's graph records "
                              f"{per_replay}, want {want_replay}")
@@ -1062,13 +1244,14 @@ def serve_phase(cfg, params) -> dict:
     launches = read_counts()
     st, gst = eng.stats, eng.graph_stats
     bad = [r.rid for r in reqs if recs[r.rid].state != "completed"
-           or len(recs[r.rid].tokens) != 64]
+           or len(recs[r.rid].tokens) != max_new]
     if bad:
-        raise AssertionError(f"requests not completed with 64 tokens: {bad}")
+        raise AssertionError(f"requests not completed with {max_new} "
+                             f"tokens: {bad}")
     steps = st["block_dispatches"] * scfg.block_steps
     want = serve_launches(cfg, eng)
-    if cfg.family != "ssm":          # the capture's warm-up is not counted
-        want["decode_attention"] = cfg.n_layers * steps
+    # the capture's warm-up is not counted
+    want["decode_attention"] = layer_kinds(cfg)[0] * steps
     if launches != want or st["admit_dispatches"] != len(reqs):
         raise AssertionError(f"kernel launches {launches}, want {want} "
                              f"({st['admit_dispatches']} admissions, "
@@ -1082,6 +1265,10 @@ def serve_phase(cfg, params) -> dict:
                              f"replay and one readback per block")
     n_tok = sum(len(recs[r.rid].tokens) for r in reqs)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ttft = sorted(recs[r.rid].first_token_s for r in reqs)
+    log(f"  time to first token (end of the first block that reads it "
+        f"back): min {ttft[0]:.3f} s, median {ttft[len(ttft) // 2]:.3f} s, "
+        f"max {ttft[-1]:.3f} s")
     log(f"  1 graph captured in {capture_s:.3f} s (one eager warm-up block, "
         f"then the capture; one replay launches {per_replay}); completed "
         f"{len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
@@ -1091,14 +1278,16 @@ def serve_phase(cfg, params) -> dict:
         f"{launches}; peak memory {peak:.2f} GiB")
     return dict(launches=launches, wall_s=wall, tokens=n_tok, stats=dict(st),
                 first=reqs[0], reqs=reqs, records=recs, peak_gib=peak,
-                capture_s=capture_s, replays=gst["replays"])
+                capture_s=capture_s, replays=gst["replays"], scfg=scfg,
+                rt=rt, ttft=ttft)
 
 
 def serve_graph_oracle_phase(cfg, params, served) -> dict:
     """The serve phase's stream again through ``eager=True`` (the same
     block without the graph): records token-identical to the replayed run,
     the same terminal states and identical ``stats``; exact launches."""
-    eng = ServeEngine(params, cfg, SERVE_CFG, device="cuda", eager=True)
+    eng = ServeEngine(params, cfg, served["scfg"], rt=served["rt"],
+                      device="cuda", eager=True)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1317,16 +1506,17 @@ def chaos_phase(cfg, params, temperature: float = 0.0) -> dict:
     return dict(launches=launches, wall_s=wall)
 
 
-def trace_phase(cfg, params) -> None:
+def trace_phase(cfg, params, scfg=SERVE_CFG, reqs=None, rt=None) -> None:
     """A separate, shorter serve run (8 requests x 17 tokens) under
     ``torch.profiler``, its graph captured before the profiled window:
     device busy time against the host's wall time, and the device time by
     kernel.  The untraced serve phase above gives the tokens/s; this run
     only says where its time goes."""
     from torch.profiler import ProfilerActivity, profile
-    scfg = dataclasses.replace(SERVE_CFG, max_new_tokens=17)
-    reqs = serve_requests(cfg, 2, 17)
-    eng = ServeEngine(params, cfg, scfg, device="cuda")
+    scfg = dataclasses.replace(scfg, max_new_tokens=17)
+    reqs = [dataclasses.replace(r, max_new=17)
+            for r in (reqs[:8] if reqs else serve_requests(cfg, 2, 17))]
+    eng = ServeEngine(params, cfg, scfg, rt=rt, device="cuda")
     eng.capture()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1378,14 +1568,23 @@ def device_summary(prof, wall_us: float, title: str) -> None:
 
 # ----------------------------------------------------------------------
 # oracle phase
-def run_one(params, cfg, tokens, device, steps: int = 8, feed=None):
+#: prefill positions the oracle compares (all of a 512-token prompt; the
+#: last 512 of a longer one, whose logits over a 256,000 vocabulary would
+#: take GBs on the host)
+ORACLE_LAST = 512
+
+
+def run_one(params, cfg, tokens, device, steps: int = 8, feed=None,
+            cache_len: int = 1024, rt=None):
     """Prefill one prompt into a 1-slot pool, then ``steps`` decode steps
-    fed with ``feed`` (or greedy).  Returns the logits and the fed tokens."""
-    pool = init_pool_cache(cfg, 1, 1024, device=device)
+    fed with ``feed`` (or greedy).  Returns the logits (the prefill's last
+    ``OracleLast`` positions, then one row a step) and the fed tokens."""
+    pool = init_pool_cache(cfg, 1, cache_len, device=device, rt=rt)
     prompt = torch.tensor([tokens], dtype=torch.int32, device=device)
-    logits, cache = T.prefill(params, {"tokens": prompt}, cfg, cache_len=1024)
+    logits, cache = T.prefill(params, {"tokens": prompt}, cfg,
+                              cache_len=cache_len, rt=rt)
     scatter_slot(pool, cache, 0)
-    out = [logits[0].float().cpu()]
+    out = [logits[0, -ORACLE_LAST:].float().cpu()]
     tok = int(torch.argmax(logits[0, -1]))
     fed = []
     for i in range(steps):
@@ -1393,30 +1592,34 @@ def run_one(params, cfg, tokens, device, steps: int = 8, feed=None):
         fed.append(tok)
         lg, pool = T.decode_step_slots(
             params, pool, {"tokens": torch.tensor([[tok]], dtype=torch.int32,
-                                                  device=device)}, cfg)
+                                                  device=device)}, cfg, rt=rt)
         out.append(lg[0].float().cpu())
         tok = int(torch.argmax(lg[0, -1]))
     return out, fed
 
 
-def oracle_phase(cfg, params, req, tol=(5e-2, 1e-3)) -> None:
+def oracle_phase(cfg, params, req, tol=(5e-2, 1e-3), cache_len=1024,
+                 rt=None) -> None:
     """``req`` through ``params`` on the card in bf16 and in f32, fed the
     tokens the CPU run picked; logits within ``tol`` (bf16, f32) of max
-    |logit| of the plain versions' on the CPU in f32."""
-    log(f"oracle phase: {cfg.arch_id} ({cfg.n_layers} layers), request "
-        f"{req.rid} ({len(req.tokens)} prompt tokens) on the card vs the "
-        f"plain versions on the CPU (f32)")
+    |logit| of the plain versions' on the CPU in f32 (the prefill's last
+    ``ORACLE_LAST`` positions and every decode step)."""
+    log(f"oracle phase: {cfg.arch_id} ({cfg.n_layers} layers"
+        + (f", window_override {rt.window_override}" if rt else "")
+        + f"), request {req.rid} ({len(req.tokens)} prompt tokens) on the "
+        f"card vs the plain versions on the CPU (f32)")
     cpu_params = tree_map(lambda t: t.float().cpu(), params)
     cfg32 = cfg.with_(dtype="float32")
+    kw = dict(cache_len=cache_len, rt=rt)
     t0 = time.perf_counter()
-    want, fed = run_one(cpu_params, cfg32, req.tokens, "cpu")
+    want, fed = run_one(cpu_params, cfg32, req.tokens, "cpu", **kw)
     log(f"  CPU f32 run: {time.perf_counter() - t0:.1f} s")
     del cpu_params
     cases = (("card bf16", params, cfg, tol[0]),
              ("card f32", tree_map(lambda t: t.float(), params), cfg32,
               tol[1]))
     for name, p, c, rel in cases:
-        got, _ = run_one(p, c, req.tokens, "cuda", feed=fed)
+        got, _ = run_one(p, c, req.tokens, "cuda", feed=fed, **kw)
         for i, (g, w) in enumerate(zip(got, want)):
             scale = w.abs().max().item()
             err = (g - w).abs().max().item()
@@ -1456,6 +1659,146 @@ def ssm_phases() -> dict:
     oracle_phase(small, params, served["first"],
                  tol=(TOL[torch.bfloat16], TOL[torch.float32]))
     del params
+    return served
+
+
+# ----------------------------------------------------------------------
+# hybrid phases: RecurrentGemma-9B at full width
+HYBRID_CFG = ServeConfig(n_slots=8, cache_len=3072, block_steps=8,
+                         max_new_tokens=64)
+
+
+def long_requests(cfg, n: int, lo: int, hi: int, max_new: int,
+                  seed: int) -> list:
+    """n requests at t=0 with prompt lengths drawn in [lo, hi] from
+    ``seed``, request i's tokens from seed i."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(lo, hi + 1, (n,), generator=g).tolist()
+    return [dataclasses.replace(poisson_requests(
+        1, 0.0, prompt_len=n_tok, vocab_size=cfg.vocab_size, seed=seed + i,
+        max_new=max_new)[0], rid=i) for i, n_tok in enumerate(lens)]
+
+
+def build_params(cfg, what: str) -> dict:
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, device="cuda")
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    log(f"{what} weights: {cfg.arch_id}, {cfg.n_layers} layers, "
+        f"{sum(t.numel() for t in leaves)} parameters, "
+        f"{sum(nbytes(t) for t in leaves) / 2 ** 30:.2f} GiB, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def freeze_phase(cfg, params) -> dict:
+    """The reference's freeze-and-resume scenario
+    (``tests/test_serve_resilience.py``, recurrent state) on the card:
+    slot 0 frozen at decode steps 3-5 (under and without the stall
+    watchdog) must resume bit-identically -- the RG-LRU ``h`` and ``conv``
+    held while frozen -- so both requests' tokens equal the clean run's.
+    Replayed blocks (one graph per plan and engine), exact launches."""
+    base = ServeConfig(n_slots=2, cache_len=cfg.rglru.local_window + 256,
+                       block_steps=4, max_new_tokens=12)
+    reqs = poisson_requests(2, 0.0, prompt_len=8, vocab_size=cfg.vocab_size,
+                            seed=19)
+    plan = FaultPlan(freeze_steps=(3, 4, 5), freeze_slots=(0,))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    engines = [ServeEngine(params, cfg, base, device="cuda")]
+    clean = engines[0].serve(reqs)
+    runs = {}
+    for stall_blocks in (2, 0):
+        eng = ServeEngine(params, cfg, dataclasses.replace(
+            base, stall_blocks=stall_blocks), device="cuda")
+        runs[stall_blocks] = eng.serve(reqs, fault_plan=plan)
+        engines.append(eng)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = sum_counts(*(serve_launches(cfg, e) for e in engines))
+    problems = []
+    for stall_blocks, recs in runs.items():
+        for r in reqs:
+            if (recs[r.rid].state, recs[r.rid].tokens) != (
+                    "completed", clean[r.rid].tokens):
+                problems.append(f"stall_blocks {stall_blocks}, rid {r.rid}: "
+                                f"{recs[r.rid].state} {recs[r.rid].tokens} vs "
+                                f"clean {clean[r.rid].tokens}")
+    if launches != want:
+        problems.append(f"launches {launches}, want {want}")
+    if [e.graph_stats["captures"] for e in engines] != [1, 1, 1]:
+        problems.append(f"captures {[e.graph_stats for e in engines]}")
+    log(f"hybrid freeze phase ({cfg.arch_id}, {cfg.n_layers} layers, full "
+        f"width, {time.perf_counter() - t0:.1f} s): slot 0 frozen at steps "
+        f"3-5, stall watchdog 2 and off: tokens identical to the clean run: "
+        f"{not problems}; stalls detected "
+        f"{[e.stats['stalls_detected'] for e in engines[1:]]}; launches "
+        f"{launches}")
+    if problems:
+        raise AssertionError(f"hybrid freeze phase: {problems}")
+    return dict(launches=launches)
+
+
+def hybrid_phases() -> dict:
+    """RecurrentGemma-9B at full width and depth (38 layers: 12 stacked
+    (recurrent, recurrent, attention) groups and a tail of 2 recurrent
+    layers; bf16, random weights from seed 0): the serve phase (16
+    requests of 2,200-3,000 prompt tokens x 64 through 8 slots x 3,072, a
+    ring of 2,048), its eager oracle and a profiled run; then at 5 layers
+    (one group and the tail) and full width the freeze phase and the CPU
+    oracle on a prompt of ~2,100 tokens."""
+    cfg = get_config("recurrentgemma-9b")
+    params = build_params(cfg, "hybrid")
+    reqs = long_requests(cfg, 16, 2200, 3000, 64, seed=22)
+    served = serve_phase(cfg, params, HYBRID_CFG, reqs)
+    served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
+    trace_phase(cfg, params, HYBRID_CFG, reqs)
+    del params
+    gc.collect()
+    small = cfg.with_(n_layers=5)
+    params = build_params(small, "hybrid (5 layers)")
+    served["freeze"] = freeze_phase(small, params)
+    oracle_phase(small, params, long_requests(cfg, 1, 2100, 2100, 8,
+                                              seed=23)[0],
+                 cache_len=HYBRID_CFG.cache_len)
+    del params
+    gc.collect()
+    return served
+
+
+# ----------------------------------------------------------------------
+# windowed dense phases: fedmm-base's sliding-window variant
+WINDOW_RT = T.Runtime(window_override=8192)
+WINDOW_CFG = ServeConfig(n_slots=4, cache_len=8704, block_steps=8,
+                         max_new_tokens=32)
+
+
+def window_phases() -> dict:
+    """fedmm-base at full width and depth under ``Runtime(window_override=
+    8192)``: 4 requests of 8,300-8,600 prompt tokens x 32 through 4 slots
+    x 8,704 (a ring of 8,192), replayed blocks against eager ones, exact
+    launches; positions run past the config's ``max_seq_len`` (4,096),
+    which the reference does not enforce either.  Then the 2-layer oracle
+    against the CPU."""
+    cfg = get_config("fedmm-base")
+    params = build_params(cfg, "windowed dense")
+    reqs = long_requests(cfg, 4, 8300, 8600, 32, seed=24)
+    served = serve_phase(cfg, params, WINDOW_CFG, reqs, WINDOW_RT)
+    served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
+    top = max(len(r.tokens) for r in reqs) + 32
+    if top <= cfg.max_seq_len:
+        raise AssertionError("the windowed stream stays under max_seq_len")
+    log(f"  positions up to {top - 1} against max_seq_len {cfg.max_seq_len}:"
+        f" served")
+    del params
+    small = cfg.with_(n_layers=2)
+    params = build_params(small, "windowed dense (2 layers)")
+    oracle_phase(small, params, reqs[0], cache_len=WINDOW_CFG.cache_len,
+                 rt=WINDOW_RT)
+    del params
+    gc.collect()
     return served
 
 
@@ -2459,6 +2802,8 @@ def main() -> int:
             "lora_matmul": lora_phase(),
             "selective_scan": scan_phase()}
     rows["lora_matmul"]["timings"] += lora_nodes_phase()
+    rows["flash_attention"]["timings"] += window_flash_phase()
+    rows["decode_attention"]["timings"] += window_decode_phase()
 
     cfg = get_config("fedmm-base")
     params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
@@ -2471,6 +2816,10 @@ def main() -> int:
     del params
 
     ssm_served = ssm_phases()
+    t_new = time.perf_counter()
+    hybrid = hybrid_phases()
+    windowed = window_phases()
+    new_s = time.perf_counter() - t_new
 
     fed, rounds = federation_phase()
     federation_trace_phase(fed)
@@ -2536,6 +2885,15 @@ def main() -> int:
                    "ssm serve (replayed blocks)": ssm_served["launches"][k],
                    "ssm serve graph oracle (eager blocks)":
                        ssm_served["oracle"]["launches"][k],
+                   "hybrid serve (replayed blocks)": hybrid["launches"][k],
+                   "hybrid serve graph oracle (eager blocks)":
+                       hybrid["oracle"]["launches"][k],
+                   "hybrid freeze + resume (5 layers)":
+                       hybrid["freeze"]["launches"][k],
+                   "windowed fedmm-base serve (replayed blocks)":
+                       windowed["launches"][k],
+                   "windowed fedmm-base serve graph oracle (eager blocks)":
+                       windowed["oracle"]["launches"][k],
                    "federation": rounds["launches"][k],
                    "federation at rank 64 (2 layers)":
                        rank64["launches"][k],
@@ -2576,11 +2934,16 @@ def main() -> int:
                         "library_ms")},
                     timings=r["timings"])
                for k, r in rows.items()]
-    for what, run in (("serve", served), ("ssm serve", ssm_served)):
+    for what, run in (("serve", served), ("ssm serve", ssm_served),
+                      ("hybrid serve", hybrid),
+                      ("windowed fedmm-base serve", windowed)):
         log(f"{what}: {run['tokens'] / run['wall_s']} tokens/s replayed "
             f"(eager blocks: {run['tokens'] / run['oracle']['wall_s']}), "
             f"wall {run['wall_s']} s, capture {run['capture_s']} s, "
-            f"{run['replays']} replays, peak memory {run['peak_gib']} GiB")
+            f"{run['replays']} replays, peak memory {run['peak_gib']} GiB, "
+            f"time to first token min / median / max {run['ttft'][0]} / "
+            f"{run['ttft'][len(run['ttft']) // 2]} / {run['ttft'][-1]} s")
+    log(f"hybrid and windowed dense phases: {new_s:.1f} s")
     log(f"federation: round wall {rounds['walls']} s; at rank 64 (2 "
         f"layers) {rank64['walls']} s")
     log(f"engine: replayed round wall {engine['walls']} s; block of 2 "

@@ -51,12 +51,23 @@
 //     accumulator (rep x dh) in f32 to the wrapper's scratch; a chunk with
 //     no visible entry writes m = -inf, l = 0.  With n_split 1 the split
 //     pass writes the output itself and the combine is not launched.
-//   * Combine pass: one block per (KV head, slot) merges the chunks:
+//   * Combine pass: one block per (KV head, slot, 128 of its rep x dh
+//     outputs) merges the chunks:
 //     m* = max m_i, l* = sum l_i e^(m_i - m*), out = sum acc_i e^(m_i - m*)
 //     / max(l*, 1e-30), in one pass that reads 8 chunks at once and
 //     rescales its running sums when m* grows.  Empty chunks are skipped
 //     explicitly, so a slot with no visible entry anywhere gets exactly 0;
 //     cast to q's dtype.
+//   * dh 256 (RecurrentGemma's local attention: rep 16 over one KV head,
+//     so a pool of 8 slots is 8 (slot, KV) pairs and the split alone
+//     fills the card): tiles of 16 positions; a thread holds 8 elements
+//     of a row (two 16-byte loads in f32), so a row is one warp and the
+//     per-thread registers are those of dh 128.  At rep 16 the warps'
+//     partial accumulators (64 KB) would not fit the static shared
+//     memory, so the warps add theirs into one (rep, dh) buffer in turn.
+//     The wrapper's split_plan keeps each chunk at 4 rep positions or
+//     more, so the f32 partials written and read back stay under about
+//     half the K/V the chunk reads: 32 chunks of 64 at the hybrid's pool.
 //
 // K, V and the pool must be 16-byte aligned (the wrapper checks).
 #include "common.cuh"
@@ -73,6 +84,16 @@ constexpr int kMaxRep = 16;
 template <int DH>
 constexpr int kTile = 4096 / DH;                       // 64 positions at dh 64, 32 at dh 128
 
+// elements of a row one thread holds: one 16-byte load, or at dh 256 in
+// f32 two, so that a row never spans more than one warp
+template <typename T, int DH>
+constexpr int kChunk = kVec<T> > DH / 32 ? kVec<T> : DH / 32;
+
+// the warps' partial accumulators summed in turn through one buffer when
+// all of them together would take more than 32 KB of shared memory
+template <int DH, int MAXREP>
+constexpr bool kSerialSum = (kThreads / 32) * MAXREP * DH * 4 > 32768;
+
 // 4 blocks an SM (<= 128 registers a thread, no spills) for bf16 at rep <= 2:
 // the split pass of a fedmm-base pool (512 blocks) then runs in one wave
 template <typename T, int DH, int MAXREP>
@@ -83,16 +104,19 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ part, int C, int KV, int rep, int window,
                     float scale, int split_len) {
   constexpr int TC = kTile<DH>;
-  constexpr int VEC = kVec<T>;                         // elements per 16-byte chunk
+  constexpr int VEC = kChunk<T, DH>;                   // elements per chunk of a row
+  constexpr int LPC = VEC / kVec<T>;                   // 16-byte loads per chunk
   constexpr int CPR = DH / VEC;                        // chunks per key row
   constexpr int KPS = kThreads / CPR;                  // key rows per sweep of the block
   constexpr int NV = TC / KPS;                         // K (and V) chunks per thread per tile
   constexpr int NW = kThreads / 32;
-  static_assert(NV * KPS == TC && CPR <= 32 && 32 % CPR == 0 && VEC % 4 == 0,
+  constexpr bool SERIAL = kSerialSum<DH, MAXREP>;
+  static_assert(NV * KPS == TC && CPR <= 32 && 32 % CPR == 0 && VEC % 4 == 0 &&
+                    LPC * kVec<T> == VEC,
                 "a tile must split into whole 16-byte chunks per thread");
   __shared__ __align__(16) float sq[MAXREP][DH];
   __shared__ float ss[MAXREP][TC];
-  __shared__ float sred[NW][MAXREP][DH];
+  __shared__ float sred[SERIAL ? 1 : NW][MAXREP][DH];
   __shared__ int sok[2][TC];                           // the masks of this tile and the next
   __shared__ float sm[MAXREP], sl[MAXREP], scorr[MAXREP];
 
@@ -122,16 +146,21 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     return ok;
   };
-  auto load_kv = [&](int tile, uint4 (&kr)[NV], uint4 (&vr)[NV]) {
+  auto load_kv = [&](int tile, uint4 (&kr)[NV * LPC], uint4 (&vr)[NV * LPC]) {
     const int c0 = c_begin + tile * TC;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       const int cc = key0 + KPS * j;
-      kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);       // masked entries stay 0
-      if (sok[tile & 1][cc]) {
-        const size_t off = ((static_cast<size_t>(s) * C + c0 + cc) * KV + g) * DH + ch * VEC;
-        kr[j] = *reinterpret_cast<const uint4*>(k + off);
-        vr[j] = *reinterpret_cast<const uint4*>(v + off);
+#pragma unroll
+      for (int u = 0; u < LPC; ++u) {
+        const int x = j * LPC + u;
+        kr[x] = vr[x] = make_uint4(0u, 0u, 0u, 0u);     // masked entries stay 0
+        if (sok[tile & 1][cc]) {
+          const size_t off = ((static_cast<size_t>(s) * C + c0 + cc) * KV + g) * DH +
+                             ch * VEC + u * kVec<T>;
+          kr[x] = *reinterpret_cast<const uint4*>(k + off);
+          vr[x] = *reinterpret_cast<const uint4*>(v + off);
+        }
       }
     }
   };
@@ -150,14 +179,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // a tile with no visible entry is skipped before its K/V load; the K/V
   // of tile t + 1 is in flight while tile t computes
-  uint4 kr[NV], vr[NV];
+  uint4 kr[NV * LPC], vr[NV * LPC];
   int any = __syncthreads_or(stage_mask(0, kp0));
   if (any) load_kv(0, kr, vr);
   for (int t = 0; t < ntiles; ++t) {
     // also the barrier between tile t - 1's reads of ss and tile t's writes
     const int any_next = __syncthreads_or(t + 1 < ntiles ? stage_mask(t + 1, kp1) : 0);
     kp1 = load_pos(t + 2);
-    uint4 kn[NV], vn[NV];
+    uint4 kn[NV * LPC], vn[NV * LPC];
     if (any_next) load_kv(t + 1, kn, vn);
     if (any) {
       const int* ok = sok[t & 1];
@@ -165,7 +194,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // scores: each thread dots its chunk, the CPR lanes of a key sum by shuffles
       float kf[NV][VEC];
 #pragma unroll
-      for (int j = 0; j < NV; ++j) widen16<T>(kr[j], kf[j]);
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int u = 0; u < LPC; ++u) widen16<T>(kr[j * LPC + u], kf[j] + u * kVec<T>);
 #pragma unroll
       for (int r = 0; r < MAXREP; ++r) {
         if (r >= rep) break;
@@ -209,7 +240,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
       float vf[NV][VEC];
 #pragma unroll
-      for (int j = 0; j < NV; ++j) widen16<T>(vr[j], vf[j]);
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int u = 0; u < LPC; ++u) widen16<T>(vr[j * LPC + u], vf[j] + u * kVec<T>);
 #pragma unroll
       for (int r = 0; r < MAXREP; ++r) {
         if (r >= rep) break;
@@ -226,7 +259,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     any = any_next;
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
+    for (int j = 0; j < NV * LPC; ++j) {
       kr[j] = kn[j];
       vr[j] = vn[j];
     }
@@ -235,18 +268,26 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // sum each chunk's accumulator over the threads that hold it: the lanes
   // ch + CPR i of a warp by shuffles, then the warps through shared memory
+  // (all at once, or in turn into one buffer)
+  for (int w = 0; w < (SERIAL ? NW : 1); ++w) {
+    if (!SERIAL || warp == w) {
 #pragma unroll
-  for (int r = 0; r < MAXREP; ++r) {
-    if (r >= rep) break;
+      for (int r = 0; r < MAXREP; ++r) {
+        if (r >= rep) break;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      float x = acc[r][e];
+        for (int e = 0; e < VEC; ++e) {
+          float x = acc[r][e];
 #pragma unroll
-      for (int o = CPR; o < 32; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
-      if (lane < CPR) sred[warp][r][ch * VEC + e] = x;
+          for (int o = CPR; o < 32; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+          if (lane < CPR) {
+            float& dst = sred[SERIAL ? 0 : warp][r][ch * VEC + e];
+            dst = SERIAL && w > 0 ? dst + x : x;
+          }
+        }
+      }
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   // scratch: acc (S, KV, n_split, rep, DH), then (m, l) (S, KV, n_split, rep, 2)
   const size_t prow = ((static_cast<size_t>(s) * KV + g) * n_split + split) * rep;
@@ -254,7 +295,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = e / DH, d = e % DH;
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) a += sred[w][r][d];
+    for (int w = 0; w < (SERIAL ? 1 : NW); ++w) a += sred[w][r][d];
     if (part == nullptr)                               // one chunk: the output itself
       out[row0 + e] = from_f<T>(a / fmaxf(sl[r], 1e-30f));
     else
@@ -273,11 +314,12 @@ decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out, int K
                       int rep, int n_split) {
   constexpr int NB = 8;                                // chunks read together
   const int g = blockIdx.x, s = blockIdx.y, S = gridDim.y;
+  const int e0 = blockIdx.z * kThreads, estride = gridDim.z * kThreads;
   const size_t prow = (static_cast<size_t>(s) * KV + g) * n_split * rep;
   const float* pacc = part + prow * DH;
   const float* pml = part + static_cast<size_t>(S) * KV * n_split * rep * DH + prow * 2;
   const size_t row0 = (static_cast<size_t>(s) * KV * rep + static_cast<size_t>(g) * rep) * DH;
-  for (int e = threadIdx.x; e < rep * DH; e += kThreads) {
+  for (int e = e0 + threadIdx.x; e < rep * DH; e += estride) {
     const int r = e / DH, d = e % DH;
     // a running (m*, l*, out) over the chunks, NB of them loaded at once;
     // an empty chunk (l = 0) is skipped, never weighted by e^(-inf + inf)
@@ -349,9 +391,10 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos,
   else
     launch_split<T, DH, kMaxRep>(q, k, v, q_pos, kv_pos, out, scratch, S, C, KV, rep,
                                  window, scale, n_split, split_len, stream);
-  if (n_split > 1)
-    decode_combine_kernel<T, DH><<<dim3(KV, S), kThreads, 0, stream>>>(
-        scratch, static_cast<T*>(out), KV, rep, n_split);
+  if (n_split > 1)                                     // kThreads outputs a block
+    decode_combine_kernel<T, DH>
+        <<<dim3(KV, S, (rep * DH + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+            scratch, static_cast<T*>(out), KV, rep, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -369,17 +412,17 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
       n_split < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh == 64 && is_bf16)
-    return launch<__nv_bfloat16, 64>(q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep,
-                                     window, scale, n_split, split_len, st);
-  if (dh == 64)
-    return launch<float, 64>(q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep, window,
-                             scale, n_split, split_len, st);
-  if (dh == 128 && is_bf16)
-    return launch<__nv_bfloat16, 128>(q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep,
-                                      window, scale, n_split, split_len, st);
-  if (dh == 128)
-    return launch<float, 128>(q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep, window,
-                              scale, n_split, split_len, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_DECODE_LAUNCH(T, DH)                                                    \
+  return launch<T, DH>(q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep, window, scale, \
+                       n_split, split_len, st)
+  switch (dh * 2 + (is_bf16 ? 1 : 0)) {
+    case 129: REPRO_DECODE_LAUNCH(__nv_bfloat16, 64);
+    case 128: REPRO_DECODE_LAUNCH(float, 64);
+    case 257: REPRO_DECODE_LAUNCH(__nv_bfloat16, 128);
+    case 256: REPRO_DECODE_LAUNCH(float, 128);
+    case 513: REPRO_DECODE_LAUNCH(__nv_bfloat16, 256);
+    case 512: REPRO_DECODE_LAUNCH(float, 256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_DECODE_LAUNCH
 }

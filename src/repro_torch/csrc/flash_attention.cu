@@ -1,5 +1,5 @@
-// Causal full-sequence (prefill and training) attention with an online
-// softmax, forward only.
+// Causal or sliding-window full-sequence (prefill and training) attention
+// with an online softmax, forward only.
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_pallas
 // (`_flash_kernel`; its jnp twin blockwise_attention is what the JAX
@@ -9,10 +9,16 @@
 // so gqa_forward passes its projections without a transpose copy; out
 // (B, T, H, dh) in q's dtype (bf16 or f32).  Query head h reads KV head
 // h / (H / KV).  Causal masking is aligned bottom-right, k <= q + (S - T),
-// as in the JAX oracle; with S == T (prefill) it is the Pallas rule.  A
-// row with no visible key gets 0.  Key tiles above the diagonal of a
-// block's last row are never loaded.  The Pallas kernel's full
-// (non-causal) mask serves the encoder families and is ported with them.
+// as in the JAX oracle; with S == T (prefill) it is the Pallas rule.  With
+// window > 0 a key is also dropped once it lies window or more behind the
+// row, q + (S - T) - k < window (blockwise_attention's "sliding" kind: the
+// dense family's sliding-window variant and the hybrid family's local
+// attention).  A row with no visible key gets 0.  Key tiles above the
+// diagonal of a block's last row, and tiles wholly behind the window of
+// its first row, are never loaded; a warp skips the loaded tiles that lie
+// outside its own rows' range.  The Pallas kernel's full (non-causal) and
+// chunked masks serve the encoder and MoE families and are ported with
+// them.
 //
 // What bounds it: causal attention does ~2 T^2 dh H flops on
 // ~4 T (H + KV) dh bytes of bf16 input and output, so its flops per byte
@@ -65,6 +71,15 @@
 //     x 4 key groups; the round (T 16, rep 3) runs 128 blocks of 3 warps,
 //     the 3 heads of a group in one block with no padded rows.
 //
+// dh 256 (RecurrentGemma's local attention) does not fit that plan: the
+// O accumulator alone is 16 x 256 f32 a warp, 128 registers a lane, and
+// the Q fragments held across the key loop would add 64 more.  So at dh
+// 256 a tile holds 32 keys (the score and P fragments halve), each warp
+// stages its 16 Q rows once in shared memory (cp.async, swizzled as the K
+// tile) and reads them by ldmatrix for every tile, and one key group
+// runs (KS 1): 128 threads and 96 KB of shared memory a block, two blocks
+// an SM.  dh 64 and 128 keep the plan above.
+//
 // The f32 instantiations keep the FMA body of the first port (the second kernel
 // below).  They exist for chip_smoke.py's f32 checks (TOL 1e-4) and its
 // f32 serve oracle (1e-3 of max |logit|); TF32 tensor cores keep ~3
@@ -72,6 +87,9 @@
 // 256 threads per (64-row query tile, head, batch) holds Q (pre-scaled by
 // dh^-0.5), K, V and the probability tile in shared memory as f32; each
 // thread owns a 4 x 4 score micro-tile and a 4 x (dh / 16) accumulator.
+// At dh 256 a tile's 16-byte loads are issued 8 at a time (the staging
+// registers of 16 would not fit beside the accumulator), and its shared
+// memory is 209 KB, one block an SM.
 //
 // q, k and v must be 16-byte aligned (the wrapper checks).
 #include "mma.cuh"
@@ -86,14 +104,21 @@ using namespace repro;
 using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------- bf16 path
-constexpr int kBK = 64;                               // keys per tile
 constexpr int kMaxWarps = 4;                          // row warps per key group
 constexpr int kStages = 2;                            // the cp.async ring
 
-// key groups per block at most: 16 warps of <= 128 registers at dh 64, 8
-// warps at dh 128 (more registers a thread)
+// keys per tile: 64, and 32 at dh 256 (see the note at the top)
 template <int DH>
-constexpr int kMaxKS = DH == 64 ? 4 : 2;
+constexpr int kBK = DH == 256 ? 32 : 64;
+
+// Q fragments from shared memory (dh 256) instead of registers
+template <int DH>
+constexpr bool kQShared = DH == 256;
+
+// key groups per block at most: 16 warps of <= 128 registers at dh 64, 8
+// warps at dh 128 (more registers a thread), 4 at dh 256
+template <int DH>
+constexpr int kMaxKS = DH == 64 ? 4 : DH == 128 ? 2 : 1;
 
 // 2^x on the special-function unit (exp2f adds range handling around it)
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -108,21 +133,27 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 
 template <int DH>
 constexpr size_t mma_smem_bytes(int ks) {
-  return sizeof(bf16) * kStages * ks * 2 /*K, V*/ * kBK * DH;
+  return sizeof(bf16) * (kStages * ks * 2 /*K, V*/ * kBK<DH> * DH +
+                         (kQShared<DH> ? kMaxWarps * 16 * DH : 0));
 }
 
 template <int DH>
 __global__ void __launch_bounds__(32 * kMaxWarps * kMaxKS<DH>)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, int Tq,
-                 int S, int H, int KV, int RQ, int HB, int KS, float scale_log2) {
+                 int S, int H, int KV, int RQ, int HB, int KS, int window,
+                 float scale_log2) {
+  constexpr int BK = kBK<DH>;                         // keys per tile
+  constexpr int NJ = BK / 8;                          // 8-key column tiles of S
+  constexpr int NKC = BK / 16;                        // 16-key k-steps of P V
+  constexpr bool QS = kQShared<DH>;
   constexpr int CH = DH / 8;                          // 16-byte chunks per key row
   constexpr int KC = DH / 16;                         // k-steps of Q K^T
   constexpr int NO = DH / 8;                          // 8-column tiles of the output
-  constexpr int TILE = kBK * DH;                      // elements of one K (or V) tile
+  constexpr int TILE = BK * DH;                       // elements of one K (or V) tile
   constexpr int NS = kStages;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);       // [NS stages][KS][kBK][DH], swizzled
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);       // [NS stages][KS][BK][DH], swizzled
   bf16* sV = sK + NS * KS * TILE;                     // the same for V
 
   const int nthreads = blockDim.x, tid = threadIdx.x;
@@ -140,21 +171,28 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.z;
   const int g = blockIdx.y * HB / (H / KV);
   const int shift = S - Tq;                           // bottom-right causal alignment
-  // keys past kend are masked for every row of the block; past wend for
-  // every row of this warp (0 when the warp holds no row)
-  int last = -1;                                      // the block's last row
+  // keys past kend are masked for every row of the block, and keys before
+  // kbeg by the window of every row; past wend or before wbeg for every
+  // row of this warp (wend 0 when the warp holds no row)
+  int first = Tq, last = -1;                          // the block's first and last row
   for (int w = 0; w < wph; ++w)
-    if (segment(w) * 16 < Tq) last = max(last, min(Tq - 1, segment(w) * 16 + 15));
+    if (segment(w) * 16 < Tq) {
+      first = min(first, segment(w) * 16);
+      last = max(last, min(Tq - 1, segment(w) * 16 + 15));
+    }
   const int kend = min(S, last + 1 + shift);
-  const int ntiles = kend > 0 ? (kend + kBK - 1) / kBK : 0;
+  const int kbeg = window > 0 ? max(0, first + shift - window + 1) : 0;
+  const int tile0 = kbeg / BK;                        // the first tile loaded
+  const int ntiles = kend > 0 ? max(0, (kend + BK - 1) / BK - tile0) : 0;
   const int nsteps = (ntiles + KS - 1) / KS;          // key group kg takes tile step * KS + kg
   const int wend = t0 < Tq ? min(S, min(t0 + 15, Tq - 1) + 1 + shift) : 0;
+  const int wbeg = window > 0 ? t0 + shift - window + 1 : 0;
 
   auto load_step = [&](int step) {                    // the KS tiles of one step
     const int stage = step % NS;
-    for (int i = tid; i < KS * kBK * CH; i += nthreads) {
-      const int j = i / (kBK * CH), r = i / CH % kBK, c = i % CH;
-      const int tile = step * KS + j, s = tile * kBK + r;
+    for (int i = tid; i < KS * BK * CH; i += nthreads) {
+      const int j = i / (BK * CH), r = i / CH % BK, c = i % CH;
+      const int tile = step * KS + j, s = (tile0 + tile) * BK + r;
       if (tile >= ntiles) break;                      // j only grows along i
       const size_t off =
           ((static_cast<size_t>(b) * S + min(s, S - 1)) * KV + g) * DH + c * 8;
@@ -163,6 +201,17 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async16(sV + dst, v + off, s < S);
     }
   };
+  // at dh 256 each warp stages its own 16 Q rows (zero past Tq) with the
+  // first step's tiles; they have landed when that step's wait returns
+  bf16* sQ = sV + NS * KS * TILE + warp * 16 * DH;    // [16][DH], swizzled
+  if constexpr (QS) {
+    for (int i = lane; i < 16 * CH; i += 32) {
+      const int r = i / CH, c = i % CH, row = t0 + r;
+      cp_async16(sQ + swz<DH>(r, c),
+                 q + ((static_cast<size_t>(b) * Tq + min(row, Tq - 1)) * H + h) * DH + c * 8,
+                 row < Tq);
+    }
+  }
 #pragma unroll
   for (int st = 0; st < NS - 1; ++st) {               // NS - 1 steps ahead
     if (st < nsteps) load_step(st);
@@ -171,8 +220,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // Q fragments (A operand, 16 rows x DH) straight from global memory
   const int ra = t0 + gr, rb = ra + 8;                // this lane's two rows
-  uint32_t qf[KC][4];
-  {
+  uint32_t qf[QS ? 1 : KC][4];
+  if constexpr (!QS) {
     const bf16* qa = q + ((static_cast<size_t>(b) * Tq + ra) * H + h) * DH + 2 * tq;
     const bf16* qb = q + ((static_cast<size_t>(b) * Tq + rb) * H + h) * DH + 2 * tq;
 #pragma unroll
@@ -194,41 +243,60 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     cp_async_wait<NS - 1>();                          // this step's tiles have landed
     __syncthreads();
-    const int k0 = (step * KS + kg) * kBK;
-    if (k0 < wend) {                                  // warp-uniform
+    const int k0 = (tile0 + step * KS + kg) * BK;
+    if (k0 < wend && k0 + BK > wbeg) {                // warp-uniform
       const bf16* Ks = sK + ((step % NS) * KS + kg) * TILE;
       const bf16* Vs = sV + ((step % NS) * KS + kg) * TILE;
 
-      float sc[8][4];
+      float sc[NJ][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {                   // 8 keys each
+      for (int j = 0; j < NJ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+      if constexpr (QS) {
 #pragma unroll
         for (int p = 0; p < KC / 2; ++p) {            // 32 dh each
-          uint32_t kb[4];
-          const int r = 8 * j + (lane & 7);
-          ldsm_x4(kb, Ks + swz<DH>(r, 4 * p + (lane >> 3)));
-          mma_bf16(sc[j], qf[2 * p], kb[0], kb[1]);
-          mma_bf16(sc[j], qf[2 * p + 1], kb[2], kb[3]);
+          uint32_t qa[2][4];                          // k-steps 2p and 2p + 1
+          ldsm_x4(qa[0], sQ + swz<DH>(lane & 15, 4 * p + (lane >> 4)));
+          ldsm_x4(qa[1], sQ + swz<DH>(lane & 15, 4 * p + 2 + (lane >> 4)));
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {              // 8 keys each
+            uint32_t kb[4];
+            ldsm_x4(kb, Ks + swz<DH>(8 * j + (lane & 7), 4 * p + (lane >> 3)));
+            mma_bf16(sc[j], qa[0], kb[0], kb[1]);
+            mma_bf16(sc[j], qa[1], kb[2], kb[3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {                // 8 keys each
+#pragma unroll
+          for (int p = 0; p < KC / 2; ++p) {          // 32 dh each
+            uint32_t kb[4];
+            const int r = 8 * j + (lane & 7);
+            ldsm_x4(kb, Ks + swz<DH>(r, 4 * p + (lane >> 3)));
+            mma_bf16(sc[j], qf[2 * p], kb[0], kb[1]);
+            mma_bf16(sc[j], qf[2 * p + 1], kb[2], kb[3]);
+          }
         }
       }
 
       // every key of the tile visible to every row of the warp?  Else
       // mask; m is kept in units of raw scores (the scale is positive)
       float mx[2] = {-INFINITY, -INFINITY};
-      if (k0 + kBK <= S && k0 + kBK - 1 <= t0 + shift) {
+      if (k0 + BK <= S && k0 + BK - 1 <= t0 + shift &&
+          (window == 0 || t0 + 15 + shift - k0 < window)) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
       } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * j + 2 * tq + (e & 1);
-            if (key >= S || key > (e < 2 ? ra : rb) + shift) sc[j][e] = -INFINITY;
+            const int qk = (e < 2 ? ra : rb) + shift;   // the row's own key
+            if (key >= S || key > qk || (window > 0 && qk - key >= window))
+              sc[j][e] = -INFINITY;
             mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
           }
       }
@@ -242,9 +310,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 
       float rs[2] = {0.f, 0.f};
-      uint32_t pf[4][4];                              // P as A operand, 16 keys each
+      uint32_t pf[NKC][4];                            // P as A operand, 16 keys each
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const float p0 = fast_exp2(fmaf(sc[j][0], scale_log2, -base[0]));
         const float p1 = fast_exp2(fmaf(sc[j][1], scale_log2, -base[0]));
         const float p2 = fast_exp2(fmaf(sc[j][2], scale_log2, -base[1]));
@@ -265,7 +333,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {                // 16 keys each
+      for (int kc = 0; kc < NKC; ++kc) {              // 16 keys each
 #pragma unroll
         for (int n2 = 0; n2 < NO / 2; ++n2) {         // 16 output columns each
           uint32_t vb[4];
@@ -278,6 +346,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();                                  // stage step % NS is free again
   }
+  if constexpr (QS) cp_async_wait<0>();               // no copy outlives the block
 
   if (KS > 1) {
     // key groups 1 .. KS-1 hand their (m, l, o) to group 0 through shared
@@ -335,7 +404,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DH>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Tq,
-               int S, int H, int KV, float scale, cudaStream_t stream) {
+               int S, int H, int KV, int window, float scale, cudaStream_t stream) {
   static int n_sm = 0;                                // set on the first launch
   if (n_sm == 0) {
     int dev = 0;
@@ -364,14 +433,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   // of 4 blocks' worth per SM, never past the number of key tiles
   const long long blocks = static_cast<long long>(grid.x) * grid.y * grid.z;
   int ks = 1;
-  while (2 * ks <= kMaxKS<DH> && 2 * ks <= (S + kBK - 1) / kBK &&
+  while (2 * ks <= kMaxKS<DH> && 2 * ks <= (S + kBK<DH> - 1) / kBK<DH> &&
          blocks * 2 * ks <= 4LL * n_sm)
     ks *= 2;
   const size_t bytes = mma_smem_bytes<DH>(ks);
   flash_mma_kernel<DH><<<grid, 32 * hb * (rq / 16) * ks, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, S, H, KV, rq, hb, ks,
-      scale * 1.4426950408889634f);
+      window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -388,12 +457,13 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int Tq, int S,
-                 int H, int KV, float scale) {
+                 int H, int KV, int window, float scale) {
   using T = float;
   constexpr int CPT = DH / 16;                        // output columns per thread
   constexpr int VEC = kVec<T>;
   constexpr int NV = BQ * DH / VEC / kThreads;        // 16-byte loads per tile per thread
-  static_assert(BQ == BK && NV * VEC * kThreads == BQ * DH,
+  constexpr int NB = NV > 8 ? 8 : NV;                 // of them in flight together
+  static_assert(BQ == BK && NV * VEC * kThreads == BQ * DH && NV % NB == 0,
                 "a tile must split into whole 16-byte loads");
   extern __shared__ float smem[];
   float* sQ = smem;                                   // [BQ][DH + 1]
@@ -406,19 +476,20 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int shift = S - Tq;                           // bottom-right causal alignment
 
-  {
-    uint4 qr[NV];                                     // all loads in flight, then widen
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int i = (tid + j * kThreads) * VEC, t = q0 + i / DH;
+  for (int j0 = 0; j0 < NV; j0 += NB) {
+    uint4 qr[NB];                                     // NB loads in flight, then widen
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int i = (tid + (j0 + j) * kThreads) * VEC, t = q0 + i / DH;
       qr[j] = make_uint4(0u, 0u, 0u, 0u);
       if (t < Tq)
         qr[j] = *reinterpret_cast<const uint4*>(
             q + ((static_cast<size_t>(b) * Tq + t) * H + h) * DH + i % DH);
     }
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int i = (tid + j * kThreads) * VEC, r = i / DH, d = i % DH;
+    for (int j = 0; j < NB; ++j) {
+      const int i = (tid + (j0 + j) * kThreads) * VEC, r = i / DH, d = i % DH;
       float* dst = &sQ[r * (DH + 1) + d];
       widen16<T>(qr[j], dst);
 #pragma unroll
@@ -435,26 +506,31 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
 
-  // keys past kend are masked for every row of this tile
+  // keys past kend are masked for every row of this tile, and keys before
+  // kbeg by the window of every row
   const int kend = min(S, q0 + BQ + shift);
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+  const int kbeg = window > 0 ? max(0, q0 + shift - window + 1) / BK * BK : 0;
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();                                  // last tile's shared reads are done
-    uint4 kr[NV], vr[NV];
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int i = (tid + j * kThreads) * VEC, s = k0 + i / DH;
-      kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);       // the ragged tail stages as 0
-      if (s < S) {
-        const size_t off = ((static_cast<size_t>(b) * S + s) * KV + g) * DH + i % DH;
-        kr[j] = *reinterpret_cast<const uint4*>(k + off);
-        vr[j] = *reinterpret_cast<const uint4*>(v + off);
+    for (int j0 = 0; j0 < NV; j0 += NB) {
+      uint4 kr[NB], vr[NB];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const int i = (tid + (j0 + j) * kThreads) * VEC, s = k0 + i / DH;
+        kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);     // the ragged tail stages as 0
+        if (s < S) {
+          const size_t off = ((static_cast<size_t>(b) * S + s) * KV + g) * DH + i % DH;
+          kr[j] = *reinterpret_cast<const uint4*>(k + off);
+          vr[j] = *reinterpret_cast<const uint4*>(v + off);
+        }
       }
-    }
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int i = (tid + j * kThreads) * VEC, r = i / DH, d = i % DH;
-      widen16<T>(kr[j], &sK[r * (DH + 1) + d]);
-      widen16<T>(vr[j], &sV[r * DH + d]);
+      for (int j = 0; j < NB; ++j) {
+        const int i = (tid + (j0 + j) * kThreads) * VEC, r = i / DH, d = i % DH;
+        widen16<T>(kr[j], &sK[r * (DH + 1) + d]);
+        widen16<T>(vr[j], &sV[r * DH + d]);
+      }
     }
     __syncthreads();
 
@@ -484,7 +560,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int s = k0 + tx + 16 * j;
-        ok[j] = s < S && s <= t + shift;
+        ok[j] = s < S && s <= t + shift && (window == 0 || t + shift - s < window);
         mx = fmaxf(mx, ok[j] ? sc[i][j] : kNegInf);
       }
       const float m_new = fmaxf(m[i], group_max<16>(mx));
@@ -530,7 +606,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH>
 int launch_fma(const void* q, const void* k, const void* v, void* out, int B, int Tq,
-               int S, int H, int KV, float scale, cudaStream_t stream) {
+               int S, int H, int KV, int window, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DH>();
   static bool attr_set = false;
   if (!attr_set) {
@@ -543,24 +619,29 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, int B, in
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fma_kernel<DH><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Tq, S, H, KV, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), Tq, S, H, KV, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns a cudaError_t: 0 when the launch was accepted.
+// Returns a cudaError_t: 0 when the launch was accepted.  window 0 is the
+// causal mask; window > 0 the sliding one.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int Tq, int S, int H, int KV,
-                                      int dh, float scale, int is_bf16,
+                                      int dh, int window, float scale, int is_bf16,
                                       void* stream) {
-  if (B < 1 || Tq < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535)
+  if (B < 1 || Tq < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535 ||
+      window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh == 64 && is_bf16) return launch_mma<64>(q, k, v, out, B, Tq, S, H, KV, scale, st);
-  if (dh == 64) return launch_fma<64>(q, k, v, out, B, Tq, S, H, KV, scale, st);
-  if (dh == 128 && is_bf16)
-    return launch_mma<128>(q, k, v, out, B, Tq, S, H, KV, scale, st);
-  if (dh == 128) return launch_fma<128>(q, k, v, out, B, Tq, S, H, KV, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (dh * 2 + (is_bf16 ? 1 : 0)) {
+    case 129: return launch_mma<64>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
+    case 128: return launch_fma<64>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
+    case 257: return launch_mma<128>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
+    case 256: return launch_fma<128>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
+    case 513: return launch_mma<256>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
+    case 512: return launch_fma<256>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

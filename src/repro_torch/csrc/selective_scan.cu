@@ -1,5 +1,6 @@
 // Diagonal selective scan h_t = da_t * h_{t-1} + dbx_t, the recurrence of
-// every Mamba-1 layer's prefill (channels C = d_inner * state).
+// every Mamba-1 layer's prefill (channels C = d_inner * state) and every
+// RG-LRU layer's (C = lru_width; da = a, dbx the gated input).
 //
 // Replaces: repro/kernels/selective_scan.py, selective_scan_pallas.
 //
@@ -18,7 +19,9 @@
 // one thread per (b, c) column carries h in a register through all S steps,
 // and adjacent threads take adjacent channels, so every load and store of a
 // step is one coalesced row segment.  At the prefill shape that is 512
-// blocks of 256 threads on 132 SMs, all resident at once.  A thread keeps
+// blocks of 256 threads on 132 SMs, all resident at once.  The RG-LRU's
+// C 4,096 (B 1) fills only 16 blocks, so there the kernel runs at ~1/8 of
+// its bound; a chunked scan for small C is queued.  A thread keeps
 // the raw loads of the next kAhead steps in flight while it computes the
 // current kAhead steps, and widens each value only just before it is used:
 // widened at load time, each load's latency would stand in turn.  The

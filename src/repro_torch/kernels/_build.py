@@ -35,9 +35,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     # is_bf16, n_split, split_len, stream
     "decode_attention": {"decode_attention_launch":
                          [_P] * 7 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
-    # q, k, v, out, B, T, S, H, KV, dh, scale, is_bf16, stream
+    # q, k, v, out, B, T, S, H, KV, dh, window, scale, is_bf16, stream
     "flash_attention": {"flash_attention_launch":
-                        [_P] * 4 + [_I] * 6 + [_F, _I, _P]},
+                        [_P] * 4 + [_I] * 7 + [_F, _I, _P]},
     # x, out, K, B, D, eps, is_bf16, n_split, d_split, stream
     "gram": {"gram_launch": [_P, _P, _I, _I, _I, _F] + [_I] * 3 + [_P]},
     # x, w, a, b, y, xa, M, K, N, r, 6 element strides, flags, bn,

@@ -2,15 +2,18 @@
 ``csrc/decode_attention.cu`` (the port of ``decode_attention_pallas``).
 
 ``decode_attention(q, k, v, q_pos, kv_pos, window=...)`` takes
-q (S, H, dh), k / v (S, C, KV, dh), q_pos (S,) and kv_pos (S, C) int32
-and returns (S, H, dh) in q's dtype.  A tensor on the CPU goes to the
+q (S, H, dh), k / v (S, C, KV, dh), q_pos (S,) and kv_pos (S, C) int32,
+with dh 64, 128 or 256 and 1..16 query heads per KV head, and returns
+(S, H, dh) in q's dtype.  A tensor on the CPU goes to the
 plain version ``ref.decode_attention_ref``; a CUDA tensor launches the
 kernel or raises -- there is no fallback.
 
 On the card the pool axis is split across blocks (flash-decoding):
 ``split_plan`` cuts C into chunks of whole tiles for about two blocks per
-SM, a split pass writes each chunk's (m, l, acc) to an f32 scratch, and a
-combine pass merges them; both launch from one C call.  With one chunk
+SM (each chunk at least 4 x rep positions, so that its f32 partials stay
+small beside the K/V it reads), a split pass writes each chunk's
+(m, l, acc) to an f32 scratch, and a combine pass merges them; both
+launch from one C call.  With one chunk
 the split pass writes the output and no combine runs.
 
 ``decode_attention.launches`` counts wrapper calls that reached the card
@@ -25,8 +28,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
+#: head dims the kernel is built for
+HEAD_DIMS = (64, 128, 256)
 #: blocks the split pass aims at: two per SM of the H100's 132
 TARGET_BLOCKS = 264
+#: pool positions a chunk holds at least, per query head of a KV head: a
+#: chunk's f32 partials, rep x (dh + 2) values written and read back once,
+#: then stay under about half the bf16 K/V it reads (at the hybrid's pool,
+#: rep 16 at dh 256, the fastest of 1 to 128 chunks on the H100)
+MIN_CHUNK_PER_REP = 4
 
 
 def tile_len(dh: int) -> int:
@@ -44,13 +54,16 @@ def split_len_for(c: int, dh: int, want: int) -> tuple:
     return -(-full // per), per * tile_len(dh)
 
 
-def split_plan(s_slots: int, n_kv: int, c: int, dh: int) -> tuple:
+def split_plan(s_slots: int, n_kv: int, c: int, dh: int, rep: int) -> tuple:
     """(n_split, split_len) the kernel runs with: the chunk count that
     gives at least ``TARGET_BLOCKS`` blocks of (chunk, KV head, slot),
-    rounded up to a power of two and capped by the pool's whole tiles;
-    1 when the S x KV blocks already fill the card."""
+    rounded up to a power of two and capped by the pool's whole tiles and
+    by chunks of ``MIN_CHUNK_PER_REP * rep`` positions; 1 when the S x KV
+    blocks already fill the card."""
     want = -(-TARGET_BLOCKS // (s_slots * n_kv))
-    return split_len_for(c, dh, 1 << (want - 1).bit_length())
+    min_tiles = -(-MIN_CHUNK_PER_REP * rep // tile_len(dh))
+    most = max(1, max(1, c // tile_len(dh)) // min_tiles)
+    return split_len_for(c, dh, min(1 << (want - 1).bit_length(), most))
 
 
 def split_bounds(c: int, n_split: int, split_len: int) -> list:
@@ -72,9 +85,9 @@ def _check(q, k, v, q_pos, kv_pos) -> None:
         raise ValueError(f"decode_attention: want q_pos ({s_slots},) and "
                          f"kv_pos ({s_slots}, {c}); got "
                          f"{tuple(q_pos.shape)}, {tuple(kv_pos.shape)}")
-    if dh not in (64, 128) or not 1 <= h // n_kv <= 16:
-        raise ValueError(f"decode_attention kernel takes dh 64 or 128 and "
-                         f"1..16 query heads per KV head; got dh {dh}, "
+    if dh not in HEAD_DIMS or not 1 <= h // n_kv <= 16:
+        raise ValueError(f"decode_attention kernel takes dh 64, 128 or 256 "
+                         f"and 1..16 query heads per KV head; got dh {dh}, "
                          f"rep {h // n_kv}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode_attention: q, k, v must share one dtype of "
@@ -110,7 +123,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_slots, h, dh = q.shape
     c, n_kv = k.shape[1], k.shape[2]
     rep = h // n_kv
-    n_split, split_len = split_plan(s_slots, n_kv, c, dh)
+    n_split, split_len = split_plan(s_slots, n_kv, c, dh, rep)
     out = torch.empty_like(q)
     part = None                    # f32 (m, l, acc) of every chunk
     if n_split > 1:
@@ -131,4 +144,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 decode_attention.launches = 0
 
 __all__ = ["decode_attention", "decode_attention_ref", "split_plan",
-           "split_len_for", "split_bounds", "tile_len", "TARGET_BLOCKS"]
+           "split_len_for", "split_bounds", "tile_len", "TARGET_BLOCKS",
+           "MIN_CHUNK_PER_REP", "HEAD_DIMS"]

@@ -2,17 +2,22 @@
 ``csrc/flash_attention.cu`` (the port of ``flash_attention_pallas``), with
 its gradient.
 
-``flash_attention(q, k, v)`` takes the layout ``blockwise_attention``
-uses -- q (B, T, H, dh), k / v (B, S, KV, dh), query head h reading KV
-head h // (H // KV) -- and returns (B, T, H, dh) in q's dtype.  The mask
-is causal, aligned bottom-right (``k <= q + (S - T)``); scores are scaled
-by dh^-0.5.  The full (non-causal) mask of the Pallas kernel serves the
-encoder families and comes with them.
+``flash_attention(q, k, v, window=0)`` takes the layout
+``blockwise_attention`` uses -- q (B, T, H, dh), k / v (B, S, KV, dh),
+query head h reading KV head h // (H // KV), dh 64, 128 or 256 -- and
+returns (B, T, H, dh) in q's dtype.  The mask is causal, aligned
+bottom-right (``k <= q + (S - T)``); with ``window`` > 0 it is
+``blockwise_attention``'s sliding kind, which also drops a key that lies
+``window`` or more behind the query (``q + (S - T) - k < window``): the
+dense family's sliding-window variant and the hybrid family's local
+attention.  Scores are scaled by dh^-0.5.  The full (non-causal) and
+chunked masks of the Pallas kernel serve the encoder and MoE families and
+come with them.
 
 It is a ``torch.autograd.Function``, for the federated round's local
 steps.  The Pallas kernel has no backward, so the backward is plain
 PyTorch by design: it recomputes the attention through
-``ref.flash_attention_ref`` under autograd and takes the exact gradient
+``ref.flash_attention_ref`` (with the same window) under autograd and takes the exact gradient
 of that (a hand-written backward kernel is queued in ROADMAP.md).
 
 A tensor on the CPU goes to the plain version ``ref.flash_attention_ref``;
@@ -29,9 +34,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
+#: head dims the kernel is built for
+HEAD_DIMS = (64, 128, 256)
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, window: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: want q (B, T, H, dh) and k, v "
                          f"(B, S, KV, dh); got {tuple(q.shape)}, "
@@ -41,9 +48,12 @@ def _check(q, k, v) -> None:
     if k.shape[0] != b or k.shape[3] != dh or h % n_kv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
                          f"match k {tuple(k.shape)}")
-    if dh not in (64, 128):
-        raise ValueError(f"flash_attention kernel takes dh 64 or 128; "
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes dh 64, 128 or 256; "
                          f"got {dh}")
+    if not isinstance(window, int) or window < 0:
+        raise ValueError(f"flash_attention: window must be an int >= 0 "
+                         f"(0: causal); got {window!r}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share one dtype of "
                         f"{_DTYPES}; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -57,21 +67,21 @@ def _check(q, k, v) -> None:
                              f"bytes at a time)")
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor,
-             v: torch.Tensor) -> torch.Tensor:
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             window: int) -> torch.Tensor:
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v)
+        return flash_attention_ref(q, k, v, window=window)
     if q.device.type != "cuda" or q.device.index not in (None, 0):
         raise ValueError(f"flash_attention: no kernel for {q.device} (the "
                          f"kernels launch on cuda:0)")
-    _check(q, k, v)
+    _check(q, k, v, window)
     b, t, h, dh = q.shape
     s, n_kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, s, h,
-        n_kv, dh, float(dh ** -0.5), int(q.dtype == torch.bfloat16),
+        n_kv, dh, window, float(dh ** -0.5), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attention", err)
     flash_attention.launches += 1
@@ -80,25 +90,26 @@ def _forward(q: torch.Tensor, k: torch.Tensor,
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, window):
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v)
+        ctx.window = window
+        return _forward(q, k, v, window)
 
     @staticmethod
     def backward(ctx, dout):
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = flash_attention_ref(*leaves)
-        return torch.autograd.grad(out, leaves, dout)
+            out = flash_attention_ref(*leaves, window=ctx.window)
+        return (*torch.autograd.grad(out, leaves, dout), None)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Causal online-softmax attention, differentiable; see the module
-    docstring."""
-    return _FlashAttention.apply(q, k, v)
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """Causal (``window`` 0) or sliding-window online-softmax attention,
+    differentiable; see the module docstring."""
+    return _FlashAttention.apply(q, k, v, window)
 
 
 flash_attention.launches = 0
 
-__all__ = ["flash_attention", "flash_attention_ref"]
+__all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS"]

@@ -13,10 +13,11 @@ which the CUDA kernels share:
   a softmax over an all ``-1e30`` row and yields the mean of V instead;
 - ``flash_attention_ref`` takes the ``blockwise_attention`` layout --
   q (B, T, H, dh), k / v (B, S, KV, dh), query head h reading KV head
-  h // (H // KV) -- so ``gqa_forward`` calls it without a transpose.  It
-  is causal only, the mask aligned bottom-right (``k <= q + (S - T)``) as
-  in the JAX oracle; with S == T, as in prefill, that is the Pallas rule
-  too.
+  h // (H // KV) -- so ``gqa_forward`` calls it without a transpose.  Its
+  mask is causal, aligned bottom-right (``k <= q + (S - T)``) as in the
+  JAX oracle (with S == T, as in prefill, that is the Pallas rule too),
+  or with ``window`` > 0 the oracle's sliding kind aligned the same way,
+  ``k <= q + (S - T)`` and ``q + (S - T) - k < window``.
 
 Attention scores (scaled by dh^-0.5), softmax and the weighted sum run in
 float32; the result is cast back to the input dtype.  The scan runs in
@@ -60,10 +61,11 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(s_slots, h, dh).to(q.dtype)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> torch.Tensor:
-    """Causal full-sequence attention.  q: (B, T, H, dh); k, v:
-    (B, S, KV, dh) with H = KV * rep.  Returns (B, T, H, dh)."""
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, window: int = 0) -> torch.Tensor:
+    """Causal (``window`` 0) or sliding-window full-sequence attention.
+    q: (B, T, H, dh); k, v: (B, S, KV, dh) with H = KV * rep.  Returns
+    (B, T, H, dh)."""
     b, t, h, dh = q.shape
     s, n_kv = k.shape[1], k.shape[2]
     rep = h // n_kv
@@ -71,7 +73,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
     sc = torch.einsum("btgrd,bsgd->bgrts", qg, k.float())
     qi = torch.arange(t, device=q.device)[:, None]
     ki = torch.arange(s, device=q.device)[None, :]
-    ok = (ki <= qi + (s - t)).expand(b, n_kv, rep, t, s)
+    ok = ki <= qi + (s - t)
+    if window:
+        ok = ok & (qi + (s - t) - ki < window)
+    ok = ok.expand(b, n_kv, rep, t, s)
     out = _masked_softmax_av(sc, ok, "bgrts,bsgd->btgrd", v)
     return out.reshape(b, t, h, dh).to(q.dtype)
 

@@ -2,9 +2,11 @@
 carries a gradient), slot decode through the decode kernel.
 
 Ports ``make_gqa``, ``_qkv``, ``gqa_forward`` and ``gqa_decode_slots`` from
-``repro.models.attention`` for the causal, un-windowed case the dense
-family serves.  The ``sliding``, ``chunked`` and ``full`` kinds, cross
-attention and MLA are later slices and raise ``NotImplementedError``.
+``repro.models.attention`` for the ``causal`` kind and the ``sliding``
+kind with its window (the dense family's sliding-window variant and the
+hybrid family's local attention; the decode cache is then a ring).  The
+``chunked`` and ``full`` kinds, cross attention and MLA are later slices
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,12 +21,17 @@ from repro_torch.models.common import (apply_rope, linear, make_linear,
                                        make_rms_norm, rms_norm)
 
 
-def _causal_only(kind: str, window: int) -> None:
-    if kind != "causal" or window:
-        raise NotImplementedError(
-            f"attention kind {kind!r} (window {window}): the port serves "
-            f"causal, un-windowed attention; sliding, chunked and full "
-            f"masks come in a later slice")
+def _mask_window(kind: str, window: int) -> int:
+    """The flash / decode kernels' window for a mask kind: 0 for causal,
+    ``window`` (> 0) for sliding.  Chunked and full masks raise."""
+    if kind == "causal":
+        return 0
+    if kind == "sliding" and window > 0:
+        return window
+    raise NotImplementedError(
+        f"attention kind {kind!r} (window {window}): the port serves the "
+        f"causal and sliding masks; chunked and full masks come in a later "
+        f"slice")
 
 
 def make_gqa(gen: torch.Generator, cfg: ModelConfig, dtype, *, batch=(),
@@ -61,9 +68,10 @@ def gqa_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 return_kv: bool = False):
     """Full-sequence (prefill or training) attention.  x: (B, T, d_model),
     differentiable (the flash wrapper is an autograd Function).  The causal
-    mask follows sequence order (the flash kernel masks by index), so
-    ``positions`` only feeds RoPE and must run 0..T-1 as in prefill."""
-    _causal_only(kind, window)
+    and sliding masks follow sequence order (the flash kernel masks by
+    index), so ``positions`` only feeds RoPE and must run 0..T-1 as in
+    prefill."""
+    window = _mask_window(kind, window)
     h, kvh = cfg.n_heads, cfg.n_kv_heads
     b, t = x.shape[:2]
     q, k, v = _qkv(p, x, cfg, h, kvh)
@@ -73,7 +81,8 @@ def gqa_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          window=window)
     y = linear(out.reshape(b, t, h * cfg.head_dim), p["wo"])
     if return_kv:
         return y, {"k": k, "v": v}          # k already rope'd (cache layout)
@@ -86,13 +95,14 @@ def gqa_decode_slots(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     """One-token decode with PER-SLOT positions (the serving cache pool).
 
     x: (S, 1, d_model); cache: ``k`` / ``v`` (S, C, KV, dh), ``pos``
-    (S, C), ``lens`` (S,) int32.  Slot s writes its new K/V at
-    ``min(lens[s], C - 1)`` of the linear buffer and attends at query
-    position ``lens[s]``.  The write goes IN PLACE into the cache tensors
-    (the pool is updated where it lies instead of copied each step); the
-    returned dict holds the same tensors and ``lens + 1``.
+    (S, C), ``lens`` (S,) int32.  Slot s writes its new K/V at ring index
+    ``lens[s] % C`` (sliding) or ``min(lens[s], C - 1)`` of the linear
+    buffer (causal) and attends at query position ``lens[s]``.  The write
+    goes IN PLACE into the cache tensors (the pool is updated where it
+    lies instead of copied each step); the returned dict holds the same
+    tensors and ``lens + 1``.
     """
-    _causal_only(kind, window)
+    window = _mask_window(kind, window)
     h, kvh = cfg.n_heads, cfg.n_kv_heads
     b = x.shape[0]
     cache_len = cache["k"].shape[1]
@@ -102,13 +112,14 @@ def gqa_decode_slots(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    slot = lens.clamp(max=cache_len - 1).long()
+    slot = (lens % cache_len if window else
+            lens.clamp(max=cache_len - 1)).long()
     rows = torch.arange(b, device=x.device)
     cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
     cache["pos"][rows, slot] = lens
     out = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
-                           lens, cache["pos"])
+                           lens, cache["pos"], window=window)
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"],
                  "lens": lens + 1}
     o = linear(out.reshape(b, 1, h * cfg.head_dim), p["wo"])

@@ -1,19 +1,32 @@
-"""The homogeneous transformer, dense and ssm families: init, the
+"""The homogeneous transformer, dense, ssm and hybrid families: init, the
 training forward, prefill and slot decode.
 
-Ports ``init_params``, ``_embed_inputs``, ``forward`` (``_forward_impl``),
-``prefill``, ``init_cache`` and ``decode_step_slots`` from
-``repro.models.transformer`` with the same
-parameter and cache trees (layer axis L stacked first), so weights and
-caches carried across with ``repro_torch.bridge`` drop in.  The layer stack
-is a Python loop over L where JAX scans.  A dense block is pre-norm GQA
-attention and SwiGLU; an ssm block (Falcon-Mamba) is one pre-norm Mamba
-mixer, whose cache is its recurrent state.  Other families (moe, hybrid,
-vlm, audio), MLA, windowed / chunked attention and the single-position
-``decode_step`` are later slices and raise ``NotImplementedError``.
+Ports ``Runtime`` (its ``window_override`` field), ``init_params``,
+``_embed_inputs``, ``forward`` (``_forward_impl``), ``prefill``,
+``init_cache`` and ``decode_step_slots`` from ``repro.models.transformer``
+with the same parameter and cache trees, so weights and caches carried
+across with ``repro_torch.bridge`` drop in.  The layer stack is a Python
+loop where JAX scans.
+
+- dense: pre-norm GQA attention and SwiGLU, the layer axis L stacked
+  first.  The mask is causal, or sliding under ``cfg.sliding_window`` or
+  ``Runtime(window_override=)`` (the family's sliding-window variant);
+  the decode cache is then a ring of the window's width.
+- ssm (Falcon-Mamba): one pre-norm Mamba mixer a layer, whose cache is its
+  recurrent state.
+- hybrid (RecurrentGemma): ``groups`` stacks the repeated block pattern
+  (keys ``b0``, ``b1``, ... with the group axis first), ``tail`` lists the
+  leftover layers unstacked; a recurrent block is pre-norm RG-LRU and
+  SwiGLU, an attention block pre-norm local (sliding, width
+  ``cfg.rglru.local_window``) GQA and SwiGLU, its cache a ring.
+
+The other families (moe, vlm, audio), MLA, chunked attention and the
+single-position ``decode_step`` are later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import torch
@@ -21,6 +34,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru
 from repro_torch.models import ssm
 from repro_torch.models.common import (linear, make_linear, make_rms_norm,
                                        make_swiglu, mean_pool, rms_norm,
@@ -29,19 +43,43 @@ from repro_torch.models.common import (linear, make_linear, make_rms_norm,
 _SENTINEL = (2 ** 31 - 1) // 2       # position of an empty cache entry
 
 
+@dataclass(frozen=True)
+class Runtime:
+    """Execution context threaded through model calls, as in the JAX
+    package.  The port reads ``window_override`` (force a sliding window of
+    that width on the dense family); the mesh fields come with the mesh
+    slice."""
+    window_override: int = 0
+
+
+_RT = Runtime()
+
+
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.mla is not None:
+def _attn_kind(cfg: ModelConfig, rt: Runtime) -> Tuple[str, int]:
+    if rt.window_override:
+        return "sliding", rt.window_override
+    if cfg.sliding_window:
+        return "sliding", cfg.sliding_window
+    if cfg.attention_chunk:
+        return "chunked", cfg.attention_chunk
+    return "causal", 0
+
+
+def _check_supported(cfg: ModelConfig, rt: Optional[Runtime]) -> Runtime:
+    """Raise on what the port does not run yet; returns the runtime."""
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.mla is not None:
         raise NotImplementedError(
             f"family {cfg.family!r}{' with MLA' if cfg.mla else ''}: the "
-            f"port runs the dense and ssm families; the others come in "
-            f"later slices")
-    if cfg.sliding_window or cfg.attention_chunk:
+            f"port runs the dense, ssm and hybrid families; the others come "
+            f"in later slices")
+    if cfg.attention_chunk:
         raise NotImplementedError(
-            "sliding-window and chunked attention come in a later slice")
+            "chunked attention comes in a later slice")
+    return rt or _RT
 
 
 def _layers(blocks: dict, n: int) -> list:
@@ -52,14 +90,36 @@ def _layers(blocks: dict, n: int) -> list:
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
+def _hybrid_shape(cfg: ModelConfig) -> Tuple[tuple, int, int]:
+    """(block pattern, stacked groups, tail layers)."""
+    pat = cfg.rglru.block_pattern
+    return (pat,) + divmod(cfg.n_layers, len(pat))
+
+
 # ======================================================================
 # init
+def _dense_block(gen, cfg: ModelConfig, dtype, batch, dev) -> dict:
+    d, kw = cfg.d_model, dict(batch=batch, device=dev)
+    return {"ln1": make_rms_norm(d, dtype, **kw),
+            "attn": attn.make_gqa(gen, cfg, dtype, **kw),
+            "ln2": make_rms_norm(d, dtype, **kw),
+            "mlp": make_swiglu(gen, d, cfg.d_ff, dtype, **kw)}
+
+
+def _rec_block(gen, cfg: ModelConfig, dtype, batch, dev) -> dict:
+    d, kw = cfg.d_model, dict(batch=batch, device=dev)
+    return {"ln1": make_rms_norm(d, dtype, **kw),
+            "mixer": rglru.make_rglru_block(gen, cfg, dtype, **kw),
+            "ln2": make_rms_norm(d, dtype, **kw),
+            "mlp": make_swiglu(gen, d, cfg.d_ff, dtype, **kw)}
+
+
 def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig, *,
-                device=None) -> dict:
+                device=None, rt: Optional[Runtime] = None) -> dict:
     """Random weights with the JAX package's tree.  ``gen`` is a seed or a
     ``torch.Generator`` on ``device`` (default ``cuda``; raises without a
     GPU)."""
-    _check_supported(cfg)
+    _check_supported(cfg, rt)
     dev = resolve_device(device)
     if isinstance(gen, int):
         gen = torch.Generator(device=dev).manual_seed(gen)
@@ -79,13 +139,15 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig, *,
             "ln": make_rms_norm(d, dtype, batch=L, device=dev),
             "mixer": ssm.make_mamba(gen, cfg, dtype, batch=L, device=dev),
         }
-        return p
-    p["blocks"] = {
-        "ln1": make_rms_norm(d, dtype, batch=L, device=dev),
-        "attn": attn.make_gqa(gen, cfg, dtype, batch=L, device=dev),
-        "ln2": make_rms_norm(d, dtype, batch=L, device=dev),
-        "mlp": make_swiglu(gen, d, cfg.d_ff, dtype, batch=L, device=dev),
-    }
+    elif cfg.family == "hybrid":
+        pat, n_groups, n_tail = _hybrid_shape(cfg)
+        block = {"recurrent": _rec_block, "attention": _dense_block}
+        p["groups"] = {f"b{i}": block[kind](gen, cfg, dtype, (n_groups,), dev)
+                       for i, kind in enumerate(pat)}
+        p["tail"] = [block[pat[j % len(pat)]](gen, cfg, dtype, (), dev)
+                     for j in range(n_tail)]
+    else:
+        p["blocks"] = _dense_block(gen, cfg, dtype, L, dev)
     return p
 
 
@@ -102,30 +164,66 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
     return x, positions
 
 
+def _attn_block(bp: dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig, kind: str, window: int, collect: bool):
+    """Pre-norm GQA attention and SwiGLU; returns (x, rope'd K/V or None)."""
+    h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+    h = attn.gqa_forward(bp["attn"], h, cfg, kind=kind, window=window,
+                         positions=positions, return_kv=collect)
+    h, kv = h if collect else (h, None)
+    x = x + h
+    h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+    return x + swiglu(bp["mlp"], h), kv
+
+
+def _rec_body(bp: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Pre-norm RG-LRU and SwiGLU; returns (x, final recurrent state)."""
+    h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+    y, state = rglru.rglru_forward(bp["mixer"], h, cfg)
+    x = x + y
+    h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+    return x + swiglu(bp["mlp"], h), state
+
+
+def _hybrid_stack(params: dict, cfg: ModelConfig) -> list:
+    """The hybrid stack in execution order: (kind, block params, where)
+    with ``where`` = (``"b{i}"``, group) for a stacked block and
+    (``"tail"``, j) for the j-th tail block."""
+    pat, n_groups, _ = _hybrid_shape(cfg)
+    per = {f"b{i}": _layers(params["groups"][f"b{i}"], n_groups)
+           for i in range(len(pat))}
+    out = [(kind, per[f"b{i}"][g], (f"b{i}", g))
+           for g in range(n_groups) for i, kind in enumerate(pat)]
+    return out + [(pat[j % len(pat)], bp, ("tail", j))
+                  for j, bp in enumerate(params["tail"])]
+
+
 def _run_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig, collect: bool = False):
+               cfg: ModelConfig, rt: Runtime, collect: bool = False):
     """The decoder stack over the full sequence (a Python loop where JAX
     scans).  Returns the residual stream and, when ``collect``, each
-    layer's rope'd K/V (dense) or final recurrent state (ssm)."""
-    kvs = []
+    layer's cache entry in execution order: rope'd K/V (attention) or the
+    final recurrent state (ssm, RG-LRU)."""
+    caches = []
+    if cfg.family == "hybrid":
+        for kind, bp, _ in _hybrid_stack(params, cfg):
+            if kind == "recurrent":
+                x, c = _rec_body(bp, x, cfg)
+            else:
+                x, c = _attn_block(bp, x, positions, cfg, "sliding",
+                                   cfg.rglru.local_window, collect)
+            caches.append(c)
+        return x, caches
+    kind, window = _attn_kind(cfg, rt)
     for bp in _layers(params["blocks"], cfg.n_layers):
         if cfg.family == "ssm":
             h = rms_norm(x, bp["ln"]["scale"], cfg.norm_eps)
-            h, state = ssm.mamba_forward(bp["mixer"], h, cfg)
-            if collect:
-                kvs.append(state)
+            h, c = ssm.mamba_forward(bp["mixer"], h, cfg)
             x = x + h
-            continue
-        h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-        h = attn.gqa_forward(bp["attn"], h, cfg, positions=positions,
-                             return_kv=collect)
-        if collect:
-            h, kv = h
-            kvs.append(kv)
-        x = x + h
-        h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
-        x = x + swiglu(bp["mlp"], h)
-    return x, kvs
+        else:
+            x, c = _attn_block(bp, x, positions, cfg, kind, window, collect)
+        caches.append(c)
+    return x, caches
 
 
 def _head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -139,85 +237,181 @@ def _final(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
 
 
-def pooled(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def pooled(params: dict, batch: dict, cfg: ModelConfig, *,
+           rt: Optional[Runtime] = None) -> torch.Tensor:
     """``forward``'s ``aux["pooled"]`` without the logits (what the
     federation reads): the mean over tokens of the final-normed stream,
     (B, d_model) in the model dtype."""
-    _check_supported(cfg)
+    rt = _check_supported(cfg, rt)
     x, positions = _embed_inputs(params, batch, cfg)
-    x, _ = _run_stack(params, x, positions, cfg)
+    x, _ = _run_stack(params, x, positions, cfg, rt)
     return mean_pool(_final(params, x, cfg))
 
 
-def forward(params: dict, batch: dict,
-            cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+def forward(params: dict, batch: dict, cfg: ModelConfig, *,
+            rt: Optional[Runtime] = None) -> Tuple[torch.Tensor, dict]:
     """Full-sequence forward -> (logits (B, S, V), {"pooled": (B, d)}).
     ``batch`` holds ``tokens`` or the adapter path's ``inputs_embeds``."""
-    _check_supported(cfg)
+    rt = _check_supported(cfg, rt)
     x, positions = _embed_inputs(params, batch, cfg)
-    x, _ = _run_stack(params, x, positions, cfg)
+    x, _ = _run_stack(params, x, positions, cfg, rt)
     x = _final(params, x, cfg)
     return _head(params, x, cfg), {"pooled": mean_pool(x)}
 
 
+# ======================================================================
+# prefill: forward + pack the collected per-layer caches for decode
+def _ring_pack(x: torch.Tensor, s: int, w: int, fill=0) -> torch.Tensor:
+    """The last min(s, w) entries of x (B, S, ...) in the ring layout of
+    width w, the entry of position p at slot p % w; empty slots ``fill``."""
+    if s >= w:
+        return torch.roll(x[:, s - w:], s % w, dims=1)
+    out = x.new_full((x.shape[0], w) + tuple(x.shape[2:]), fill)
+    out[:, :s] = x
+    return out
+
+
+def _pack_kv(ks: list, vs: list, positions: torch.Tensor, w: int,
+             target: int) -> dict:
+    """Per-layer K/V (B, S, KV, dh) -> stacked (n, B, C, KV, dh) K/V and
+    (n, B, C) positions: a ring of width ``w`` when w > 0, else a linear
+    buffer of ``target`` positions; empty entries at the sentinel."""
+    s = ks[0].shape[1]
+    n = len(ks)
+    if w:
+        def put(t, fill=0):
+            return _ring_pack(t, s, w, fill)
+    else:
+        def put(t, fill=0):
+            out = t.new_full((t.shape[0], target) + tuple(t.shape[2:]), fill)
+            out[:, :s] = t
+            return out
+    pos = put(positions, _SENTINEL)
+    return {"k": torch.stack([put(k) for k in ks]),
+            "v": torch.stack([put(v) for v in vs]),
+            "pos": pos.expand(n, *pos.shape).contiguous()}
+
+
 def prefill(params: dict, batch: dict, cfg: ModelConfig,
-            cache_len: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
+            cache_len: Optional[int] = None, *,
+            rt: Optional[Runtime] = None) -> Tuple[torch.Tensor, dict]:
     """Forward over the prompt, then pack the per-layer caches for decode.
     Returns full-sequence logits (B, S, V) and the cache: for the dense
     family the rope'd K/V with room for ``cache_len`` positions (default
     S + 1024), ``{"k", "v": (L, B, C, KV, dh), "pos": (L, B, C), "len":
-    ()}``, empty entries at the position sentinel; for the ssm family the
-    stacked final states ``{"h": (L, B, d_inner, N) f32, "conv": (L, B,
-    K - 1, d_inner), "len": ()}`` (``cache_len`` is not read)."""
-    _check_supported(cfg)
+    ()}``, empty entries at the position sentinel -- under a sliding
+    window a ring of the window's width (``cache_len`` is then not read);
+    for the ssm family the stacked final states ``{"h": (L, B, d_inner, N)
+    f32, "conv": (L, B, K - 1, d_inner), "len": ()}``; for the hybrid
+    family ``{"groups": {"b{i}": ...}, "tail": [...], "len": ()}``, each
+    recurrent block's ``{"h": (B, w) f32, "conv": (B, K - 1, w)}`` and each
+    attention block's ring of width ``cfg.rglru.local_window``, stacked
+    over the groups (leading axis) under ``groups``."""
+    rt = _check_supported(cfg, rt)
     x, positions = _embed_inputs(params, batch, cfg)
-    x, kvs = _run_stack(params, x, positions, cfg, collect=True)
+    x, caches = _run_stack(params, x, positions, cfg, rt, collect=True)
     logits = _head(params, _final(params, x, cfg), cfg)
 
     b, s = x.shape[:2]
     length = torch.tensor(s, dtype=torch.int32, device=x.device)
     if cfg.family == "ssm":
-        return logits, {"h": torch.stack([st["h"] for st in kvs]),
-                        "conv": torch.stack([st["conv"] for st in kvs]),
+        return logits, {"h": torch.stack([st["h"] for st in caches]),
+                        "conv": torch.stack([st["conv"] for st in caches]),
                         "len": length}
-    ks, vs = [kv["k"] for kv in kvs], [kv["v"] for kv in kvs]
     target = max(cache_len if cache_len is not None else s + 1024, s)
-
-    def grow(t: torch.Tensor, fill=0) -> torch.Tensor:
-        out = t.new_full((t.shape[0], t.shape[1], target) + t.shape[3:], fill)
-        out[:, :, :s] = t
-        return out
-
-    pos = positions.expand(cfg.n_layers, b, s)
-    cache = {"k": grow(torch.stack(ks)), "v": grow(torch.stack(vs)),
-             "pos": grow(pos, _SENTINEL), "len": length}
-    return logits, cache
+    if cfg.family == "dense":
+        cache = _pack_kv([kv["k"] for kv in caches],
+                         [kv["v"] for kv in caches], positions,
+                         _attn_kind(cfg, rt)[1], target)
+        return logits, dict(cache, len=length)
+    pat, w = cfg.rglru.block_pattern, cfg.rglru.local_window
+    by_block = {}
+    tail = []
+    for (kind, _, (key, _)), c in zip(_hybrid_stack(params, cfg), caches):
+        if key == "tail":
+            tail.append(c if kind == "recurrent" else {
+                k: v[0] for k, v in _pack_kv([c["k"]], [c["v"]], positions,
+                                             w, target).items()})
+        else:
+            by_block.setdefault(key, []).append(c)
+    groups = {}
+    for i, kind in enumerate(pat):
+        cs = by_block.get(f"b{i}", [])
+        if not cs:                      # no whole group: empty stacks
+            groups[f"b{i}"] = _empty_block_cache(cfg, kind, 0, b, w,
+                                                 x.device)
+        elif kind == "recurrent":
+            groups[f"b{i}"] = {k: torch.stack([c[k] for c in cs])
+                               for k in ("h", "conv")}
+        else:
+            groups[f"b{i}"] = _pack_kv([c["k"] for c in cs],
+                                       [c["v"] for c in cs], positions, w,
+                                       target)
+    return logits, {"groups": groups, "tail": tail, "len": length}
 
 
 # ======================================================================
 # decode
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device=None) -> dict:
-    """An empty decode cache for ``batch`` sequences (default ``cuda``);
-    for the ssm family zero states, as ``prefill`` shapes them."""
-    _check_supported(cfg)
+def _empty_kv(cfg: ModelConfig, lead: tuple, length: int, dev) -> dict:
+    shape = lead + (length, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+            "pos": torch.full(shape[:-2], _SENTINEL, dtype=torch.int32,
+                              device=dev)}
+
+
+def _empty_block_cache(cfg: ModelConfig, kind: str, n: Optional[int],
+                       batch: int, length: int, dev) -> dict:
+    """A hybrid block's empty cache, stacked over ``n`` groups (None: a
+    tail block, unstacked)."""
+    lead = (batch,) if n is None else (n, batch)
+    if kind == "recurrent":
+        st = rglru.init_rglru_state(batch, cfg, _dtype(cfg), device=dev)
+        return {k: v.expand(*lead, *v.shape[1:]).contiguous()
+                for k, v in st.items()}
+    return _empty_kv(cfg, lead, length, dev)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
+               *, rt: Optional[Runtime] = None) -> dict:
+    """An empty decode cache for ``batch`` sequences (default ``cuda``), as
+    ``prefill`` shapes it: for the dense family a linear buffer of
+    ``cache_len`` or, under a sliding window, a ring of min(cache_len,
+    window); for the ssm family zero states; for the hybrid family zero
+    RG-LRU states and rings of min(cache_len, local_window)."""
+    rt = _check_supported(cfg, rt)
     dev = resolve_device(device)
     if cfg.family == "ssm":
         st = ssm.init_mamba_state(batch, cfg, _dtype(cfg), device=dev)
         c = {k: v.expand(cfg.n_layers, *v.shape).contiguous()
              for k, v in st.items()}
-        c["len"] = torch.zeros((), dtype=torch.int32, device=dev)
-        return c
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "pos": torch.full(shape[:3], _SENTINEL, dtype=torch.int32,
-                              device=dev),
-            "len": torch.zeros((), dtype=torch.int32, device=dev)}
+    elif cfg.family == "hybrid":
+        pat, n_groups, n_tail = _hybrid_shape(cfg)
+        alen = min(cache_len, cfg.rglru.local_window)
+        c = {"groups": {f"b{i}": _empty_block_cache(cfg, kind, n_groups,
+                                                    batch, alen, dev)
+                        for i, kind in enumerate(pat)},
+             "tail": [_empty_block_cache(cfg, pat[j % len(pat)], None,
+                                         batch, alen, dev)
+                      for j in range(n_tail)]}
+    else:
+        window = _attn_kind(cfg, rt)[1]
+        eff_len = min(cache_len, window) if window else cache_len
+        c = _empty_kv(cfg, (cfg.n_layers, batch), eff_len, dev)
+    c["len"] = torch.zeros((), dtype=torch.int32, device=dev)
+    return c
+
+
+def _block_cache(cache: dict, where: tuple) -> dict:
+    """A hybrid block's cache views (slot axis first) in the pool."""
+    key, j = where
+    if key == "tail":
+        return cache["tail"][j]
+    return {k: v[j] for k, v in cache["groups"][key].items()}
 
 
 def decode_step_slots(params: dict, cache: dict, batch: dict,
-                      cfg: ModelConfig, *,
+                      cfg: ModelConfig, *, rt: Optional[Runtime] = None,
                       step_mask: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, dict]:
     """One new token per SLOT, each slot at its own position
@@ -226,31 +420,52 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
     ``step_mask`` (S,) bool freezes masked slots: their position does not
     advance.  Attention writes at a frozen position are idempotent, so
     K/V are written for every slot, as in the JAX package.  A recurrent
-    update is not idempotent: a masked slot's ssm ``h`` and ``conv`` keep
-    their bits (JAX's ``keep``), so a slot that resumes continues
-    exactly.  The cache's K/V/pos, or h/conv, tensors are updated in
-    place; the returned cache holds them and the new ``len``.  Returns
-    logits (S, 1, V)."""
-    _check_supported(cfg)
+    update is not idempotent: a masked slot's ssm or RG-LRU ``h`` and
+    ``conv`` keep their bits (JAX's ``keep``), so a slot that resumes
+    continues exactly.  The cache's K/V/pos, or h/conv, tensors are
+    updated in place; the returned cache holds them and the new ``len``.
+    Returns logits (S, 1, V)."""
+    rt = _check_supported(cfg, rt)
     x = params["embed"][batch["tokens"].long()]
     lens = cache["len"]
-    for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        if cfg.family == "ssm":
-            hs, cs = cache["h"][i], cache["conv"][i]
-            h = rms_norm(x, bp["ln"]["scale"], cfg.norm_eps)
-            h, new = ssm.mamba_decode(bp["mixer"], h, {"h": hs, "conv": cs},
-                                      cfg)
-            x = x + h
-            _keep(hs, new["h"], step_mask)
-            _keep(cs, new["conv"], step_mask)
-            continue
-        lc = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"][i],
-              "lens": lens}
+
+    def att_step(x, bp, lc, kind, window):
+        lc = dict(lc, lens=lens)
         h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-        h, _ = attn.gqa_decode_slots(bp["attn"], h, lc, cfg)
+        h, _ = attn.gqa_decode_slots(bp["attn"], h, lc, cfg, kind=kind,
+                                     window=window)
         x = x + h
         h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
-        x = x + swiglu(bp["mlp"], h)
+        return x + swiglu(bp["mlp"], h)
+
+    if cfg.family == "hybrid":
+        for kind, bp, where in _hybrid_stack(params, cfg):
+            st = _block_cache(cache, where)
+            if kind != "recurrent":
+                x = att_step(x, bp, st, "sliding", cfg.rglru.local_window)
+                continue
+            h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+            y, new = rglru.rglru_decode(bp["mixer"], h, st, cfg)
+            x = x + y
+            h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+            x = x + swiglu(bp["mlp"], h)
+            _keep(st["h"], new["h"], step_mask)
+            _keep(st["conv"], new["conv"], step_mask)
+    else:
+        kind, window = _attn_kind(cfg, rt)
+        for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+            if cfg.family == "ssm":
+                hs, cs = cache["h"][i], cache["conv"][i]
+                h = rms_norm(x, bp["ln"]["scale"], cfg.norm_eps)
+                h, new = ssm.mamba_decode(bp["mixer"], h,
+                                          {"h": hs, "conv": cs}, cfg)
+                x = x + h
+                _keep(hs, new["h"], step_mask)
+                _keep(cs, new["conv"], step_mask)
+                continue
+            lc = {"k": cache["k"][i], "v": cache["v"][i],
+                  "pos": cache["pos"][i]}
+            x = att_step(x, bp, lc, kind, window)
     new_lens = lens + 1 if step_mask is None \
         else torch.where(step_mask, lens + 1, lens)
     logits = _head(params, _final(params, x, cfg), cfg)
@@ -268,5 +483,5 @@ def _keep(old: torch.Tensor, new: torch.Tensor,
         torch.where(m, new.to(old.dtype), old, out=old)
 
 
-__all__ = ["init_params", "forward", "pooled", "prefill", "init_cache",
-           "decode_step_slots"]
+__all__ = ["Runtime", "init_params", "forward", "pooled", "prefill",
+           "init_cache", "decode_step_slots"]

@@ -1,6 +1,7 @@
 """Continuous-batching decode engine over a slot-stacked cache pool.
 
-The port of ``repro.serve.engine.ServeEngine`` for the dense and ssm
+The port of ``repro.serve.engine.ServeEngine`` for the dense (with its
+sliding-window variant, ``rt=Runtime(window_override=)``), ssm and hybrid
 families:
 
   - the S request slots live in ONE device-resident cache pool
@@ -14,8 +15,9 @@ families:
     block -- one packed tensor with the tokens, the emission mask and the
     stop and fault flags;
   - new requests are admitted between blocks: prefill (through the flash
-    kernel, or the selective-scan kernel for ssm), first-token sampling
-    and a scatter into a free slot, with no host readback;
+    kernel, the selective-scan kernel for ssm, both for hybrid),
+    first-token sampling and a scatter into a free slot, with no host
+    readback;
   - stopped slots keep riding the batched step at a frozen position
     (``step_mask``), so no gather / compact is needed;
   - the host side -- deadlines, load shedding, the stall watchdog and the
@@ -45,7 +47,9 @@ For the dense family every decode step launches the decode-attention
 kernel once per layer and every admission the flash kernel once per
 layer; for the ssm family every admission launches the selective-scan
 kernel once per layer, and a decode step's O(1) state update is plain
-PyTorch.  Greedy decoding is the parity target with the JAX engine;
+PyTorch; for the hybrid family every admission launches the flash kernel
+once per attention block and the scan once per recurrent block, and every
+decode step the decode kernel once per attention block.  Greedy decoding is the parity target with the JAX engine;
 ``temperature > 0`` samples from ``torch.Generator``s seeded from
 ``ServeConfig.seed`` (JAX's PRNG draws other numbers).
 
@@ -124,7 +128,7 @@ def _sample(logits: torch.Tensor, temperature: float,
 
 
 class ServeEngine:
-    """Continuous-batching engine for the dense and ssm families.
+    """Continuous-batching engine for the dense, ssm and hybrid families.
 
     Usage::
 
@@ -139,22 +143,32 @@ class ServeEngine:
         records = eng.resume_serve()         # after a crash
 
     ``device`` defaults to ``cuda`` and raises without a GPU; ``params``
-    must already lie there.  ``eager`` runs the decode block without its
-    CUDA graph.  ``eng.stats`` counts block dispatches, blocking host
+    must already lie there.  ``rt`` is the model's ``Runtime`` (its
+    ``window_override`` serves the dense family's sliding-window variant).
+    ``eager`` runs the decode block without its CUDA graph.  ``eng.stats`` counts block dispatches, blocking host
     readbacks, admissions, per-request first-token reads (``sync_ttft``),
     detected faults and stalls and snapshot writes, with the JAX engine's
     keys; ``eng.graph_stats`` counts captures, their seconds and replays.
     """
 
     def __init__(self, params, cfg: ModelConfig, scfg: ServeConfig, *,
-                 device=None, eager: bool = False):
+                 rt: Optional[T.Runtime] = None, device=None,
+                 eager: bool = False):
         if scfg.n_slots <= 0:
             raise ValueError(f"n_slots must be positive, got "
                              f"{scfg.n_slots}")
+        if cfg.sliding_window:
+            eff = min(scfg.cache_len, cfg.sliding_window)
+            if eff < cfg.sliding_window:
+                raise ValueError(
+                    f"cache_len {scfg.cache_len} smaller than the sliding "
+                    f"window {cfg.sliding_window}: the pool ring would not "
+                    f"match prefill's ring packing")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
         self.scfg = scfg
+        self.rt = rt or T.Runtime()
         self.eager = eager
         self.state = self._init_state()
         self._gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
@@ -179,7 +193,8 @@ class ServeEngine:
         s, dev = self.scfg.n_slots, self.device
         i32 = dict(dtype=torch.int32, device=dev)
         return {
-            "cache": init_pool_cache(self.cfg, s, self.scfg.cache_len, dev),
+            "cache": init_pool_cache(self.cfg, s, self.scfg.cache_len, dev,
+                                     rt=self.rt),
             "active": torch.zeros((s,), dtype=torch.bool, device=dev),
             "stopped": torch.ones((s,), dtype=torch.bool, device=dev),
             "last_tok": torch.zeros((s, 1), **i32),
@@ -201,7 +216,8 @@ class ServeEngine:
         scfg, st, dev = self.scfg, self.state, self.device
         tokens = torch.tensor(req.tokens, dtype=torch.int32, device=dev)[None]
         logits, req_cache = T.prefill(self.params, {"tokens": tokens},
-                                      self.cfg, cache_len=scfg.cache_len)
+                                      self.cfg, cache_len=scfg.cache_len,
+                                      rt=self.rt)
         last = logits[:, -1, :]
         u = None
         if scfg.temperature > 0:
@@ -243,7 +259,7 @@ class ServeEngine:
                 running = running & ~frozen
             logits, cache = T.decode_step_slots(
                 self.params, cache, {"tokens": last_tok}, self.cfg,
-                step_mask=running)
+                rt=self.rt, step_mask=running)
             lg = F.poison_logits(plan, t, logits[:, 0, :])
             tok = _sample(lg, scfg.temperature, self._unif[i])
             # output guards: a tripped slot freezes and its token is never
@@ -342,12 +358,16 @@ class ServeEngine:
         if req.extras:
             raise NotImplementedError(
                 f"request {req.rid} carries modality extras: the port "
-                f"serves the token families (dense, ssm) only")
-        need = len(req.tokens) + max_new + 1
-        # a recurrent state has no length, so ssm has no cache-length limit
-        if self.cfg.family != "ssm" and need > scfg.cache_len:
-            raise ValueError(f"request {req.rid}: prompt+max_new {need} "
-                             f"exceeds cache_len {scfg.cache_len}")
+                f"serves the token families (dense, ssm, hybrid) only")
+        # the reference's rule: a recurrent state has no length and a ring
+        # overwrites itself, so ssm and a configured sliding window have
+        # no cache-length limit
+        if not self.cfg.sliding_window and self.cfg.family != "ssm":
+            need = len(req.tokens) + max_new + 1
+            if need > scfg.cache_len:
+                raise ValueError(f"request {req.rid}: prompt+max_new "
+                                 f"{need} exceeds cache_len "
+                                 f"{scfg.cache_len}")
         first = self._admit(req, rec.slot, max_new)
         self.stats["admit_dispatches"] += 1
         rec.tokens.append(first)           # device scalar; resolved lazily
@@ -537,6 +557,7 @@ class ServeEngine:
 
     @classmethod
     def resume(cls, path: str, params, cfg: ModelConfig, *,
+               rt: Optional[T.Runtime] = None,
                device=None) -> "ServeEngine":
         """Rebuild an engine from a serve snapshot of either package
         (``CheckpointError`` on a truncated/corrupt file, ``ValueError`` on
@@ -555,7 +576,7 @@ class ServeEngine:
                 f" model, cannot restore into {cfg.family!r}")
         scfg = ServeConfig(**{k: v for k, v in meta["serve_config"].items()
                               if k != "attn_backend"})
-        eng = cls(params, cfg, scfg, device=device)
+        eng = cls(params, cfg, scfg, rt=rt, device=device)
         tree, step = load_checkpoint(path, eng._snapshot_tree())
         del tree["key"]
         copy_into(eng.state, tree)
@@ -570,7 +591,7 @@ class ServeEngine:
 
 # ======================================================================
 def naive_generate(params, cfg: ModelConfig, requests: List[Request],
-                   scfg: ServeConfig,
+                   scfg: ServeConfig, rt: Optional[T.Runtime] = None,
                    stats: Optional[dict] = None) -> Dict[int, RequestRecord]:
     """The legacy per-token loop, kept as the oracle.
 
@@ -595,7 +616,7 @@ def naive_generate(params, cfg: ModelConfig, requests: List[Request],
         tokens = torch.tensor([r.tokens for r in group], dtype=torch.int32,
                               device=dev)
         logits, cache = T.prefill(params, {"tokens": tokens}, cfg,
-                                  cache_len=scfg.cache_len)
+                                  cache_len=scfg.cache_len, rt=rt)
         cache["len"] = cache["len"].expand(len(group)).contiguous()
         stats["prefill_dispatches"] += 1
         tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32).cpu()
@@ -613,7 +634,7 @@ def naive_generate(params, cfg: ModelConfig, requests: List[Request],
         # head-of-line: the whole batch keeps stepping until ALL are done
         while not all(done):
             logits, cache = T.decode_step_slots(
-                params, cache, {"tokens": tok[:, None].to(dev)}, cfg)
+                params, cache, {"tokens": tok[:, None].to(dev)}, cfg, rt=rt)
             stats["decode_dispatches"] += 1
             tok = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32).cpu()
             stats["host_syncs"] += 1

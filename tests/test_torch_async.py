@@ -44,6 +44,8 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 from test_torch_engine import BASE, TINY, TOL, _close  # noqa: E402
 from test_torch_participation import (_sat_out_state,  # noqa: E402
                                       compare_nodes, compare_participation)
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 P = tpart.ParticipationPlan
 ASYNC = dict(strategy="async", lag_dist="geometric", lag_p=0.5, max_lag=3,

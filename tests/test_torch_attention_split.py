@@ -28,6 +28,8 @@ from repro.kernels.decode_attention import decode_attention_pallas  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     TARGET_BLOCKS, split_bounds, split_len_for, split_plan, tile_len)
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 SENTINEL = (2 ** 31 - 1) // 2
 
@@ -38,19 +40,21 @@ def _rnd(seed, shape):
 
 # ----------------------------------------------------------------------
 # (a) the wrapper's chunks
-POOLS = [(8, 8, 1024, 64),       # fedmm-base
-         (8, 8, 1000, 64),       # ragged C
-         (8, 3, 1000, 64),       # smollm-135m grouping
-         (4, 4, 520, 128),       # yi-6b grouping, dh 128
-         (64, 8, 128, 64),       # slots x heads fill the card
-         (1, 1, 40, 64),         # shorter than one tile
-         (2, 1, 65536, 64)]      # a long pool
+#: (S, KV, C, dh, rep); a case's id is its first four
+POOLS = [(8, 8, 1024, 64, 2),       # fedmm-base
+         (8, 8, 1000, 64, 2),       # ragged C
+         (8, 3, 1000, 64, 3),       # smollm-135m grouping
+         (4, 4, 520, 128, 8),       # yi-6b grouping, dh 128
+         (64, 8, 128, 64, 2),       # slots x heads fill the card
+         (1, 1, 40, 64, 1),         # shorter than one tile
+         (2, 1, 65536, 64, 16)]     # a long pool
 
 
-@pytest.mark.parametrize("s_slots,n_kv,c,dh", POOLS)
+@pytest.mark.parametrize("s_slots,n_kv,c,dh,rep", POOLS,
+                         ids=["-".join(map(str, p[:4])) for p in POOLS])
 def test_split_plan_chunks_are_whole_tiles_and_cover_the_pool(s_slots, n_kv,
-                                                              c, dh):
-    n_split, split_len = split_plan(s_slots, n_kv, c, dh)
+                                                              c, dh, rep):
+    n_split, split_len = split_plan(s_slots, n_kv, c, dh, rep)
     bounds = split_bounds(c, n_split, split_len)
     tile = tile_len(dh)
     assert bounds[0] == 0 and bounds[-1] == c and len(bounds) == n_split + 1
@@ -67,7 +71,7 @@ def test_split_plan_chunks_are_whole_tiles_and_cover_the_pool(s_slots, n_kv,
 
 
 def test_split_plan_fills_the_card_at_fedmm_base():
-    n_split, split_len = split_plan(8, 8, 1024, 64)
+    n_split, split_len = split_plan(8, 8, 1024, 64, 2)
     assert (n_split, split_len) == (8, 128)
     assert n_split * 8 * 8 >= TARGET_BLOCKS == 264
 
@@ -76,7 +80,7 @@ def test_split_plan_fills_the_card_at_fedmm_base():
                                             (132, 2, 1024)])
 def test_split_plan_one_chunk_when_slots_fill_the_card(s_slots, n_kv, c):
     assert s_slots * n_kv >= TARGET_BLOCKS
-    assert split_plan(s_slots, n_kv, c, 64) == (1, 64 * max(1, c // 64))
+    assert split_plan(s_slots, n_kv, c, 64, 2) == (1, 64 * max(1, c // 64))
 
 
 @pytest.mark.parametrize("c,dh,want", [(512, 64, 3), (1000, 64, 8),

@@ -15,6 +15,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 

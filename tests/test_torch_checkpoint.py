@@ -19,6 +19,8 @@ from repro_torch.checkpoint import (CheckpointError,  # noqa: E402
                                     load_checkpoint, read_meta,
                                     save_checkpoint)
 from repro_torch.tree import tree_leaves  # noqa: E402
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int32": torch.int32, "bool": torch.bool}

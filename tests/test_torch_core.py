@@ -33,6 +33,8 @@ from repro_torch.data.tokenizers import FrozenTokenizer  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 TOL = 1e-5
 

@@ -48,6 +48,8 @@ from repro_torch.core.federation import (Federation,  # noqa: E402
                                          SequentialFederation)
 from repro_torch.data.tokenizers import FrozenTokenizer  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 _TINY = dict(n_layers=1, d_model=32, n_heads=2, n_kv_heads=1, head_dim=16,
              d_ff=64, vocab_size=128, dtype="float32")

@@ -43,18 +43,11 @@ from repro_torch.core.federation import (Federation,  # noqa: E402
 from repro_torch.data.synthetic import stream  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from test_torch_engine import BASE, JTINY, TINY, _flat  # noqa: E402
+from _torch_threads import _one_thread  # noqa: E402,F401
 
 P = tpart.ParticipationPlan
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Tiny shapes: torch's intra-op threads only spin here, and under the
-    suite's parallel workers they take the cores from every other test."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 MIXED = dict(BASE, modalities=("image", "text", "genetics", "tabular"))
 PLANS = {"none": None,
          "uniform": P(strategy="uniform", cohort_size=2, seed=9),

@@ -48,6 +48,8 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import cka as tcka  # noqa: E402
 from repro_torch.core.federation import (FederationConfig,  # noqa: E402
                                          SequentialFederation)
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 CASE = dict(n_nodes=4, local_steps=2, local_batch=8, n_classes=4,
             modalities=("genetics", "tabular"), bridge_modality="tabular",

@@ -35,6 +35,8 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.gram import (  # noqa: E402
     CHUNK, EPS, MAX_SPLITS, TARGET_BLOCKS, TILE, WARPS, gram_plan, n_blocks,
     n_tile_pairs)
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 TOL = 1e-5                                    # of max(1, |value|)
 DT = {"float32": (torch.float32, jnp.float32),

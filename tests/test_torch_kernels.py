@@ -18,6 +18,8 @@ from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 SENTINEL = (2 ** 31 - 1) // 2
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}

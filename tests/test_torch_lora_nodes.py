@@ -32,6 +32,8 @@ from repro.kernels.lora_matmul import lora_matmul_pallas  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.lora_matmul import (  # noqa: E402
     BM, TARGET_BLOCKS, _check, lora_matmul, n_blocks, tile_plan)
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 F32_TOL = 1e-5
 BF16_TOL = 3e-2

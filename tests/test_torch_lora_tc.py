@@ -36,6 +36,8 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.lora_matmul import (  # noqa: E402
     BK, BM, MAX_RANK, MAX_SPLITS, MIN_RANGE_STEPS, ROW_A, ROW_W, TARGET_BLOCKS,
     TILE_NS, VEC_A, VEC_W, VEC_X, _check, layout_flags, n_blocks, tile_plan)
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 TOL = 3e-2                                        # bf16, of max(1, |value|)
 ALL_VEC = VEC_X | VEC_W | VEC_A

@@ -67,6 +67,8 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 from test_torch_engine import (BASE, JTINY, REL, TINY, TOL,  # noqa: E402
                                _close, _flat,
                                _reference_draws, _reference_state)
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 P = tpart.ParticipationPlan
 GROUPS = ((0, 2, 5), (1, 3), (4, 6, 7, 8))          # three width buckets

@@ -30,6 +30,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import (ServeConfig, ServeEngine,  # noqa: E402
                                naive_generate, poisson_requests, state_counts)
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 TINY = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
             d_ff=128, vocab_size=256, dtype="float32")

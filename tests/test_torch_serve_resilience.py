@@ -44,6 +44,8 @@ from repro_torch.serve import (FaultPlan, ServeConfig,  # noqa: E402
                                seeded_plan, state_counts)
 from repro_torch.serve import faults as tfaults  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 TINY = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
             d_ff=128, vocab_size=256, dtype="float32")

@@ -31,6 +31,8 @@ from repro_torch.kernels.selective_scan import selective_scan  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve.pool import init_pool_cache, scatter_slot  # noqa: E402
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 ARCH = "falcon-mamba-7b"
 J_INIT = jax.jit(JT.init_params, static_argnums=1)

@@ -46,15 +46,7 @@ from repro_torch.launch import train  # noqa: E402
 from repro_torch.tree import copy_into, tree_leaves  # noqa: E402
 from test_torch_engine import REL, TOL, _close, _flat  # noqa: E402
 from test_torch_participation import _jax_round_uniforms  # noqa: E402
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Tiny shapes: torch's intra-op threads only spin here, and under the
-    suite's parallel workers they take the cores from every other test."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import _one_thread  # noqa: E402,F401
 
 
 ARGV = ["--tiny", "--nodes", "2", "--local-steps", "2", "--batch", "2",

@@ -31,6 +31,8 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gram import cosine_gram  # noqa: E402
 from repro_torch.kernels.lora_matmul import lora_matmul  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
+from _torch_threads import _one_thread  # noqa: E402,F401
+
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DT = {"float32": (torch.float32, jnp.float32),
