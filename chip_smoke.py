@@ -27,8 +27,14 @@ non-zero and prints no result):
    beside ``torch.matmul(x, W)`` too, and at ranks 33 and 64) and
    selective_scan (Falcon-Mamba's prefill, B 1, S 512 and 128, C =
    d_inner * N = 131,072; a ragged (3, 37, 1000) and S 1 from a nonzero
-   h0; RecurrentGemma's prefill, B 1, S 2,560, C = lru_width = 4,096;
-   h_all and h_last).  Also the sliding window and dh 256:
+   h0; RecurrentGemma's prefill, B 1, S 2,560, C = lru_width = 4,096,
+   and its prompts of 2,219 and 2,895 tokens; (3, 700, 4,096) and
+   (1, 1, 4,096) from a nonzero h0; S one step past and one step short of
+   whole chunks; h_all and h_last, each also bit for bit against the
+   plain twin of its plan, ``selective_scan_chunked_ref``, and against a
+   second launch; one call of each design captured in a CUDA graph and
+   replayed twice, bit for bit the eager call; each shape's plan and
+   the kernels' resident blocks a SM printed).  Also the sliding window and dh 256:
    flash at the hybrid's (B 1, T 2,560 and 1,024, H 16, KV 1, dh 256,
    window 2,048) and the windowed fedmm-base's (T 8,448, H 16, KV 8, dh
    64, window 8,192), smaller windowed / dh 256 cases and a windowed
@@ -40,7 +46,8 @@ non-zero and prints no result):
    calls: one call where one computes the same function (SDPA, with a
    boolean mask for a window;
    ``F.cosine_similarity`` for gram; as ``library_ms``; none computes
-   the scan's recurrence), and for gram
+   the scan's recurrence, which is timed beside ``torch.add`` over the
+   same bytes instead, as ``add_ms``), and for gram
    and lora_matmul a composition of calls (``F.normalize`` + ``@``;
    ``torch.addmm(x @ W, x @ A, B)``; as ``composition_ms``).  The
    attention kernels' forward checks hold bf16 outputs element by
@@ -226,7 +233,10 @@ from repro_torch.kernels.gram import (  # noqa: E402
     cosine_gram, gram_plan, n_blocks as gram_blocks)
 from repro_torch.kernels.lora_matmul import (  # noqa: E402
     _apply as lora_apply, lora_matmul, n_blocks as lora_blocks, tile_plan)
-from repro_torch.kernels.selective_scan import selective_scan  # noqa: E402
+from repro_torch.kernels.selective_scan import (  # noqa: E402
+    LANES, fold_steps, scan_plan, selective_scan)
+from repro_torch.graphs import COUNTED  # noqa: E402
+from repro_torch.graphs import capture as capture_graph  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import (FaultPlan, ServeConfig,  # noqa: E402
@@ -1080,55 +1090,163 @@ def scan_inputs(b, s, c, dtype, h0_zero=True, seed=0):
             torch.zeros_like(h0) if h0_zero else h0)
 
 
+def scan_boundary_lengths(c: int, near: int = 2560) -> list:
+    """Prompt lengths from ``near`` up at which S is one step past and one
+    step short of a whole number of ``scan_plan``'s chunks (B 1): one
+    block's first sub-chunk of one step, or its last sub-chunk a step
+    short."""
+    found = {}
+    for s in range(near, near + 4096):
+        chunk = scan_plan(1, s, c)[1]
+        for off in (1, chunk - 1):
+            if chunk < s and s % chunk == off % chunk:
+                found.setdefault(off == 1, s)
+        if len(found) == 2:
+            break
+    return [found[True], found[False]]
+
+
+def scan_resident(is_bf16: int) -> dict:
+    """Resident blocks a SM of the one-pass and the chained kernel."""
+    lib = _build.load("selective_scan")
+    return {design: lib.selective_scan_resident(chained, is_bf16)
+            for chained, design in enumerate(("one pass", "chained"))}
+
+
+def off16(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past the start of its
+    buffer: its pointer off 16 bytes."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view(t.shape).copy_(t)
+
+
+def scan_check(what, shape, dtype, zero, off=False) -> float:
+    """The kernel against the sequential plain version (``TOL[f32]`` of
+    max(1, max |h|)) and, bit for bit, against the plain twin of its plan
+    (``selective_scan_chunked_ref`` at the plan's ``fold_steps``; for one
+    pass that is the sequential version); a second launch on the same
+    inputs bit for bit.  ``off``: every input's pointer off 16 bytes, which
+    the plan sends to the chained design.  Returns the error against the
+    sequential version."""
+    args = scan_inputs(*shape, dtype, zero, seed=shape[1])
+    if off:
+        args = tuple(map(off16, args))
+    tile, chunk, blocks = scan_plan(*shape, aligned=not off)
+    fold = fold_steps(tile == LANES, shape[1])
+    resident = _build.load("selective_scan").selective_scan_resident(
+        int(tile == LANES), int(dtype == torch.bfloat16))
+    got = selective_scan(*args)
+    again = selective_scan(*args)
+    want = ref.selective_scan_ref(*args)
+    twin = ref.selective_scan_chunked_ref(*args, fold)
+    torch.cuda.synchronize()
+    # both widen the same inputs and compute in f32: the f32 tolerance
+    # holds for bf16 inputs too
+    scale = max(1.0, want[0].abs().max().item())
+    err = max((g - w).abs().max().item() for g, w in zip(got, want)) / scale
+    twin_err = max((g - w).abs().max().item() for g, w in zip(got, twin))
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    log(f"  selective_scan {what} {dtype}: plan tile {tile}, chunk {chunk} "
+        f"({-(-shape[1] // chunk)} chunks; pairs of {fold} steps), {blocks} "
+        f"blocks, {resident} resident a SM; max_abs_err "
+        f"{err:.3g} of max(1, max |h|) = {scale:.4g} (h_all and h_last; tol "
+        f"{TOL[torch.float32]}); against the plan's plain twin max abs "
+        f"{twin_err:.3g} (want 0: bit for bit); second launch bit-equal "
+        f"{same}")
+    if not err <= TOL[torch.float32]:
+        raise AssertionError(f"selective_scan {what} {dtype}: {err}")
+    if twin_err != 0.0 or not same:
+        raise AssertionError(f"selective_scan {what} {dtype}: not bit for "
+                             f"bit (twin {twin_err}, relaunch {same})")
+    return err
+
+
+def scan_graph_check(what, shape) -> None:
+    """One call captured in a CUDA graph, replayed twice: each replay bit
+    for bit the eager call (no state carries from one launch to the
+    next, so a replay needs no reset)."""
+    args = scan_inputs(*shape, torch.float32, False, seed=7)
+    eager = selective_scan(*args)
+    cap = capture_graph(lambda: selective_scan(*args), [])
+    outs = []
+    for _ in range(2):
+        for t in cap.out:
+            t.fill_(float("nan"))
+        cap.graph.replay()
+        outs.append(tuple(t.clone() for t in cap.out))
+    torch.cuda.synchronize()
+    same = [all(torch.equal(g, w) for g, w in zip(o, eager)) for o in outs]
+    log(f"  selective_scan graph replay {what} (f32, h0 != 0): replays bit "
+        f"for bit the eager call {same}; launches a replay "
+        f"{dict(zip((fn.__name__ for fn in COUNTED), cap.launches))}")
+    if not all(same):
+        raise AssertionError(f"selective_scan graph replay {what}: {same}")
+    del cap
+
+
 def scan_phase() -> dict:
     log("kernel phase: selective_scan (forward only, as the prefill runs "
         "it)")
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for what, shape, zero in (
-                ("falcon-mamba prefill (1, 512, 131072)", (1, 512, MAMBA_C),
-                 True),
-                ("falcon-mamba prefill (1, 128, 131072)", (1, 128, MAMBA_C),
-                 True),
-                ("ragged (3, 37, 1000), h0 != 0", (3, 37, 1000), False),
-                ("S 1 (2, 1, 131072), h0 != 0", (2, 1, MAMBA_C), False),
-                ("hybrid prefill (1, 2560, 4096)", (1, 2560, LRU_C), True)):
-            args = scan_inputs(*shape, dtype, zero, seed=shape[1])
-            got = selective_scan(*args)
-            want = ref.selective_scan_ref(*args)
-            torch.cuda.synchronize()
-            # both widen the same inputs and compute in f32: the f32
-            # tolerance holds for bf16 inputs too
-            scale = max(1.0, want[0].abs().max().item())
-            err = max((g - w).abs().max().item()
-                      for g, w in zip(got, want)) / scale
-            log(f"  selective_scan {what} {dtype}: max_abs_err {err:.3g} of "
-                f"max(1, max |h|) = {scale:.4g} (h_all and h_last; tol "
-                f"{TOL[torch.float32]})")
-            if not err <= TOL[torch.float32]:
-                raise AssertionError(f"selective_scan {what} {dtype}: {err}")
-            errs.setdefault(dtype, err)
+    for is_bf16 in (0, 1):
+        log(f"  selective_scan resident blocks a SM "
+            f"({'bf16' if is_bf16 else 'f32'}, 256 threads): "
+            f"{scan_resident(is_bf16)}")
+    past, short = scan_boundary_lengths(LRU_C)
+    shapes = (("falcon-mamba prefill (1, 512, 131072)", (1, 512, MAMBA_C),
+               True),
+              ("falcon-mamba prefill (1, 128, 131072)", (1, 128, MAMBA_C),
+               True),
+              ("(1, 128, 131072), inputs off 16 bytes", (1, 128, MAMBA_C),
+               True, True),
+              ("C not a multiple of 4 (1, 64, 131070), h0 != 0",
+               (1, 64, MAMBA_C - 2), False),
+              ("ragged (3, 37, 1000), h0 != 0", (3, 37, 1000), False),
+              ("S 1 (2, 1, 131072), h0 != 0", (2, 1, MAMBA_C), False),
+              ("hybrid prefill (1, 2560, 4096)", (1, 2560, LRU_C), True),
+              ("hybrid prompt (1, 2219, 4096)", (1, 2219, LRU_C), True),
+              ("hybrid prompt (1, 2895, 4096)", (1, 2895, LRU_C), True),
+              ("B 3 (3, 700, 4096), h0 != 0", (3, 700, LRU_C), False),
+              ("S 1 (1, 1, 4096), h0 != 0", (1, 1, LRU_C), False),
+              (f"one step past whole chunks (1, {past}, 4096)",
+               (1, past, LRU_C), True),
+              (f"one step short of whole chunks (1, {short}, 4096), h0 != 0",
+               (1, short, LRU_C), False))
+    errs = {dtype: max(scan_check(what, shape, dtype, *flags)
+                       for what, shape, *flags in shapes)
+            for dtype in (torch.float32, torch.bfloat16)}
+    scan_graph_check("hybrid prefill (1, 2560, 4096), chained", (1, 2560,
+                                                                  LRU_C))
+    scan_graph_check("falcon-mamba prefill (1, 512, 131072), one pass",
+                     (1, 512, MAMBA_C))
 
     timings = []
     for path, s, c in (("ssm serve", 512, MAMBA_C), ("ssm serve", 128, MAMBA_C),
-                       ("hybrid serve", 2560, LRU_C)):
+                       ("hybrid serve", 2560, LRU_C),
+                       ("hybrid serve", 2895, LRU_C)):
         sets = copies(scan_inputs(1, s, c, torch.float32))
         ms = time_ms(lambda *x: selective_scan(*x), sets)
         issue_ms = host_ms(lambda *x: selective_scan(*x), sets)
         plain_ms = time_ms(lambda *x: ref.selective_scan_ref(*x), sets,
                            iters=10)
+        # not the same function: the same bytes (read da and dbx, write
+        # one f32 tensor of their shape) through one elementwise call,
+        # what the card reaches on this access count
+        add_ms = time_ms(lambda a, b, _: torch.add(a, b, out=torch.empty_like(
+            a)), sets)
         da, dbx, h0 = sets[0]
         moved = nbytes(da, dbx, h0) + 4 * (da.numel() + h0.numel())
         ops = 2 * da.numel()                           # one mul, one add
         b_ms, b_by = bound_ms(moved, ops, torch.float32)
         shape = f"B 1, S {s}, C {c}, f32"
-        log(f"  selective_scan timing ({path} prefill, {shape}): kernel "
-            f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), plain "
-            f"{plain_ms:.4f} ms, no single PyTorch call, bound {b_ms:.4f} ms"
-            f" ({b_by}; {moved} bytes, {ops} flops)")
+        log(f"  selective_scan timing ({path} prefill, {shape}; plan "
+            f"{scan_plan(1, s, c)}): kernel {ms:.4f} ms on the device "
+            f"({issue_ms:.4f} ms to issue), plain {plain_ms:.4f} ms, no "
+            f"single PyTorch call, torch.add(da, dbx, out=) over the same "
+            f"bytes {add_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {moved} "
+            f"bytes, {ops} flops; {b_ms / ms:.3f} of it)")
         timings.append(dict(path=path, shape=shape, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                            library_ms=None))
+                            library_ms=None, add_ms=add_ms))
     return dict(max_abs_err=errs[torch.float32], timings=timings)
 
 

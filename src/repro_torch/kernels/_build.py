@@ -45,8 +45,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "lora_matmul": {"lora_matmul_launch":
                     [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I] * 5 + [_L] * 2
                     + [_P]},
-    # da, dbx, h0, h_all, h_last, B, S, C, is_bf16, stream
-    "selective_scan": {"selective_scan_launch": [_P] * 5 + [_I] * 4 + [_P]},
+    # da, dbx, h0, h_all, h_last, links, n_links, B, S, C, tile, chunk,
+    # sub, is_bf16, stream; resident blocks a SM of a design: chained,
+    # is_bf16
+    "selective_scan": {"selective_scan_launch":
+                       [_P] * 6 + [_L] + [_I] * 7 + [_P],
+                       "selective_scan_resident": [_I, _I]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -116,5 +116,38 @@ def selective_scan_ref(da: torch.Tensor, dbx: torch.Tensor,
     return h_all, h
 
 
+def selective_scan_chunked_ref(da: torch.Tensor, dbx: torch.Tensor,
+                               h0: torch.Tensor, chunk: int) -> tuple:
+    """The recurrence as the chained design of ``csrc/selective_scan.cu``
+    computes it at sub-chunks of ``chunk`` steps, step for step and
+    rounding for rounding (float32, every product and sum rounded apart).
+    S is cut into chunks of ``chunk`` steps; every chunk but the last
+    composes its pair (A = prod da, b = its end state from 0); the pairs
+    fold in order from h0 into each chunk's carry-in, carry_k = A_k *
+    carry_{k-1} + b_k; then each chunk runs h = da * h + dbx from its
+    carry-in, which is in exact arithmetic h_t = local_t + (prod of da up
+    to t) * carry_in.  With chunk >= S it is ``selective_scan_ref``.  A
+    twin for the tests; no path calls it."""
+    da32, dbx32 = da.float(), dbx.float()
+    s = da32.shape[1]
+    carry = h0.float()
+    carries = [carry]
+    for t0 in range(0, s - chunk, chunk):           # every chunk but the last
+        a_k = torch.ones_like(carry)
+        b_k = torch.zeros_like(carry)
+        for t in range(t0, t0 + chunk):
+            b_k = da32[:, t] * b_k + dbx32[:, t]
+            a_k = da32[:, t] * a_k
+        carry = a_k * carry + b_k
+        carries.append(carry)
+    h_all = torch.empty(da32.shape, dtype=torch.float32, device=da.device)
+    for k, h in enumerate(carries):
+        for t in range(k * chunk, min(s, (k + 1) * chunk)):
+            h = da32[:, t] * h + dbx32[:, t]
+            h_all[:, t] = h
+    return h_all, h
+
+
 __all__ = ["decode_attention_ref", "flash_attention_ref", "cosine_gram_ref",
-           "lora_matmul_ref", "selective_scan_ref"]
+           "lora_matmul_ref", "selective_scan_ref",
+           "selective_scan_chunked_ref"]

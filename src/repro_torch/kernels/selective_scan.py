@@ -10,7 +10,24 @@ requires one (a training path must not drop it quietly).
 
 A tensor on the CPU goes to the plain version ``ref.selective_scan_ref``;
 a CUDA tensor launches the kernel or raises.
-``selective_scan.launches`` counts kernel launches.
+
+On the card ``scan_plan`` picks one of two designs (the source's note
+says why): one pass over S, 4 adjacent columns a thread, when the B x C
+columns alone fill the card (Falcon-Mamba's prefill), C is a multiple of
+4 and every pointer is 16-byte aligned; else the chained design (the
+RG-LRU's C 4,096, and any C or alignment): blocks of 32 channels x 8
+sub-chunks of 16 steps, each sub-chunk's pair (prod da, end state from 0)
+folded in order from the previous chunk's carry-out, which it waits for,
+then each sub-chunk rescanned from its carry-in.  The chained design
+takes a zeroed int64 scratch of links and a ticket (``link_words``).
+The launch gets the plan -- tile, chunk and ``fold_steps`` -- and
+refuses one that names neither of the kernel's designs, so the constants
+here and the source's cannot drift apart.
+``ref.selective_scan_chunked_ref`` at ``fold_steps`` is the plain twin of
+either design's arithmetic, bit for bit.
+
+``selective_scan.launches`` counts wrapper calls that reached the card
+(one per layer per prefill); the plain path never counts.
 """
 from __future__ import annotations
 
@@ -20,6 +37,53 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import selective_scan_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
+#: one pass: threads of a block, and the adjacent columns a thread takes
+#: (``kPassThreads``, ``kPassCh`` in the source)
+PASS_THREADS, PASS_COLUMNS = 256, 4
+#: one pass over S when B x ceil(C / PASS_THREADS) reaches this: two blocks
+#: a SM of the H100's 132 at one column a thread
+ONE_PASS_BLOCKS = 264
+#: chained: channels of a block (one a lane), sub-chunks of its chunk (one
+#: a warp) and steps of a sub-chunk (``kLanes``, ``kWarps``, ``kSub`` in
+#: the source): chunks of 128 steps
+LANES, WARPS, SUB = 32, 8, 16
+
+
+def runs_chained(b: int, c: int, aligned: bool = True) -> bool:
+    """Whether the kernel runs the chained design.  It runs one pass only
+    when the B x C columns alone fill the card, C is a multiple of
+    PASS_COLUMNS and every pointer is 16-byte aligned (``aligned``)."""
+    return not (aligned and c % PASS_COLUMNS == 0
+                and b * -(-c // PASS_THREADS) >= ONE_PASS_BLOCKS)
+
+
+def design_plan(chained: bool, b: int, s: int, c: int) -> tuple:
+    """(tile, chunk, blocks) of one design at da (b, s, c): blocks of
+    ``tile`` channels, each over ``chunk`` steps (s for one pass), and the
+    block count b x ceil(c / tile) x ceil(s / chunk)."""
+    tile, chunk = (LANES, WARPS * SUB) if chained else (
+        PASS_THREADS * PASS_COLUMNS, s)
+    return tile, chunk, b * -(-c // tile) * -(-s // chunk)
+
+
+def scan_plan(b: int, s: int, c: int, aligned: bool = True) -> tuple:
+    """(tile, chunk, blocks) of the design the kernel runs at da (b, s, c)
+    (``aligned``: every pointer 16-byte aligned)."""
+    return design_plan(runs_chained(b, c, aligned), b, s, c)
+
+
+def fold_steps(chained: bool, s: int) -> int:
+    """The steps each of a design's pairs covers -- the ``chunk`` of
+    ``ref.selective_scan_chunked_ref`` that computes its bits (s for one
+    pass: the sequential version)."""
+    return SUB if chained else s
+
+
+def link_words(chained: bool, b: int, s: int, c: int) -> int:
+    """64-bit words of the chained design's zeroed scratch: a link of
+    every chunk but the last for each column, then the ticket (0 for one
+    pass)."""
+    return -(-s // (WARPS * SUB)) * b * c if chained else 0
 
 
 def _check(da: torch.Tensor, dbx: torch.Tensor, h0: torch.Tensor) -> None:
@@ -54,12 +118,21 @@ def selective_scan(da: torch.Tensor, dbx: torch.Tensor,
                            "input requires one")
     b, s, c = da.shape
     h0 = h0.float().contiguous()
+    # the outputs are fresh allocations, 16-byte aligned
+    chained = runs_chained(b, c, all(t.data_ptr() % 16 == 0
+                                     for t in (da, dbx, h0)))
+    tile, chunk, _ = design_plan(chained, b, s, c)
     h_all = torch.empty((b, s, c), dtype=torch.float32, device=da.device)
     h_last = torch.empty((b, c), dtype=torch.float32, device=da.device)
+    n_links = link_words(chained, b, s, c)
+    links = (torch.zeros(n_links, dtype=torch.int64, device=da.device)
+             if n_links else None)
     lib = _build.load("selective_scan")
     err = lib.selective_scan_launch(
         da.data_ptr(), dbx.data_ptr(), h0.data_ptr(), h_all.data_ptr(),
-        h_last.data_ptr(), b, s, c, int(da.dtype == torch.bfloat16),
+        h_last.data_ptr(), None if links is None else links.data_ptr(),
+        n_links, b, s, c, tile, chunk, fold_steps(chained, s),
+        int(da.dtype == torch.bfloat16),
         torch.cuda.current_stream(da.device).cuda_stream)
     _build.check_launch("selective_scan", err)
     selective_scan.launches += 1
@@ -68,4 +141,6 @@ def selective_scan(da: torch.Tensor, dbx: torch.Tensor,
 
 selective_scan.launches = 0
 
-__all__ = ["selective_scan", "selective_scan_ref"]
+__all__ = ["selective_scan", "selective_scan_ref", "scan_plan", "design_plan",
+           "runs_chained", "fold_steps", "link_words", "PASS_THREADS",
+           "PASS_COLUMNS", "ONE_PASS_BLOCKS", "LANES", "WARPS", "SUB"]
