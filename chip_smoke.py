@@ -40,7 +40,14 @@ non-zero and prints no result):
    64, window 8,192), smaller windowed / dh 256 cases and a windowed
    gradient; decode over the hybrid's ring (S 8, C 2,048, KV 1, rep 16,
    dh 256, slots wrapped) and fedmm-base's (S 4, C 8,192, KV 8, rep 2),
-   and a window narrower than the ring.  Each is timed, in bf16 at each path's
+   and a window narrower than the ring.  Llama4's chunked mask: flash at
+   Scout's prefill (B 1, T 8,448, H 40, KV 8, dh 128, chunk 8,192; the
+   plain version run by KV head groups), chunk 48 at T 300, T 100
+   against S 300, B 4 at dh 64, chunks 37, 1 and 72 (dh 128, 128, 256)
+   and a chunked gradient; decode over Scout's ring (S 8, C 8,192, KV 8,
+   rep 5, dh 128, slots at positions 8,100, 8,191, 8,192 -- which must
+   get its own V -- 8,500, 0, empty, 4,999 and 16,400) at chunk 8,192
+   and 1,000.  Each is timed, in bf16 at each path's
    shapes (the scan in f32, as the prefill gives it), beside its
    plain version, its bound and a PyTorch yardstick the port never
    calls: one call where one computes the same function (SDPA, with a
@@ -102,7 +109,27 @@ non-zero and prints no result):
    replayed, eager blocks identical, exact launches, positions past the
    config's ``max_seq_len`` of 4,096; a 2-layer model at full width is
    held against the CPU in f32;
-8. federation: ``SequentialFederation`` on fedmm-small at full width
+8. moe: the memory earlier phases left is freed and printed (the phase
+   raises if more than 4 GiB stays reserved), then ``ServeEngine`` on
+   llama4-scout-17b-a16e at full width cut to 12 of its 48 layers (d_model
+   5,120, 40 heads over 8 KV heads of dh 128, an MoE FFN of 16 routed
+   experts top-1 and one shared expert in every layer, chunked attention
+   of 8,192, vocab 202,048; bf16, random weights from seed 0, 53 GiB)
+   serves 8 requests x 32 tokens through 8 slots x 8,832 (rings of
+   8,192), M = 8: six prompts of 8,300-8,700 tokens (each admission
+   crosses the chunk boundary) and two of 8,170-8,190 (their decode
+   crosses position 8,192).  Blocks replayed as in 3: exactly 12 flash
+   launches per admission and 12 decode launches per decode step, the
+   eager stream token-identical, tokens/s, TTFT and peak memory; a
+   profiled run, and an eager profiled run (two admissions, 8 steps) that
+   names the expert GEMMs' share of prefill and decode.  At 1 layer and
+   full width, a ~1,000-token prompt and 8 decode steps against the CPU
+   in f32 (cache_len 8,192): the card's f32 run must route every
+   position to the CPU's expert (read from ``rms_norm``, ``gqa_forward``
+   and ``router_scores`` on both sides) and meet 1e-3 of max |logit|;
+   its bf16 run is held to 5e-2 at the positions that route (and keep or
+   drop) as on the CPU, and the flips are printed;
+9. federation: ``SequentialFederation`` on fedmm-small at full width
    (12 layers, bf16, geodora, precision aggregation, the default 4 nodes
    x 10 local steps, batch 32 x 16 tokens, rank 8) runs 2 rounds; each
    must launch exactly 7,680 lora_matmul (48 GeoLoRA linears, forward
@@ -112,11 +139,11 @@ non-zero and prints no result):
    and the host's op count.  Then one round at rank 64, the top of the
    kernel's range, on fedmm-small at full width cut to 2 layers, with
    exact launch counts and finite records;
-9. federation oracle: one local step from the state the rounds left,
+10. federation oracle: one local step from the state the rounds left,
    on the card in bf16 and f32 and through the plain versions on the
    CPU in f32: losses, pooled activations and every gradient must
    agree;
-10. engine: the node-stacked ``Federation`` on the same model and
+11. engine: the node-stacked ``Federation`` on the same model and
    configuration.  Before it, the node axis of ``lora_matmul`` (x (K,
    512, 768), W and A shared, B per node; K 1, 4 and 16, N 768 and 256,
    r 8 and 64, bf16 and f32; output, dx and dB) is held against its
@@ -130,11 +157,11 @@ non-zero and prints no result):
    11 gram), with one replay and one readback, finite records and
    weights summing to 1.  One replayed round under ``torch.profiler``
    reports its device busy share and launches;
-11. engine oracle: from one seed, one round through ``Federation``
+12. engine oracle: from one seed, one round through ``Federation``
    (replayed) and one through ``SequentialFederation`` on the card, in
    bf16 and f32, records and trainables within ``ENGINE_TOL``; then one
    eager round of the engine against its replay from the same state;
-12. participation: ``Federation`` on the same model with 8 nodes (4
+13. participation: ``Federation`` on the same model with 8 nodes (4
    modalities x 2: 4 width buckets of 2).  Under ``uniform`` C 4 (the
    compact path, one cohort row per bucket) and under ``async``
    (geometric lag p 0.5 capped at 3, transient 0.2, crash 0.1, rejoin
@@ -153,7 +180,7 @@ non-zero and prints no result):
    the eager run of the same round (bit-identical) and against
    ``SequentialFederation`` on the card (cohorts and events equal,
    records and trainables within ``ENGINE_TOL``);
-13. checkpoints: ``Federation`` under no plan (4 nodes), ``uniform`` C 4
+14. checkpoints: ``Federation`` under no plan (4 nodes), ``uniform`` C 4
    (8 nodes) and ``async`` (8 nodes, 2 layers): the round graph
    captured, then ``run_rounds(4, block_size=2, checkpoint_path=...,
    checkpoint_every=1)``, which ends a sub-block at every round: 4
@@ -163,7 +190,7 @@ non-zero and prints no result):
    fresh federation (its block graph captured first), each followed by
    2 rounds, must end in the uninterrupted run's state and generators
    bit for bit;
-14. the LM driver: ``repro_torch.launch.train`` (``parse_args``,
+15. the LM driver: ``repro_torch.launch.train`` (``parse_args``,
    ``build``, ``Trainer``: ``main``'s body) on fedmm-small at full width
    and depth with its default flags (4 nodes x 4 local steps, batch 8 x
    128, 16 anchors, rank 8, geodora), blocks of 2, then under
@@ -183,8 +210,8 @@ non-zero and prints no result):
 Peak device memory (allocated and reserved) is printed after each
 federation phase and after each capture, with what the capture added to
 the reserved memory.  Launch counters are set to 0 just before each path
-(serve, its eager oracle, chaos, ssm serve and its oracle, the hybrid
-and windowed serves and their oracles, the hybrid freeze runs,
+(serve, its eager oracle, chaos, ssm serve and its oracle, the hybrid,
+windowed and moe serves and their oracles, the hybrid freeze runs,
 federation, engine, each participation round and block, each
 checkpointed run, each driver run) and read
 just after; the kernel checks' own launches never count.  A graph
@@ -239,6 +266,9 @@ from repro_torch.graphs import COUNTED  # noqa: E402
 from repro_torch.graphs import capture as capture_graph  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.attention import gqa_forward  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
+from repro_torch.models.moe import _capacity, router_scores  # noqa: E402
 from repro_torch.serve import (FaultPlan, ServeConfig,  # noqa: E402
                                ServeEngine, SimulatedCrash, init_pool_cache,
                                poisson_requests, scatter_slot, seeded_plan,
@@ -428,10 +458,11 @@ def attn_err(kernel: str, name: str, got, want) -> float:
     return err
 
 
-def check_decode(name, args, window=0, zero_slots=()):
-    got = decode_attention(*args, window=window)
+def check_decode(name, args, window=0, zero_slots=(), chunk=0):
+    got = decode_attention(*args, window=window, chunk=chunk)
     err = attn_err("decode", name, got,
-                   ref.decode_attention_ref(*args, window=window))
+                   ref.decode_attention_ref(*args, window=window,
+                                            chunk=chunk))
     for s in zero_slots:
         if got[s].abs().max().item() != 0.0:
             raise AssertionError(f"decode_attention {name}: fully masked "
@@ -498,18 +529,20 @@ def decode_phase() -> dict:
 
 
 def decode_timing(path, s_slots, c, lens, n_kv=8, rep=2, dh=64,
-                  window=0) -> dict:
-    """Kernel, plain and SDPA times (bf16) and the bound of this pool's
-    visible entries."""
+                  window=0, chunk=0) -> dict:
+    """Kernel, plain and SDPA times (bf16), the bound of this pool's
+    visible entries and that of the whole pool (``pool_bound_ms``); the
+    pool is a ring of width c under a window or a chunk."""
     q, k, v, q_pos, pos = decode_inputs(s_slots, c, n_kv, rep, dh, lens,
-                                        torch.bfloat16, window=window)
+                                        torch.bfloat16,
+                                        window=window or (c if chunk else 0))
     sets = copies((q, k, v, q_pos, pos))
 
     def kernel(*x):
-        return decode_attention(*x, window=window)
+        return decode_attention(*x, window=window, chunk=chunk)
 
     def plain(*x):
-        return ref.decode_attention_ref(*x, window=window)
+        return ref.decode_attention_ref(*x, window=window, chunk=chunk)
 
     ms = time_ms(kernel, sets)
     issue_ms = host_ms(kernel, sets)
@@ -518,6 +551,8 @@ def decode_timing(path, s_slots, c, lens, n_kv=8, rep=2, dh=64,
     ok = (pos <= q_pos[:, None])                       # visible entries
     if window:
         ok &= q_pos[:, None] - pos < window
+    if chunk:
+        ok &= pos >= q_pos[:, None] - q_pos[:, None] % chunk
     lib_sets = [(x[0].reshape(s, h, 1, dh),
                  x[1].permute(0, 2, 1, 3).contiguous(),
                  x[2].permute(0, 2, 1, 3).contiguous(), ok[:, None, None, :])
@@ -538,14 +573,20 @@ def decode_timing(path, s_slots, c, lens, n_kv=8, rep=2, dh=64,
     ops = 4 * n_vis * h * dh                           # q.k and p.v per head
     b_ms, b_by = bound_ms(moved, ops, torch.bfloat16)
     shape = (f"S {s_slots}, C {c}, KV {n_kv}, rep {rep}, dh {dh}"
-             + (f", window {window}" if window else ""))
+             + (f", window {window}" if window else "")
+             + (f", chunk {chunk}" if chunk else ""))
+    pool = 2 * nbytes(q) + nbytes(q_pos, pos, k, v)    # every entry once
+    pool_ms = bound_ms(pool, 4 * pos.numel() * h * dh, torch.bfloat16)[0]
     log(f"  decode_attention timing ({path}, bf16, {shape}, "
         f"{split_plan(s_slots, n_kv, c, dh, rep)[0]} chunks): kernel "
         f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue on the "
         f"host), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} flops)")
+        f"bound {b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} flops; the "
+        f"visible entries); the whole pool's bound {pool_ms:.4f} ms "
+        f"({pool} bytes)")
     return dict(path=path, shape=shape, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                pool_bound_ms=pool_ms)
 
 
 #: the sliding-window pools of this slice: name -> (S, C, KV, rep, dh,
@@ -583,6 +624,50 @@ def window_decode_phase() -> list:
                  window=700)
     return [decode_timing(what, s, c, lens, n_kv, rep, dh, window=c)
             for what, (s, c, n_kv, rep, dh, lens) in WINDOW_POOLS.items()]
+
+
+#: the chunked pools of this slice: name -> (S, C, KV, rep, dh, lens), a
+#: ring as wide as the chunk.  Llama-4-Scout's slots sit at positions
+#: 8,100, 8,191 (the chunk's last), 8,192 (the next chunk's first: it
+#: sees only itself, the ring holding the earlier chunk's entries), 8,500,
+#: 0, empty, 4,999 and 16,400
+CHUNK_POOLS = {"Llama-4-Scout ring": (8, 8192, 8, 5, 128,
+                                      [8101, 8192, 8193, 8501, 1, 0, 5000,
+                                       16401])}
+SCOUT_CHUNK = 8192
+
+
+def chunk_decode_phase() -> list:
+    """Decode under llama4's chunked rule over Scout's ring (chunk 8,192,
+    and a chunk of 1,000 over the same ring), held against the plain
+    version in bf16 and f32; the slot at the chunk boundary must get its
+    own V.  Then Scout's pool timed in bf16 beside SDPA with a boolean
+    chunk mask."""
+    log("kernel phase: decode_attention with a chunk")
+    for what, (s, c, n_kv, rep, dh, lens) in CHUNK_POOLS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            a = decode_inputs(s, c, n_kv, rep, dh, lens, dtype, window=c,
+                              seed=7)
+            zero = [i for i, n in enumerate(lens) if not n]
+            check_decode(f"{what}, chunk {c} {dtype}", a, chunk=c,
+                         zero_slots=zero)
+            check_decode(f"{what}, chunk 1000 {dtype}", a, chunk=1000,
+                         zero_slots=zero)
+            # position 8,192 sees one entry: its own (ring index 0)
+            on = lens.index(c + 1)
+            got = decode_attention(*a, chunk=c)[on].float()
+            own = a[2][on, 0].float().repeat_interleave(rep, dim=0)
+            diff = (got - own).abs().max().item()
+            if diff > TOL[dtype] * own.abs().max().item():
+                raise AssertionError(f"decode_attention {what}: the slot at "
+                                     f"the chunk boundary is {diff} off its "
+                                     f"own V")
+        n_split, split_len = split_plan(s, n_kv, c, dh, rep)
+        log(f"  {what}: split into {n_split} chunks of {split_len} "
+            f"positions; the boundary slot's other chunks wholly masked, "
+            f"its output its own V")
+    return [decode_timing(what, s, c, lens, n_kv, rep, dh, chunk=c)
+            for what, (s, c, n_kv, rep, dh, lens) in CHUNK_POOLS.items()]
 
 
 # ----------------------------------------------------------------------
@@ -652,19 +737,22 @@ def flash_phase() -> dict:
     return dict(max_abs_err=errs[torch.bfloat16], timings=timings)
 
 
-def window_mask(t: int, s: int, window: int) -> torch.Tensor:
-    """(T, S) bool: the keys each query row sees under the sliding mask,
-    aligned bottom-right as the kernel aligns it (causal when window 0)."""
+def window_mask(t: int, s: int, window: int, chunk: int = 0) -> torch.Tensor:
+    """(T, S) bool: the keys each query row sees under the sliding (or
+    chunked) mask, aligned bottom-right as the kernel aligns it (causal
+    when window and chunk are 0)."""
     qi = torch.arange(t, device="cuda")[:, None] + (s - t)
     ki = torch.arange(s, device="cuda")[None, :]
     ok = ki <= qi
+    if chunk:
+        ok &= ki >= qi - qi % chunk
     return ok & (qi - ki < window) if window else ok
 
 
-def flash_timing(path, b, t, h, n_kv, dh, window=0) -> dict:
+def flash_timing(path, b, t, h, n_kv, dh, window=0, chunk=0) -> dict:
     """Kernel, plain and SDPA times (bf16) and the bound of the visible
     (query, key) pairs.  SDPA runs ``is_causal`` for the causal mask and a
-    boolean (T, S) mask for a window."""
+    boolean (T, S) mask for a window or a chunk."""
     g = torch.Generator(device="cuda").manual_seed(t)
     q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
         torch.bfloat16) for shape in ((b, t, h, dh), (b, t, n_kv, dh),
@@ -672,20 +760,21 @@ def flash_timing(path, b, t, h, n_kv, dh, window=0) -> dict:
     sets = copies((q, k, v))
 
     def kernel(*x):
-        return flash_attention(*x, window=window)
+        return flash_attention(*x, window=window, chunk=chunk)
 
     def plain(*x):
-        return ref.flash_attention_ref(*x, window=window)
+        return ref.flash_attention_ref(*x, window=window, chunk=chunk)
 
-    mask = window_mask(t, t, window)
-    sdpa = dict(is_causal=True) if not window else dict(attn_mask=mask)
+    mask = window_mask(t, t, window, chunk)
+    masked = bool(window or chunk)
+    sdpa = dict(attn_mask=mask) if masked else dict(is_causal=True)
 
     def library(*x):
         return F.scaled_dot_product_attention(*x, enable_gqa=True, **sdpa)
 
     ms = time_ms(kernel, sets)
     issue_ms = host_ms(kernel, sets)
-    plain_ms = time_ms(plain, sets, iters=10 if window else 30)
+    plain_ms = time_ms(plain, sets, iters=10 if masked else 30)
     lib_sets = [tuple(a.transpose(1, 2).contiguous() for a in x)
                 for x in sets]
     library_ms = time_ms(library, lib_sets)
@@ -697,10 +786,11 @@ def flash_timing(path, b, t, h, n_kv, dh, window=0) -> dict:
     ops = 4 * b * h * dh * int(mask.sum())             # visible pairs only
     b_ms, b_by = bound_ms(nbytes(q, k, v) + nbytes(q), ops, torch.bfloat16)
     shape = (f"B {b}, T {t}, H {h}, KV {n_kv}, dh {dh}"
-             + (f", window {window}" if window else ""))
+             + (f", window {window}" if window else "")
+             + (f", chunk {chunk}" if chunk else ""))
     log(f"  flash_attention timing ({path}, bf16, {shape}): kernel "
         f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), plain "
-        f"{plain_ms:.4f} ms, SDPA{' (bool mask)' if window else ''} "
+        f"{plain_ms:.4f} ms, SDPA{' (bool mask)' if masked else ''} "
         f"{library_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {ops} flops)")
     return dict(path=path, shape=shape, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
@@ -751,6 +841,56 @@ def window_flash_phase() -> list:
                   TOL[dtype])
     return [flash_timing(what, b, t, h, n_kv, dh, w)
             for what, (b, t, h, n_kv, dh, w) in WINDOW_FLASH.items()]
+
+
+#: the chunked prefill of this slice: name -> (B, T, H, KV, dh, chunk)
+CHUNK_FLASH = {"Llama-4-Scout prefill": (1, 8448, 40, 8, 128, SCOUT_CHUNK)}
+#: smaller chunked cases: name -> (B, T, S, H, KV, dh, chunk); chunks that
+#: are no multiple of 16 put a chunk boundary inside a warp's 16 rows
+CHUNK_FLASH_CASES = {
+    "chunk 48, T 300": (1, 300, 300, 16, 8, 64, 48),
+    "T 100, S 300, chunk 128 (bottom-right)": (1, 100, 300, 16, 8, 64, 128),
+    "B 4, dh 64, T 200, chunk 64": (4, 200, 200, 16, 8, 64, 64),
+    "dh 128, rep 5, T 700, chunk 37": (1, 700, 700, 40, 8, 128, 37),
+    "dh 128, T 300, chunk 1 (the diagonal)": (1, 300, 300, 10, 2, 128, 1),
+    "dh 256, T 200, chunk 72": (1, 200, 200, 16, 1, 256, 72),
+}
+
+
+def grouped_ref(q, k, v, **mask) -> torch.Tensor:
+    """The plain version one KV head's group at a time (its f32 scores at
+    Scout's prefill would be 11 GB at once)."""
+    rep = q.shape[2] // k.shape[2]
+    return torch.cat([ref.flash_attention_ref(
+        q[:, :, g * rep:(g + 1) * rep], k[:, :, g:g + 1], v[:, :, g:g + 1],
+        **mask) for g in range(k.shape[2])], dim=2)
+
+
+def chunk_flash_phase() -> list:
+    """Flash under llama4's chunked mask: Scout's prefill (compared by KV
+    head groups) and the smaller cases, against the plain version in bf16
+    and f32; a chunked gradient check; then Scout's prefill timed in bf16
+    beside SDPA with a boolean chunk mask."""
+    log("kernel phase: flash_attention with a chunk")
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, (b, t, h, n_kv, dh, c) in CHUNK_FLASH.items():
+            a = flash_inputs(t, h, n_kv, dh, dtype, seed=t + 1, b=b)
+            attn_err("flash", f"{what} (B {b}, T {t}, H {h}, KV {n_kv}, dh "
+                     f"{dh}, chunk {c}) {dtype}",
+                     flash_attention(*a, chunk=c), grouped_ref(*a, chunk=c))
+        for what, (b, t, sk, h, n_kv, dh, c) in CHUNK_FLASH_CASES.items():
+            a = flash_inputs(t, h, n_kv, dh, dtype, seed=t + sk + c, b=b,
+                             s=sk)
+            attn_err("flash", f"{what} {dtype}", flash_attention(*a, chunk=c),
+                     ref.flash_attention_ref(*a, chunk=c))
+        check_vjp(f"flash_attention chunked gradient (B 2, T 384, H 16, KV "
+                  f"8, dh 64, chunk 100) {dtype}",
+                  lambda *x: flash_attention(*x, chunk=100),
+                  lambda *x: ref.flash_attention_ref(*x, chunk=100),
+                  flash_inputs(384, 16, 8, 64, dtype, seed=385, b=2),
+                  (0, 1, 2), TOL[dtype])
+    return [flash_timing(what, b, t, h, n_kv, dh, chunk=c)
+            for what, (b, t, h, n_kv, dh, c) in CHUNK_FLASH.items()]
 
 
 # ----------------------------------------------------------------------
@@ -1287,8 +1427,9 @@ SERVE_CFG = ServeConfig(n_slots=8, cache_len=1024, block_steps=8,
 
 
 def layer_kinds(cfg) -> tuple:
-    """(attention layers, recurrent layers) of a model: every dense layer
-    attends, every ssm layer recurs, and the hybrid's pattern decides."""
+    """(attention layers, recurrent layers) of a model: every dense and
+    moe layer attends, every ssm layer recurs, and the hybrid's pattern
+    decides."""
     if cfg.family == "ssm":
         return 0, cfg.n_layers
     if cfg.family != "hybrid":
@@ -1326,7 +1467,9 @@ def serve_phase(cfg, params, scfg=SERVE_CFG, reqs=None, rt=None) -> dict:
     flash kernel once per attention layer and the scan once per recurrent
     layer, every decode step the decode kernel once per attention layer,
     nothing else may launch a kernel, and each block must be one replay
-    and one readback."""
+    and one readback.  Then 3 more replays of the block over the filled
+    pool (after the counted window) are timed by CUDA events: the device
+    ms of a decode step (``step_ms``)."""
     reqs = reqs or serve_requests(cfg)
     max_new = reqs[0].max_new
     log(f"serve phase: {cfg.arch_id}, {cfg.family}, {cfg.n_layers} layers, "
@@ -1384,6 +1527,15 @@ def serve_phase(cfg, params, scfg=SERVE_CFG, reqs=None, rt=None) -> dict:
     n_tok = sum(len(recs[r.rid].tokens) for r in reqs)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ttft = sorted(recs[r.rid].first_token_s for r in reqs)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(3):
+        graph.graph.replay()
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / (3 * scfg.block_steps)
+    log(f"  a replayed decode step over the filled pool: {step_ms:.3f} ms on "
+        f"the device (3 blocks of {scfg.block_steps}, CUDA events)")
     log(f"  time to first token (end of the first block that reads it "
         f"back): min {ttft[0]:.3f} s, median {ttft[len(ttft) // 2]:.3f} s, "
         f"max {ttft[-1]:.3f} s")
@@ -1397,7 +1549,7 @@ def serve_phase(cfg, params, scfg=SERVE_CFG, reqs=None, rt=None) -> dict:
     return dict(launches=launches, wall_s=wall, tokens=n_tok, stats=dict(st),
                 first=reqs[0], reqs=reqs, records=recs, peak_gib=peak,
                 capture_s=capture_s, replays=gst["replays"], scfg=scfg,
-                rt=rt, ttft=ttft)
+                rt=rt, ttft=ttft, step_ms=step_ms)
 
 
 def serve_graph_oracle_phase(cfg, params, served) -> dict:
@@ -1917,6 +2069,201 @@ def window_phases() -> dict:
                  rt=WINDOW_RT)
     del params
     gc.collect()
+    return served
+
+
+# ----------------------------------------------------------------------
+# moe phases: Llama-4-Scout at full width, 12 of its 48 layers
+SCOUT_LAYERS = 12
+SCOUT_CFG = ServeConfig(n_slots=8, cache_len=8832, block_steps=8,
+                        max_new_tokens=32)
+#: reserved device memory the moe phases accept from earlier phases
+FREE_LIMIT_GIB = 4.0
+
+
+def free_device(what: str) -> None:
+    """Drop what earlier phases left (models, engines and their captured
+    graphs' private pools), print the memory still reserved, and raise if
+    more than ``FREE_LIMIT_GIB`` is held."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    gib = 2 ** 30
+    res = torch.cuda.memory_reserved() / gib
+    log(f"before {what}: reserved {res:.3f} GiB, allocated "
+        f"{torch.cuda.memory_allocated() / gib:.3f} GiB")
+    if res > FREE_LIMIT_GIB:
+        raise AssertionError(f"{res:.3f} GiB still reserved before {what}")
+
+
+def scout_requests(cfg) -> list:
+    """8 requests x 32 new tokens: six prompts of 8,300-8,700 tokens (every
+    admission crosses the chunk boundary at 8,192, every decode step runs
+    in the second chunk beside the first one's ring entries) and two of
+    8,170-8,190 (their decode crosses position 8,192 mid-stream)."""
+    long = long_requests(cfg, 6, 8300, 8700, 32, seed=25)
+    edge = long_requests(cfg, 2, 8170, 8190, 32, seed=26)
+    return long + [dataclasses.replace(r, rid=6 + i)
+                   for i, r in enumerate(edge)]
+
+
+def expert_share_phase(cfg, params, reqs) -> None:
+    """Two admissions and one eager block of 8 decode steps under
+    ``torch.profiler`` with shapes: the device time of the expert GEMMs
+    (``aten::mm`` with a d_model x d_ff_expert weight: the routed and the
+    shared experts) in the prefills and in the decode steps, beside the
+    device time of the run.  Eager, so that the decode step's ops are seen
+    on the host (a replay hides them)."""
+    from torch.profiler import ProfilerActivity, profile
+    scfg = dataclasses.replace(SCOUT_CFG, n_slots=2, max_new_tokens=9)
+    two = [dataclasses.replace(r, max_new=9) for r in reqs[:2]]
+    eng = ServeEngine(params, cfg, scfg, device="cuda", eager=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        eng.serve(two)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    expert = {(cfg.d_model, cfg.moe.d_ff_expert),
+              (cfg.moe.d_ff_expert, cfg.d_model)}
+    by = {"prefill": 0.0, "decode": 0.0}
+    for e in prof.key_averages(group_by_input_shape=True):
+        shapes = e.input_shapes or []
+        if e.key != "aten::mm" or len(shapes) < 2 or \
+                tuple(shapes[1]) not in expert:
+            continue
+        us = getattr(e, "device_time_total", None)
+        us = e.cuda_time_total if us is None else us
+        by["decode" if shapes[0][0] <= scfg.n_slots else "prefill"] += us
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    steps = eng.stats["block_dispatches"] * scfg.block_steps
+    device_summary(prof, wall_us, f"expert share ({cfg.arch_id}, eager, "
+                   f"{len(two)} admissions, {steps} decode steps of "
+                   f"{scfg.n_slots} slots)")
+    pre, dec = by["prefill"] / 1e3, by["decode"] / 1e3
+    log(f"  expert GEMMs (routed and shared): prefill {pre:.2f} ms, decode "
+        f"{dec:.2f} ms ({dec / max(1, steps):.3f} ms a step); "
+        f"{100 * 1e3 * (pre + dec) / busy:.1f}% of the device's "
+        f"{busy / 1e3:.1f} ms busy")
+
+
+def moe_routes(params, cfg, tokens, device) -> torch.Tensor:
+    """The expert each position of ``tokens`` routes to in a 1-layer moe
+    model (top-1), from the port's own blocks over the whole sequence:
+    ``rms_norm``, ``gqa_forward`` with the config's mask, ``rms_norm``,
+    ``router_scores``."""
+    bp = tree_map(lambda t: t[0], params["blocks"])
+    kind, window = T._attn_kind(cfg, T.Runtime())
+    x = params["embed"][torch.tensor(tokens, device=device).long()][None]
+    h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+    x = x + gqa_forward(bp["attn"], h, cfg, kind=kind, window=window)
+    _, idx, _ = router_scores(bp["moe"],
+                              rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps),
+                              cfg)
+    return idx[0, :, 0].cpu()
+
+
+def prefill_kept(routes: torch.Tensor, cfg) -> torch.Tensor:
+    """Which of a prompt's positions its expert keeps in the prefill (top-1
+    routes): each expert keeps its first ``capacity`` tokens by index."""
+    m = cfg.moe
+    cap = _capacity(len(routes), m.top_k, m.num_experts, m.capacity_factor)
+    keep = torch.zeros(len(routes), dtype=torch.bool)
+    for e in range(m.num_experts):
+        keep[torch.nonzero(routes == e)[:cap, 0]] = True
+    return keep
+
+
+def moe_oracle_phase(cfg, params, req, tol=(5e-2, 1e-3),
+                     cache_len=SCOUT_CHUNK) -> None:
+    """``req`` (and 8 fed decode steps) through a 1-layer moe model on the
+    card in f32 and bf16 against the plain versions on the CPU in f32.
+    Routing is discontinuous, so the expert of every position is read
+    from the port's blocks on each side (``moe_routes``): in f32 every
+    position must route as on the CPU and the logits lie within
+    ``tol[1]`` of max |logit|; in bf16 the logits of the positions that
+    route as on the CPU (and that their expert keeps, or drops, as on the
+    CPU: a flip elsewhere can push a prefill token past its expert's
+    capacity) are held to ``tol[0]``, and the flips counted."""
+    log(f"moe oracle phase: {cfg.arch_id} ({cfg.n_layers} layer, full "
+        f"width), request {req.rid} ({len(req.tokens)} prompt tokens) + 8 "
+        f"decode steps, cache_len {cache_len}, on the card vs the plain "
+        f"versions on the CPU (f32)")
+    cfg32 = cfg.with_(dtype="float32")
+    t0 = time.perf_counter()
+    cpu_params = tree_map(lambda t: t.float().cpu(), params)
+    want, fed = run_one(cpu_params, cfg32, req.tokens, "cpu",
+                        cache_len=cache_len)
+    seq = list(req.tokens) + fed
+    want_routes = moe_routes(cpu_params, cfg32, seq, "cpu")
+    del cpu_params
+    log(f"  CPU f32 run and routes: {time.perf_counter() - t0:.1f} s")
+    n = len(req.tokens)
+    m = cfg.moe
+    cap = _capacity(n, m.top_k, m.num_experts, m.capacity_factor)
+    positions = [torch.arange(n - ORACLE_LAST, n)] + [
+        torch.tensor([n + i]) for i in range(len(fed))]
+    for name, p, c, rel in (
+            ("card f32", tree_map(lambda t: t.float(), params), cfg32, tol[1]),
+            ("card bf16", params, cfg, tol[0])):
+        got, _ = run_one(p, c, req.tokens, "cuda", feed=fed,
+                         cache_len=cache_len)
+        routes = moe_routes(p, c, seq, "cuda")
+        same = routes == want_routes
+        flips = int((~same).sum())
+        drops = prefill_kept(routes[:n], c) != prefill_kept(want_routes[:n],
+                                                            cfg32)
+        same[:n] &= ~drops
+        if c is cfg32 and flips:
+            raise AssertionError(f"{name}: {flips} positions route to "
+                                 f"another expert than on the CPU")
+        worst = 0.0
+        for i, (g, w, pos) in enumerate(zip(got, want, positions)):
+            keep = same[pos]
+            scale = w.abs().max().item()
+            err = ((g - w).abs()[keep].max().item() if keep.any() else 0.0)
+            worst = max(worst, err / scale)
+            if not err <= rel * scale:
+                what = "prefill" if i == 0 else f"decode step {i}"
+                raise AssertionError(f"{name} {what}: logits differ by {err}"
+                                     f" (max |logit| {scale})")
+        log(f"  {name}: {flips} of {len(seq)} positions routed to another "
+            f"expert than on the CPU, {int(drops.sum())} more kept or "
+            f"dropped otherwise by a capacity of {cap}"
+            f"; logits of the others within "
+            f"{worst:.3g} of max |logit| (tol {rel}) over the prefill's last "
+            f"{ORACLE_LAST} positions and {len(fed)} decode steps")
+
+
+def scout_phases() -> dict:
+    """Llama-4-Scout-17B-16E at full width, cut to 12 of its 48 layers
+    (bf16, random weights from seed 0): the serve phase (8 requests of
+    8,170-8,700 prompt tokens x 32 through 8 slots x 8,832, rings of
+    8,192), its eager oracle, a profiled run and the expert GEMMs' share;
+    then at 1 layer the CPU oracle with its routing check."""
+    t0 = time.perf_counter()
+    free_device("the moe phases")
+    cfg = get_config("llama4-scout-17b-a16e").with_(n_layers=SCOUT_LAYERS)
+    params = build_params(cfg, f"moe ({SCOUT_LAYERS} of "
+                          f"{get_config(cfg.arch_id).n_layers} layers)")
+    reqs = scout_requests(cfg)
+    served = serve_phase(cfg, params, SCOUT_CFG, reqs)
+    served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
+    trace_phase(cfg, params, SCOUT_CFG, reqs)
+    expert_share_phase(cfg, params, reqs)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = cfg.with_(n_layers=1)
+    params = build_params(small, "moe (1 layer)")
+    moe_oracle_phase(small, params, long_requests(cfg, 1, 1000, 1000, 8,
+                                                  seed=27)[0])
+    del params
+    gc.collect()
+    served["phase_s"] = time.perf_counter() - t0
+    log(f"moe phases: {served['phase_s']:.1f} s")
     return served
 
 
@@ -2902,6 +3249,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_run = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"card: {card}")
@@ -2914,6 +3262,9 @@ def main() -> int:
         f"sources at once)")
     build_report()
 
+    def stamp(what: str) -> None:
+        log(f"[{time.perf_counter() - t_run:.1f} s] {what} done")
+
     rows = {"decode_attention": decode_phase(),
             "flash_attention": flash_phase(),
             "gram": gram_phase(),
@@ -2922,6 +3273,9 @@ def main() -> int:
     rows["lora_matmul"]["timings"] += lora_nodes_phase()
     rows["flash_attention"]["timings"] += window_flash_phase()
     rows["decode_attention"]["timings"] += window_decode_phase()
+    rows["flash_attention"]["timings"] += chunk_flash_phase()
+    rows["decode_attention"]["timings"] += chunk_decode_phase()
+    stamp("kernel phases")
 
     cfg = get_config("fedmm-base")
     params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
@@ -2932,24 +3286,31 @@ def main() -> int:
     oracle_phase(cfg, params, served["first"])
     chaos = {t: chaos_phase(cfg, params, temperature=t) for t in (0.0, 0.7)}
     del params
+    stamp("fedmm-base serve, oracle and chaos phases")
 
     ssm_served = ssm_phases()
+    stamp("ssm phases")
     t_new = time.perf_counter()
     hybrid = hybrid_phases()
     windowed = window_phases()
     new_s = time.perf_counter() - t_new
+    stamp("hybrid and windowed phases")
+    scout = scout_phases()
+    stamp("moe phases")
 
     fed, rounds = federation_phase()
     federation_trace_phase(fed)
     federation_oracle_phase(fed)
     del fed
     _, rank64 = federation_phase(rounds=1, lora_rank=64, n_layers=2)
+    stamp("federation phases")
 
     efed, engine = engine_phase()
     engine_trace_phase(efed)
     del efed
     gc.collect()                      # the engine and its graphs
     engine_oracle_phase()
+    stamp("engine phases")
 
     t_part = time.perf_counter()
     pfed = part_federation()
@@ -3012,6 +3373,10 @@ def main() -> int:
                        windowed["launches"][k],
                    "windowed fedmm-base serve graph oracle (eager blocks)":
                        windowed["oracle"]["launches"][k],
+                   "moe serve, Llama-4-Scout 12 layers (replayed blocks)":
+                       scout["launches"][k],
+                   "moe serve graph oracle (eager blocks)":
+                       scout["oracle"]["launches"][k],
                    "federation": rounds["launches"][k],
                    "federation at rank 64 (2 layers)":
                        rank64["launches"][k],
@@ -3054,14 +3419,17 @@ def main() -> int:
                for k, r in rows.items()]
     for what, run in (("serve", served), ("ssm serve", ssm_served),
                       ("hybrid serve", hybrid),
-                      ("windowed fedmm-base serve", windowed)):
+                      ("windowed fedmm-base serve", windowed),
+                      ("moe serve (Llama-4-Scout, 12 of 48 layers)", scout)):
         log(f"{what}: {run['tokens'] / run['wall_s']} tokens/s replayed "
             f"(eager blocks: {run['tokens'] / run['oracle']['wall_s']}), "
             f"wall {run['wall_s']} s, capture {run['capture_s']} s, "
             f"{run['replays']} replays, peak memory {run['peak_gib']} GiB, "
             f"time to first token min / median / max {run['ttft'][0]} / "
-            f"{run['ttft'][len(run['ttft']) // 2]} / {run['ttft'][-1]} s")
-    log(f"hybrid and windowed dense phases: {new_s:.1f} s")
+            f"{run['ttft'][len(run['ttft']) // 2]} / {run['ttft'][-1]} s, "
+            f"a replayed decode step {run['step_ms']} ms")
+    log(f"hybrid and windowed dense phases: {new_s:.1f} s; moe phases "
+        f"{scout['phase_s']:.1f} s")
     log(f"federation: round wall {rounds['walls']} s; at rank 64 (2 "
         f"layers) {rank64['walls']} s")
     log(f"engine: replayed round wall {engine['walls']} s; block of 2 "
@@ -3088,6 +3456,7 @@ def main() -> int:
             f"allocated {v['memory']['peak_allocated_gib']} GiB, reserved "
             f"{v['memory']['peak_reserved_gib']} GiB")
     log(f"driver phases: {driver_s:.1f} s")
+    log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

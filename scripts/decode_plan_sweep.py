@@ -47,7 +47,7 @@ def sweep(s, c, n_kv, rep, dh, lens, chunks=(4, 8, 16, 32, 64, 128)) -> list:
             err = lib.decode_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
                 pos.data_ptr(), out.data_ptr(), part.data_ptr(), s, c, n_kv,
-                rep, dh, c, float(dh ** -0.5), 1, n_split, split_len,
+                rep, dh, c, 0, float(dh ** -0.5), 1, n_split, split_len,
                 torch.cuda.current_stream().cuda_stream)
             _build.check_launch("decode_attention", err)
             return out

@@ -9,8 +9,12 @@
 // h / rep.  Entry c of slot s is visible when
 //     kv_pos <= q_pos  and  q_pos - kv_pos < window
 // which covers causality, empty (sentinel-position) entries, padded tails
-// and ring-buffer windows in one rule.  A slot with no visible entry gets
-// exactly 0, as the Pallas kernel does.
+// and ring-buffer windows in one rule.  With chunk > 0 (llama4's chunked
+// attention; the Pallas kernel always applies the sliding rule) an entry
+// must also lie in the query's chunk, kv_pos >= q_pos - q_pos % chunk: the
+// same rule with a per-slot window of min(window, q_pos % chunk + 1),
+// computed once a block.  A slot with no visible entry gets exactly 0, as
+// the Pallas kernel does.
 //
 // What bounds it: memory.  Each output row needs the K and V of its slot's
 // visible entries for its KV head and does 4 flops per byte of bf16 K/V --
@@ -102,7 +106,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ q_pos,
                     const int* __restrict__ kv_pos, T* __restrict__ out,
                     float* __restrict__ part, int C, int KV, int rep, int window,
-                    float scale, int split_len) {
+                    int chunk, float scale, int split_len) {
   constexpr int TC = kTile<DH>;
   constexpr int VEC = kChunk<T, DH>;                   // elements per chunk of a row
   constexpr int LPC = VEC / kVec<T>;                   // 16-byte loads per chunk
@@ -130,6 +134,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ntiles = (c_end - c_begin + TC - 1) / TC;
   const int* pos = kv_pos + static_cast<size_t>(s) * C;
   const int qp = q_pos[s];
+  // the chunked rule as this slot's window: entries from its chunk's start
+  const int win = chunk > 0 && qp >= 0 ? min(window, qp % chunk + 1) : window;
   const size_t row0 = (static_cast<size_t>(s) * H + static_cast<size_t>(g) * rep) * DH;
 
   // thread tid < TC stages entry tid of each tile's mask from kv_pos it
@@ -141,7 +147,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto stage_mask = [&](int tile, int kp) {            // 1 where my entry is visible
     int ok = 0;
     if (tid < TC) {
-      ok = c_begin + tile * TC + tid < c_end && kp <= qp && qp - kp < window;
+      ok = c_begin + tile * TC + tid < c_end && kp <= qp && qp - kp < win;
       sok[tile & 1][tid] = ok;
     }
     return ok;
@@ -361,18 +367,19 @@ decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out, int K
 template <typename T, int DH, int MAXREP>
 void launch_split(const void* q, const void* k, const void* v, const void* q_pos,
                   const void* kv_pos, void* out, float* part, int S, int C, int KV,
-                  int rep, int window, float scale, int n_split, int split_len,
-                  cudaStream_t stream) {
+                  int rep, int window, int chunk, float scale, int n_split,
+                  int split_len, cudaStream_t stream) {
   decode_split_kernel<T, DH, MAXREP><<<dim3(n_split, KV, S), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos),
-      static_cast<T*>(out), part, C, KV, rep, window, scale, split_len);
+      static_cast<T*>(out), part, C, KV, rep, window, chunk, scale, split_len);
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* q_pos,
            const void* kv_pos, void* out, void* part, int S, int C, int KV, int rep,
-           int window, float scale, int n_split, int split_len, cudaStream_t stream) {
+           int window, int chunk, float scale, int n_split, int split_len,
+           cudaStream_t stream) {
   if (split_len < 1 || split_len % kTile<DH> != 0 ||
       static_cast<long long>(n_split - 1) * split_len >= C ||
       (n_split > 1) != (part != nullptr))
@@ -381,16 +388,16 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos,
   // the accumulators are registers: size them by rep
   if (rep <= 2)
     launch_split<T, DH, 2>(q, k, v, q_pos, kv_pos, out, scratch, S, C, KV, rep, window,
-                           scale, n_split, split_len, stream);
+                           chunk, scale, n_split, split_len, stream);
   else if (rep <= 4)
     launch_split<T, DH, 4>(q, k, v, q_pos, kv_pos, out, scratch, S, C, KV, rep, window,
-                           scale, n_split, split_len, stream);
+                           chunk, scale, n_split, split_len, stream);
   else if (rep <= 8)
     launch_split<T, DH, 8>(q, k, v, q_pos, kv_pos, out, scratch, S, C, KV, rep, window,
-                           scale, n_split, split_len, stream);
+                           chunk, scale, n_split, split_len, stream);
   else
     launch_split<T, DH, kMaxRep>(q, k, v, q_pos, kv_pos, out, scratch, S, C, KV, rep,
-                                 window, scale, n_split, split_len, stream);
+                                 window, chunk, scale, n_split, split_len, stream);
   if (n_split > 1)                                     // kThreads outputs a block
     decode_combine_kernel<T, DH>
         <<<dim3(KV, S, (rep * DH + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
@@ -402,19 +409,20 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos,
 
 // Returns a cudaError_t: 0 when both launches were accepted.  `part` is
 // the f32 scratch of S * KV * n_split * rep * (dh + 2) values, null when
-// n_split is 1.
+// n_split is 1.  window >= 1 (the pool length for none); chunk 0 for no
+// chunked rule.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* q_pos, const void* kv_pos, void* out,
                                        void* part, int S, int C, int KV, int rep, int dh,
-                                       int window, float scale, int is_bf16, int n_split,
-                                       int split_len, void* stream) {
+                                       int window, int chunk, float scale, int is_bf16,
+                                       int n_split, int split_len, void* stream) {
   if (rep < 1 || rep > kMaxRep || S < 1 || C < 1 || KV < 1 || S > 65535 || KV > 65535 ||
-      n_split < 1)
+      n_split < 1 || window < 1 || chunk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_DECODE_LAUNCH(T, DH)                                                    \
-  return launch<T, DH>(q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep, window, scale, \
-                       n_split, split_len, st)
+  return launch<T, DH>(q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep, window, chunk, \
+                       scale, n_split, split_len, st)
   switch (dh * 2 + (is_bf16 ? 1 : 0)) {
     case 129: REPRO_DECODE_LAUNCH(__nv_bfloat16, 64);
     case 128: REPRO_DECODE_LAUNCH(float, 64);

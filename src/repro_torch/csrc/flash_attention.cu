@@ -1,5 +1,5 @@
-// Causal or sliding-window full-sequence (prefill and training) attention
-// with an online softmax, forward only.
+// Causal, sliding-window or chunked full-sequence (prefill and training)
+// attention with an online softmax, forward only.
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_pallas
 // (`_flash_kernel`; its jnp twin blockwise_attention is what the JAX
@@ -13,12 +13,21 @@
 // window > 0 a key is also dropped once it lies window or more behind the
 // row, q + (S - T) - k < window (blockwise_attention's "sliding" kind: the
 // dense family's sliding-window variant and the hybrid family's local
-// attention).  A row with no visible key gets 0.  Key tiles above the
-// diagonal of a block's last row, and tiles wholly behind the window of
-// its first row, are never loaded; a warp skips the loaded tiles that lie
-// outside its own rows' range.  The Pallas kernel's full (non-causal) and
-// chunked masks serve the encoder and MoE families and are ported with
-// them.
+// attention).  With chunk > 0 a key is visible when it also lies in the
+// row's chunk of positions, k >= qk - qk % chunk with qk = q + (S - T)
+// (blockwise_attention's "chunked" kind: llama4's local attention; the
+// Pallas kernel has no such mask).  window and chunk exclude each other;
+// both set a first visible key per row that never decreases down the
+// rows (first_key).  A row with no visible key gets 0.  Key tiles above
+// the diagonal of a block's last row, and tiles wholly before the first
+// visible key of its first row, are never loaded; a warp skips the loaded
+// tiles that lie outside its own rows' range.  The Pallas kernel's full
+// (non-causal) mask serves the encoder family and is ported with it.
+//
+// The causal pairing of segments below balances a triangle of work, not
+// the staircase a chunked mask leaves: under a chunk a block still loads
+// every tile from its first row's chunk start, and a warp whose rows lie
+// in a later chunk skips most of them.
 //
 // What bounds it: causal attention does ~2 T^2 dh H flops on
 // ~4 T (H + KV) dh bytes of bf16 input and output, so its flops per byte
@@ -127,6 +136,15 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// the first key a row at position qk may see: past its window (window
+// > 0) and at or after the start of its chunk (chunk > 0); 0 for the
+// causal mask.  Never decreases as qk grows.
+__device__ __forceinline__ int first_key(int qk, int window, int chunk) {
+  int lo = window > 0 ? qk - window + 1 : 0;
+  if (chunk > 0 && qk > 0) lo = max(lo, qk - qk % chunk);
+  return lo;
+}
+
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -142,7 +160,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps * kMaxKS<DH>)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, int Tq,
                  int S, int H, int KV, int RQ, int HB, int KS, int window,
-                 float scale_log2) {
+                 int chunk, float scale_log2) {
   constexpr int BK = kBK<DH>;                         // keys per tile
   constexpr int NJ = BK / 8;                          // 8-key column tiles of S
   constexpr int NKC = BK / 16;                        // 16-key k-steps of P V
@@ -172,8 +190,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = blockIdx.y * HB / (H / KV);
   const int shift = S - Tq;                           // bottom-right causal alignment
   // keys past kend are masked for every row of the block, and keys before
-  // kbeg by the window of every row; past wend or before wbeg for every
-  // row of this warp (wend 0 when the warp holds no row)
+  // kbeg by the window or chunk of every row; past wend or before wbeg
+  // for every row of this warp (wend 0 when the warp holds no row)
   int first = Tq, last = -1;                          // the block's first and last row
   for (int w = 0; w < wph; ++w)
     if (segment(w) * 16 < Tq) {
@@ -181,12 +199,15 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       last = max(last, min(Tq - 1, segment(w) * 16 + 15));
     }
   const int kend = min(S, last + 1 + shift);
-  const int kbeg = window > 0 ? max(0, first + shift - window + 1) : 0;
+  const int kbeg = max(0, first_key(first + shift, window, chunk));
   const int tile0 = kbeg / BK;                        // the first tile loaded
   const int ntiles = kend > 0 ? max(0, (kend + BK - 1) / BK - tile0) : 0;
   const int nsteps = (ntiles + KS - 1) / KS;          // key group kg takes tile step * KS + kg
   const int wend = t0 < Tq ? min(S, min(t0 + 15, Tq - 1) + 1 + shift) : 0;
-  const int wbeg = window > 0 ? t0 + shift - window + 1 : 0;
+  const int wbeg = first_key(t0 + shift, window, chunk);
+  // a tile from here on (and at or below the diagonal) is whole for
+  // every row of the warp
+  const int whole_beg = first_key(t0 + 15 + shift, window, chunk);
 
   auto load_step = [&](int step) {                    // the KS tiles of one step
     const int stage = step % NS;
@@ -220,6 +241,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // Q fragments (A operand, 16 rows x DH) straight from global memory
   const int ra = t0 + gr, rb = ra + 8;                // this lane's two rows
+  const int lo[2] = {first_key(ra + shift, window, chunk),
+                     first_key(rb + shift, window, chunk)};
   uint32_t qf[QS ? 1 : KC][4];
   if constexpr (!QS) {
     const bf16* qa = q + ((static_cast<size_t>(b) * Tq + ra) * H + h) * DH + 2 * tq;
@@ -282,8 +305,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // every key of the tile visible to every row of the warp?  Else
       // mask; m is kept in units of raw scores (the scale is positive)
       float mx[2] = {-INFINITY, -INFINITY};
-      if (k0 + BK <= S && k0 + BK - 1 <= t0 + shift &&
-          (window == 0 || t0 + 15 + shift - k0 < window)) {
+      if (k0 + BK <= S && k0 + BK - 1 <= t0 + shift && k0 >= whole_beg) {
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -295,8 +317,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * j + 2 * tq + (e & 1);
             const int qk = (e < 2 ? ra : rb) + shift;   // the row's own key
-            if (key >= S || key > qk || (window > 0 && qk - key >= window))
-              sc[j][e] = -INFINITY;
+            if (key >= S || key > qk || key < lo[e >> 1]) sc[j][e] = -INFINITY;
             mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
           }
       }
@@ -404,7 +425,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DH>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Tq,
-               int S, int H, int KV, int window, float scale, cudaStream_t stream) {
+               int S, int H, int KV, int window, int chunk, float scale,
+               cudaStream_t stream) {
   static int n_sm = 0;                                // set on the first launch
   if (n_sm == 0) {
     int dev = 0;
@@ -440,7 +462,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   flash_mma_kernel<DH><<<grid, 32 * hb * (rq / 16) * ks, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, S, H, KV, rq, hb, ks,
-      window, scale * 1.4426950408889634f);
+      window, chunk, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -457,7 +479,7 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int Tq, int S,
-                 int H, int KV, int window, float scale) {
+                 int H, int KV, int window, int chunk, float scale) {
   using T = float;
   constexpr int CPT = DH / 16;                        // output columns per thread
   constexpr int VEC = kVec<T>;
@@ -507,9 +529,12 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // keys past kend are masked for every row of this tile, and keys before
-  // kbeg by the window of every row
+  // kbeg by the window or chunk of every row
   const int kend = min(S, q0 + BQ + shift);
-  const int kbeg = window > 0 ? max(0, q0 + shift - window + 1) / BK * BK : 0;
+  const int kbeg = max(0, first_key(q0 + shift, window, chunk)) / BK * BK;
+  int lo[4];                                          // my rows' first visible keys
+#pragma unroll
+  for (int i = 0; i < 4; ++i) lo[i] = first_key(q0 + ty + 16 * i + shift, window, chunk);
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();                                  // last tile's shared reads are done
 #pragma unroll
@@ -560,7 +585,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int s = k0 + tx + 16 * j;
-        ok[j] = s < S && s <= t + shift && (window == 0 || t + shift - s < window);
+        ok[j] = s < S && s <= t + shift && s >= lo[i];
         mx = fmaxf(mx, ok[j] ? sc[i][j] : kNegInf);
       }
       const float m_new = fmaxf(m[i], group_max<16>(mx));
@@ -606,7 +631,8 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH>
 int launch_fma(const void* q, const void* k, const void* v, void* out, int B, int Tq,
-               int S, int H, int KV, int window, float scale, cudaStream_t stream) {
+               int S, int H, int KV, int window, int chunk, float scale,
+               cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DH>();
   static bool attr_set = false;
   if (!attr_set) {
@@ -619,29 +645,31 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, int B, in
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fma_kernel<DH><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Tq, S, H, KV, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), Tq, S, H, KV, window, chunk,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns a cudaError_t: 0 when the launch was accepted.  window 0 is the
-// causal mask; window > 0 the sliding one.
+// Returns a cudaError_t: 0 when the launch was accepted.  window and chunk
+// 0 is the causal mask; window > 0 the sliding one, chunk > 0 the chunked
+// one (not both).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int Tq, int S, int H, int KV,
-                                      int dh, int window, float scale, int is_bf16,
-                                      void* stream) {
+                                      int dh, int window, int chunk, float scale,
+                                      int is_bf16, void* stream) {
   if (B < 1 || Tq < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535 ||
-      window < 0)
+      window < 0 || chunk < 0 || (window > 0 && chunk > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh * 2 + (is_bf16 ? 1 : 0)) {
-    case 129: return launch_mma<64>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
-    case 128: return launch_fma<64>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
-    case 257: return launch_mma<128>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
-    case 256: return launch_fma<128>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
-    case 513: return launch_mma<256>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
-    case 512: return launch_fma<256>(q, k, v, out, B, Tq, S, H, KV, window, scale, st);
+    case 129: return launch_mma<64>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
+    case 128: return launch_fma<64>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
+    case 257: return launch_mma<128>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
+    case 256: return launch_fma<128>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
+    case 513: return launch_mma<256>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
+    case 512: return launch_fma<256>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

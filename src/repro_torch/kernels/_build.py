@@ -31,13 +31,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 #: argtypes of each exported launch function, by source name
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    # q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep, dh, window, scale,
-    # is_bf16, n_split, split_len, stream
+    # q, k, v, q_pos, kv_pos, out, part, S, C, KV, rep, dh, window, chunk,
+    # scale, is_bf16, n_split, split_len, stream
     "decode_attention": {"decode_attention_launch":
-                         [_P] * 7 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
-    # q, k, v, out, B, T, S, H, KV, dh, window, scale, is_bf16, stream
+                         [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3 + [_P]},
+    # q, k, v, out, B, T, S, H, KV, dh, window, chunk, scale, is_bf16, stream
     "flash_attention": {"flash_attention_launch":
-                        [_P] * 4 + [_I] * 7 + [_F, _I, _P]},
+                        [_P] * 4 + [_I] * 8 + [_F, _I, _P]},
     # x, out, K, B, D, eps, is_bf16, n_split, d_split, stream
     "gram": {"gram_launch": [_P, _P, _I, _I, _I, _F] + [_I] * 3 + [_P]},
     # x, w, a, b, y, xa, M, K, N, r, 6 element strides, flags, bn,

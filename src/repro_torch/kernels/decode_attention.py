@@ -1,10 +1,15 @@
 """Single-token decode attention over the packed KV pool: the wrapper of
 ``csrc/decode_attention.cu`` (the port of ``decode_attention_pallas``).
 
-``decode_attention(q, k, v, q_pos, kv_pos, window=...)`` takes
+``decode_attention(q, k, v, q_pos, kv_pos, window=0, chunk=0)`` takes
 q (S, H, dh), k / v (S, C, KV, dh), q_pos (S,) and kv_pos (S, C) int32,
 with dh 64, 128 or 256 and 1..16 query heads per KV head, and returns
-(S, H, dh) in q's dtype.  A tensor on the CPU goes to the
+(S, H, dh) in q's dtype.  An entry is visible when ``kv_pos <= q_pos``
+and ``q_pos - kv_pos < window`` (0: the pool length), or with ``chunk``
+> 0 when ``kv_pos <= q_pos`` and ``kv_pos >= q_pos - q_pos % chunk``
+(llama4's chunked attention over a ring as wide as the chunk); the
+kernel turns the chunk into a per-slot window on the card, so the host
+never reads q_pos.  A tensor on the CPU goes to the
 plain version ``ref.decode_attention_ref``; a CUDA tensor launches the
 kernel or raises -- there is no fallback.
 
@@ -71,7 +76,7 @@ def split_bounds(c: int, n_split: int, split_len: int) -> list:
     return [i * split_len for i in range(n_split)] + [c]
 
 
-def _check(q, k, v, q_pos, kv_pos) -> None:
+def _check(q, k, v, q_pos, kv_pos, window: int = 0, chunk: int = 0) -> None:
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"decode_attention: want q (S, H, dh) and k, v "
                          f"(S, C, KV, dh); got {tuple(q.shape)}, "
@@ -94,6 +99,9 @@ def _check(q, k, v, q_pos, kv_pos) -> None:
                         f"{_DTYPES}; got {q.dtype}, {k.dtype}, {v.dtype}")
     if q_pos.dtype != torch.int32 or kv_pos.dtype != torch.int32:
         raise TypeError("decode_attention: q_pos and kv_pos must be int32")
+    if window < 0 or chunk < 0 or (window and chunk):
+        raise ValueError(f"decode_attention: window {window} and chunk "
+                         f"{chunk} must be >= 0 and not both set")
     for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
                     ("kv_pos", kv_pos)):
         if t.device != q.device:
@@ -110,16 +118,17 @@ def _check(q, k, v, q_pos, kv_pos) -> None:
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0, chunk: int = 0) -> torch.Tensor:
     """Masked single-token attention with scores scaled by dh^-0.5; see
     the module docstring.  ``window`` 0 means un-windowed (masked as
-    window = C)."""
+    window = C); ``chunk`` 0 means no chunked rule."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, q_pos, kv_pos, window=window)
+        return decode_attention_ref(q, k, v, q_pos, kv_pos, window=window,
+                                    chunk=chunk)
     if q.device.type != "cuda" or q.device.index not in (None, 0):
         raise ValueError(f"decode_attention: no kernel for {q.device} (the "
                          f"kernels launch on cuda:0)")
-    _check(q, k, v, q_pos, kv_pos)
+    _check(q, k, v, q_pos, kv_pos, window, chunk)
     s_slots, h, dh = q.shape
     c, n_kv = k.shape[1], k.shape[2]
     rep = h // n_kv
@@ -134,7 +143,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         kv_pos.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), s_slots, c, n_kv, rep, dh,
-        window or c, float(dh ** -0.5), int(q.dtype == torch.bfloat16),
+        window or c, chunk, float(dh ** -0.5), int(q.dtype == torch.bfloat16),
         n_split, split_len, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("decode_attention", err)
     decode_attention.launches += 1

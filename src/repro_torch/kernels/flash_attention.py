@@ -2,7 +2,7 @@
 ``csrc/flash_attention.cu`` (the port of ``flash_attention_pallas``), with
 its gradient.
 
-``flash_attention(q, k, v, window=0)`` takes the layout
+``flash_attention(q, k, v, window=0, chunk=0)`` takes the layout
 ``blockwise_attention`` uses -- q (B, T, H, dh), k / v (B, S, KV, dh),
 query head h reading KV head h // (H // KV), dh 64, 128 or 256 -- and
 returns (B, T, H, dh) in q's dtype.  The mask is causal, aligned
@@ -10,14 +10,17 @@ bottom-right (``k <= q + (S - T)``); with ``window`` > 0 it is
 ``blockwise_attention``'s sliding kind, which also drops a key that lies
 ``window`` or more behind the query (``q + (S - T) - k < window``): the
 dense family's sliding-window variant and the hybrid family's local
-attention.  Scores are scaled by dh^-0.5.  The full (non-causal) and
-chunked masks of the Pallas kernel serve the encoder and MoE families and
-come with them.
+attention.  With ``chunk`` > 0 it is the chunked kind (llama4's local
+attention, the MoE family's Llama-4-Scout): a key is visible when it is
+causal and lies in the query's chunk of positions, ``k >= qa - qa %
+chunk`` with ``qa = q + (S - T)``; ``window`` and ``chunk`` exclude each
+other.  Scores are scaled by dh^-0.5.  The full (non-causal) mask of the
+Pallas kernel serves the encoder family and comes with it.
 
 It is a ``torch.autograd.Function``, for the federated round's local
 steps.  The Pallas kernel has no backward, so the backward is plain
 PyTorch by design: it recomputes the attention through
-``ref.flash_attention_ref`` (with the same window) under autograd and takes the exact gradient
+``ref.flash_attention_ref`` (with the same mask) under autograd and takes the exact gradient
 of that (a hand-written backward kernel is queued in ROADMAP.md).
 
 A tensor on the CPU goes to the plain version ``ref.flash_attention_ref``;
@@ -38,7 +41,7 @@ _DTYPES = (torch.bfloat16, torch.float32)
 HEAD_DIMS = (64, 128, 256)
 
 
-def _check(q, k, v, window: int) -> None:
+def _check(q, k, v, window: int, chunk: int = 0) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: want q (B, T, H, dh) and k, v "
                          f"(B, S, KV, dh); got {tuple(q.shape)}, "
@@ -51,9 +54,13 @@ def _check(q, k, v, window: int) -> None:
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes dh 64, 128 or 256; "
                          f"got {dh}")
-    if not isinstance(window, int) or window < 0:
-        raise ValueError(f"flash_attention: window must be an int >= 0 "
-                         f"(0: causal); got {window!r}")
+    for name, n in (("window", window), ("chunk", chunk)):
+        if not isinstance(n, int) or n < 0:
+            raise ValueError(f"flash_attention: {name} must be an int >= 0 "
+                             f"(0: none); got {n!r}")
+    if window and chunk:
+        raise ValueError(f"flash_attention: window {window} and chunk "
+                         f"{chunk} exclude each other")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share one dtype of "
                         f"{_DTYPES}; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -68,20 +75,21 @@ def _check(q, k, v, window: int) -> None:
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             window: int) -> torch.Tensor:
+             window: int, chunk: int) -> torch.Tensor:
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, window=window)
+        return flash_attention_ref(q, k, v, window=window, chunk=chunk)
     if q.device.type != "cuda" or q.device.index not in (None, 0):
         raise ValueError(f"flash_attention: no kernel for {q.device} (the "
                          f"kernels launch on cuda:0)")
-    _check(q, k, v, window)
+    _check(q, k, v, window, chunk)
     b, t, h, dh = q.shape
     s, n_kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, s, h,
-        n_kv, dh, window, float(dh ** -0.5), int(q.dtype == torch.bfloat16),
+        n_kv, dh, window, chunk, float(dh ** -0.5),
+        int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attention", err)
     flash_attention.launches += 1
@@ -90,24 +98,25 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, window):
+    def forward(ctx, q, k, v, window, chunk):
         ctx.save_for_backward(q, k, v)
-        ctx.window = window
-        return _forward(q, k, v, window)
+        ctx.window, ctx.chunk = window, chunk
+        return _forward(q, k, v, window, chunk)
 
     @staticmethod
     def backward(ctx, dout):
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = flash_attention_ref(*leaves, window=ctx.window)
-        return (*torch.autograd.grad(out, leaves, dout), None)
+            out = flash_attention_ref(*leaves, window=ctx.window,
+                                      chunk=ctx.chunk)
+        return (*torch.autograd.grad(out, leaves, dout), None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
-    """Causal (``window`` 0) or sliding-window online-softmax attention,
-    differentiable; see the module docstring."""
-    return _FlashAttention.apply(q, k, v, window)
+                    window: int = 0, chunk: int = 0) -> torch.Tensor:
+    """Causal (``window`` and ``chunk`` 0), sliding-window or chunked
+    online-softmax attention, differentiable; see the module docstring."""
+    return _FlashAttention.apply(q, k, v, window, chunk)
 
 
 flash_attention.launches = 0

@@ -17,7 +17,13 @@ which the CUDA kernels share:
   mask is causal, aligned bottom-right (``k <= q + (S - T)``) as in the
   JAX oracle (with S == T, as in prefill, that is the Pallas rule too),
   or with ``window`` > 0 the oracle's sliding kind aligned the same way,
-  ``k <= q + (S - T)`` and ``q + (S - T) - k < window``.
+  ``k <= q + (S - T)`` and ``q + (S - T) - k < window``, or with
+  ``chunk`` > 0 its chunked kind (llama4's local attention), ``k <= q +
+  (S - T)`` and ``(q + (S - T)) // chunk == k // chunk``.
+
+``window`` and ``chunk`` exclude each other.  Both attention versions
+read absolute positions for the chunked rule: ``q + (S - T)`` and the
+key index for flash, ``q_pos`` and ``kv_pos`` for decode.
 
 Attention scores (scaled by dh^-0.5), softmax and the weighted sum run in
 float32; the result is cast back to the input dtype.  The scan runs in
@@ -41,13 +47,27 @@ def _masked_softmax_av(sc: torch.Tensor, ok: torch.Tensor, v_eq: str,
     return torch.einsum(v_eq, p / l.clamp_min(1e-30), v.float())
 
 
+def _chunk_start(pos: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The first position of ``pos``'s chunk (positions >= 0)."""
+    return pos - pos % chunk
+
+
+def _check_mask(window: int, chunk: int) -> None:
+    if window and chunk:
+        raise ValueError(f"window {window} and chunk {chunk}: the sliding "
+                         f"and chunked masks exclude each other")
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
-                         window: int = 0) -> torch.Tensor:
+                         window: int = 0, chunk: int = 0) -> torch.Tensor:
     """Single-token decode attention over the packed KV pool.
     q: (S, H, dh); k, v: (S, C, KV, dh); q_pos: (S,); kv_pos: (S, C).
     Entry c of slot s is visible when
-    ``kv_pos <= q_pos and q_pos - kv_pos < window`` (window 0 means C)."""
+    ``kv_pos <= q_pos and q_pos - kv_pos < window`` (window 0 means C),
+    and with ``chunk`` > 0 when ``kv_pos <= q_pos`` and both lie in one
+    chunk, ``kv_pos >= q_pos - q_pos % chunk``."""
+    _check_mask(window, chunk)
     s_slots, h, dh = q.shape
     c, n_kv = k.shape[1], k.shape[2]
     rep = h // n_kv
@@ -57,15 +77,18 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qp = q_pos.to(torch.int64)[:, None, None, None]
     kp = kv_pos.to(torch.int64)[:, None, None, :]
     ok = (kp <= qp) & (qp - kp < window)
+    if chunk:
+        ok = ok & (kp >= _chunk_start(qp, chunk))
     out = _masked_softmax_av(sc, ok, "bgrc,bcgd->bgrd", v)
     return out.reshape(s_slots, h, dh).to(q.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, window: int = 0) -> torch.Tensor:
-    """Causal (``window`` 0) or sliding-window full-sequence attention.
-    q: (B, T, H, dh); k, v: (B, S, KV, dh) with H = KV * rep.  Returns
-    (B, T, H, dh)."""
+                        *, window: int = 0, chunk: int = 0) -> torch.Tensor:
+    """Causal (``window`` and ``chunk`` 0), sliding-window or chunked
+    full-sequence attention.  q: (B, T, H, dh); k, v: (B, S, KV, dh) with
+    H = KV * rep.  Returns (B, T, H, dh)."""
+    _check_mask(window, chunk)
     b, t, h, dh = q.shape
     s, n_kv = k.shape[1], k.shape[2]
     rep = h // n_kv
@@ -73,9 +96,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sc = torch.einsum("btgrd,bsgd->bgrts", qg, k.float())
     qi = torch.arange(t, device=q.device)[:, None]
     ki = torch.arange(s, device=q.device)[None, :]
-    ok = ki <= qi + (s - t)
+    qa = qi + (s - t)                          # the query's position
+    ok = ki <= qa
     if window:
-        ok = ok & (qi + (s - t) - ki < window)
+        ok = ok & (qa - ki < window)
+    if chunk:
+        ok = ok & (ki >= _chunk_start(qa, chunk))
     ok = ok.expand(b, n_kv, rep, t, s)
     out = _masked_softmax_av(sc, ok, "bgrts,bsgd->btgrd", v)
     return out.reshape(b, t, h, dh).to(q.dtype)

@@ -1,5 +1,5 @@
-"""The homogeneous transformer, dense, ssm and hybrid families: init, the
-training forward, prefill and slot decode.
+"""The homogeneous transformer, dense, moe, ssm and hybrid families: init,
+the training forward, prefill and slot decode.
 
 Ports ``Runtime`` (its ``window_override`` field), ``init_params``,
 ``_embed_inputs``, ``forward`` (``_forward_impl``), ``prefill``,
@@ -10,8 +10,14 @@ loop where JAX scans.
 
 - dense: pre-norm GQA attention and SwiGLU, the layer axis L stacked
   first.  The mask is causal, or sliding under ``cfg.sliding_window`` or
-  ``Runtime(window_override=)`` (the family's sliding-window variant);
-  the decode cache is then a ring of the window's width.
+  ``Runtime(window_override=)`` (the family's sliding-window variant), or
+  chunked under ``cfg.attention_chunk`` (llama4); the decode cache is
+  then a ring of the window's or chunk's width.
+- moe (Llama-4-Scout): the dense block with the MoE FFN of
+  ``models/moe.py`` (capacity routing over the routed experts, plus the
+  shared expert) in place of the SwiGLU; ``forward`` returns the
+  router's ``load_balance`` and ``router_z``, each the mean over the
+  layers (0 for the other families, as in the reference).
 - ssm (Falcon-Mamba): one pre-norm Mamba mixer a layer, whose cache is its
   recurrent state.
 - hybrid (RecurrentGemma): ``groups`` stacks the repeated block pattern
@@ -20,7 +26,7 @@ loop where JAX scans.
   SwiGLU, an attention block pre-norm local (sliding, width
   ``cfg.rglru.local_window``) GQA and SwiGLU, its cache a ring.
 
-The other families (moe, vlm, audio), MLA, chunked attention and the
+The other families (vlm, audio), MLA (DeepSeek-V2's moe) and the
 single-position ``decode_step`` are later slices and raise
 ``NotImplementedError``.
 """
@@ -34,6 +40,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import rglru
 from repro_torch.models import ssm
 from repro_torch.models.common import (linear, make_linear, make_rms_norm,
@@ -71,14 +78,12 @@ def _attn_kind(cfg: ModelConfig, rt: Runtime) -> Tuple[str, int]:
 
 def _check_supported(cfg: ModelConfig, rt: Optional[Runtime]) -> Runtime:
     """Raise on what the port does not run yet; returns the runtime."""
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.mla is not None:
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or cfg.mla is not None):
         raise NotImplementedError(
             f"family {cfg.family!r}{' with MLA' if cfg.mla else ''}: the "
-            f"port runs the dense, ssm and hybrid families; the others come "
-            f"in later slices")
-    if cfg.attention_chunk:
-        raise NotImplementedError(
-            "chunked attention comes in a later slice")
+            f"port runs the dense, moe (without MLA), ssm and hybrid "
+            f"families; the others come in later slices")
     return rt or _RT
 
 
@@ -99,11 +104,17 @@ def _hybrid_shape(cfg: ModelConfig) -> Tuple[tuple, int, int]:
 # ======================================================================
 # init
 def _dense_block(gen, cfg: ModelConfig, dtype, batch, dev) -> dict:
+    """Pre-norm attention and FFN: the MoE FFN for the moe family, else a
+    SwiGLU."""
     d, kw = cfg.d_model, dict(batch=batch, device=dev)
-    return {"ln1": make_rms_norm(d, dtype, **kw),
-            "attn": attn.make_gqa(gen, cfg, dtype, **kw),
-            "ln2": make_rms_norm(d, dtype, **kw),
-            "mlp": make_swiglu(gen, d, cfg.d_ff, dtype, **kw)}
+    p = {"ln1": make_rms_norm(d, dtype, **kw),
+         "attn": attn.make_gqa(gen, cfg, dtype, **kw),
+         "ln2": make_rms_norm(d, dtype, **kw)}
+    if cfg.family == "moe":
+        p["moe"] = moe.make_moe(gen, cfg, dtype, **kw)
+    else:
+        p["mlp"] = make_swiglu(gen, d, cfg.d_ff, dtype, **kw)
+    return p
 
 
 def _rec_block(gen, cfg: ModelConfig, dtype, batch, dev) -> dict:
@@ -164,16 +175,26 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
     return x, positions
 
 
+def _ffn(bp: dict, h: torch.Tensor, cfg: ModelConfig):
+    """The block's FFN on its normed stream: (y, (load_balance, router_z))
+    for an MoE block, (y, None) for a SwiGLU."""
+    if "moe" in bp:
+        y, aux = moe.moe_ffn(bp["moe"], h, cfg)
+        return y, (aux["load_balance"], aux["router_z"])
+    return swiglu(bp["mlp"], h), None
+
+
 def _attn_block(bp: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, kind: str, window: int, collect: bool):
-    """Pre-norm GQA attention and SwiGLU; returns (x, rope'd K/V or None)."""
+    """Pre-norm GQA attention and the FFN (SwiGLU or MoE); returns (x,
+    rope'd K/V or None, the router's aux values or None)."""
     h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
     h = attn.gqa_forward(bp["attn"], h, cfg, kind=kind, window=window,
                          positions=positions, return_kv=collect)
     h, kv = h if collect else (h, None)
     x = x + h
-    h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
-    return x + swiglu(bp["mlp"], h), kv
+    h, aux = _ffn(bp, rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps), cfg)
+    return x + h, kv, aux
 
 
 def _rec_body(bp: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -201,19 +222,20 @@ def _hybrid_stack(params: dict, cfg: ModelConfig) -> list:
 def _run_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig, rt: Runtime, collect: bool = False):
     """The decoder stack over the full sequence (a Python loop where JAX
-    scans).  Returns the residual stream and, when ``collect``, each
-    layer's cache entry in execution order: rope'd K/V (attention) or the
-    final recurrent state (ssm, RG-LRU)."""
-    caches = []
+    scans).  Returns the residual stream, when ``collect`` each layer's
+    cache entry in execution order -- rope'd K/V (attention) or the final
+    recurrent state (ssm, RG-LRU) -- and each MoE layer's router aux
+    values (load_balance, router_z)."""
+    caches, auxes = [], []
     if cfg.family == "hybrid":
         for kind, bp, _ in _hybrid_stack(params, cfg):
             if kind == "recurrent":
                 x, c = _rec_body(bp, x, cfg)
             else:
-                x, c = _attn_block(bp, x, positions, cfg, "sliding",
-                                   cfg.rglru.local_window, collect)
+                x, c, _ = _attn_block(bp, x, positions, cfg, "sliding",
+                                      cfg.rglru.local_window, collect)
             caches.append(c)
-        return x, caches
+        return x, caches, auxes
     kind, window = _attn_kind(cfg, rt)
     for bp in _layers(params["blocks"], cfg.n_layers):
         if cfg.family == "ssm":
@@ -221,9 +243,12 @@ def _run_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
             h, c = ssm.mamba_forward(bp["mixer"], h, cfg)
             x = x + h
         else:
-            x, c = _attn_block(bp, x, positions, cfg, kind, window, collect)
+            x, c, aux = _attn_block(bp, x, positions, cfg, kind, window,
+                                    collect)
+            if aux is not None:
+                auxes.append(aux)
         caches.append(c)
-    return x, caches
+    return x, caches, auxes
 
 
 def _head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -244,19 +269,26 @@ def pooled(params: dict, batch: dict, cfg: ModelConfig, *,
     (B, d_model) in the model dtype."""
     rt = _check_supported(cfg, rt)
     x, positions = _embed_inputs(params, batch, cfg)
-    x, _ = _run_stack(params, x, positions, cfg, rt)
+    x, _, _ = _run_stack(params, x, positions, cfg, rt)
     return mean_pool(_final(params, x, cfg))
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *,
             rt: Optional[Runtime] = None) -> Tuple[torch.Tensor, dict]:
-    """Full-sequence forward -> (logits (B, S, V), {"pooled": (B, d)}).
+    """Full-sequence forward -> (logits (B, S, V), aux): ``aux["pooled"]``
+    (B, d) and the router's f32 scalars ``load_balance`` and ``router_z``,
+    each the mean over the MoE layers (0 for the other families).
     ``batch`` holds ``tokens`` or the adapter path's ``inputs_embeds``."""
     rt = _check_supported(cfg, rt)
     x, positions = _embed_inputs(params, batch, cfg)
-    x, _ = _run_stack(params, x, positions, cfg, rt)
+    x, _, auxes = _run_stack(params, x, positions, cfg, rt)
     x = _final(params, x, cfg)
-    return _head(params, x, cfg), {"pooled": mean_pool(x)}
+    if auxes:
+        lb, rz = (torch.stack(a).mean() for a in zip(*auxes))
+    else:
+        lb = rz = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, x, cfg), {"load_balance": lb, "router_z": rz,
+                                   "pooled": mean_pool(x)}
 
 
 # ======================================================================
@@ -297,10 +329,11 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
             rt: Optional[Runtime] = None) -> Tuple[torch.Tensor, dict]:
     """Forward over the prompt, then pack the per-layer caches for decode.
     Returns full-sequence logits (B, S, V) and the cache: for the dense
-    family the rope'd K/V with room for ``cache_len`` positions (default
-    S + 1024), ``{"k", "v": (L, B, C, KV, dh), "pos": (L, B, C), "len":
-    ()}``, empty entries at the position sentinel -- under a sliding
-    window a ring of the window's width (``cache_len`` is then not read);
+    and moe families the rope'd K/V with room for ``cache_len`` positions
+    (default S + 1024), ``{"k", "v": (L, B, C, KV, dh), "pos": (L, B, C),
+    "len": ()}``, empty entries at the position sentinel -- under a
+    sliding window or a chunk a ring of its width (``cache_len`` is then
+    not read);
     for the ssm family the stacked final states ``{"h": (L, B, d_inner, N)
     f32, "conv": (L, B, K - 1, d_inner), "len": ()}``; for the hybrid
     family ``{"groups": {"b{i}": ...}, "tail": [...], "len": ()}``, each
@@ -309,7 +342,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
     over the groups (leading axis) under ``groups``."""
     rt = _check_supported(cfg, rt)
     x, positions = _embed_inputs(params, batch, cfg)
-    x, caches = _run_stack(params, x, positions, cfg, rt, collect=True)
+    x, caches, _ = _run_stack(params, x, positions, cfg, rt, collect=True)
     logits = _head(params, _final(params, x, cfg), cfg)
 
     b, s = x.shape[:2]
@@ -319,7 +352,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
                         "conv": torch.stack([st["conv"] for st in caches]),
                         "len": length}
     target = max(cache_len if cache_len is not None else s + 1024, s)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         cache = _pack_kv([kv["k"] for kv in caches],
                          [kv["v"] for kv in caches], positions,
                          _attn_kind(cfg, rt)[1], target)
@@ -375,9 +408,9 @@ def _empty_block_cache(cfg: ModelConfig, kind: str, n: Optional[int],
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
                *, rt: Optional[Runtime] = None) -> dict:
     """An empty decode cache for ``batch`` sequences (default ``cuda``), as
-    ``prefill`` shapes it: for the dense family a linear buffer of
-    ``cache_len`` or, under a sliding window, a ring of min(cache_len,
-    window); for the ssm family zero states; for the hybrid family zero
+    ``prefill`` shapes it: for the dense and moe families a linear buffer
+    of ``cache_len`` or, under a sliding window or a chunk, a ring of
+    min(cache_len, its width); for the ssm family zero states; for the hybrid family zero
     RG-LRU states and rings of min(cache_len, local_window)."""
     rt = _check_supported(cfg, rt)
     dev = resolve_device(device)
@@ -435,8 +468,8 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
         h, _ = attn.gqa_decode_slots(bp["attn"], h, lc, cfg, kind=kind,
                                      window=window)
         x = x + h
-        h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
-        return x + swiglu(bp["mlp"], h)
+        h, _ = _ffn(bp, rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps), cfg)
+        return x + h
 
     if cfg.family == "hybrid":
         for kind, bp, where in _hybrid_stack(params, cfg):

@@ -1,8 +1,8 @@
 """Continuous-batching decode engine over a slot-stacked cache pool.
 
 The port of ``repro.serve.engine.ServeEngine`` for the dense (with its
-sliding-window variant, ``rt=Runtime(window_override=)``), ssm and hybrid
-families:
+sliding-window variant, ``rt=Runtime(window_override=)``), moe
+(Llama-4-Scout: MoE FFN, chunked attention), ssm and hybrid families:
 
   - the S request slots live in ONE device-resident cache pool
     (``serve.pool``) with per-slot positions, ``active`` / ``stopped``
@@ -43,9 +43,11 @@ prompt lengths vary.  ``ServeEngine(..., eager=True)`` runs the same
 block without the graph (the replay's oracle); on the CPU the block
 always runs eagerly (the tests' path).  A capture that fails raises.
 
-For the dense family every decode step launches the decode-attention
-kernel once per layer and every admission the flash kernel once per
-layer; for the ssm family every admission launches the selective-scan
+For the dense and moe families every decode step launches the
+decode-attention kernel once per layer and every admission the flash
+kernel once per layer (the moe family's experts are ``torch.matmul``
+products, as in the reference, and launch no kernel of the port); for
+the ssm family every admission launches the selective-scan
 kernel once per layer, and a decode step's O(1) state update is plain
 PyTorch; for the hybrid family every admission launches the flash kernel
 once per attention block and the scan once per recurrent block, and every
@@ -128,7 +130,8 @@ def _sample(logits: torch.Tensor, temperature: float,
 
 
 class ServeEngine:
-    """Continuous-batching engine for the dense, ssm and hybrid families.
+    """Continuous-batching engine for the dense, moe, ssm and hybrid
+    families.
 
     Usage::
 
@@ -358,7 +361,7 @@ class ServeEngine:
         if req.extras:
             raise NotImplementedError(
                 f"request {req.rid} carries modality extras: the port "
-                f"serves the token families (dense, ssm, hybrid) only")
+                f"serves the token families (dense, moe, ssm, hybrid) only")
         # the reference's rule: a recurrent state has no length and a ring
         # overwrites itself, so ssm and a configured sliding window have
         # no cache-length limit

@@ -210,22 +210,50 @@ def test_bf16_prefill_and_decode_close(tiny):
 
 
 @pytest.mark.parametrize("arch,over", [
-    ("mistral-nemo-12b", {"sliding_window": 64, "attention_chunk": 64}),
-    ("mistral-nemo-12b", {"attention_chunk": 64}),
-    ("recurrentgemma-9b", {"attention_chunk": 64}),
     ("deepseek-v2-236b", {}), ("phi-3-vision-4.2b", {}),
-    ("llama4-scout-17b-a16e", {}), ("whisper-large-v3", {})])
+    ("whisper-large-v3", {}),
+    ("llama4-scout-17b-a16e", {"mla": get_config("deepseek-v2-236b").mla})])
 def test_later_slices_raise(arch, over):
-    """Chunked attention, the moe, vlm and audio families and MLA are not
-    ported yet: the port refuses them instead of computing something
-    else (sliding windows and the hybrid family are served since slice
-    11, and ``tests/test_torch_hybrid.py`` holds them against JAX)."""
+    """The vlm and audio families and MLA (DeepSeek-V2's moe, or any moe
+    model given MLA) are not ported yet: the port refuses them instead of
+    computing something else (sliding windows and the hybrid family are
+    served since slice 11, the moe family and chunked attention since
+    slice 13: ``tests/test_torch_hybrid.py`` and
+    ``tests/test_torch_chunked.py`` hold them against JAX)."""
     from repro_torch.configs import reduced
     cfg = reduced(get_config(arch)).with_(**over)
     with pytest.raises(NotImplementedError):
         TT.init_params(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         TT.init_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("mistral-nemo-12b", {"sliding_window": 64, "attention_chunk": 64}),
+    ("mistral-nemo-12b", {"attention_chunk": 64}),
+    ("recurrentgemma-9b", {"attention_chunk": 64}),
+    ("llama4-scout-17b-a16e", {})])
+def test_chunk_and_moe_configs_build_like_jax(arch, over):
+    """Configs the port refused before slice 13 -- a chunk on the dense
+    family (with and without a sliding window, which wins, as in
+    ``_attn_kind``), on the hybrid (whose local attention ignores it), and
+    the moe family -- now give the reference's parameter and cache trees:
+    keys, shapes and dtypes."""
+    from repro.configs import reduced as jreduced
+    from repro_torch.configs import reduced
+    cfg = reduced(get_config(arch)).with_(**over)
+    jcfg = jreduced(jget_config(arch)).with_(**over)
+
+    def spec(tree):
+        return {jax.tree_util.keystr(p): (tuple(x.shape), str(x.dtype))
+                for p, x in jax.tree_util.tree_leaves_with_path(tree)}
+    want = spec(jax.eval_shape(lambda: JT.init_params(jax.random.PRNGKey(0),
+                                                      jcfg)))
+    assert spec(bridge.params_to_numpy(
+        TT.init_params(0, cfg, device="cpu"))) == want
+    assert spec(bridge.params_to_numpy(
+        TT.init_cache(cfg, 1, 8, device="cpu"))) == \
+        spec(jax.eval_shape(lambda: JT.init_cache(jcfg, 1, 8)))
 
 
 def test_config_copy_matches_jax_registry():
