@@ -47,7 +47,15 @@ non-zero and prints no result):
    and a chunked gradient; decode over Scout's ring (S 8, C 8,192, KV 8,
    rep 5, dh 128, slots at positions 8,100, 8,191, 8,192 -- which must
    get its own V -- 8,500, 0, empty, 4,999 and 16,400) at chunk 8,192
-   and 1,000.  Each is timed, in bf16 at each path's
+   and 1,000.  DeepSeek-V2's MLA: flash at q.k 192 / v 128
+   (its prefill B 1, T 4,096, H 128, KV 128, the plain version by head
+   groups; ragged T 300, T 100 against S 300, B 2 at rep 4, T 1, a
+   gradient; (192, 192) refused) and the absorbed-MLA decode kernel
+   ``mla_decode`` over its pool (S 8, C 4,352, H 128, latent 512 + rope
+   64; slots at lens 0, 1, 511, 1,000, 2,049, 4,095, C - 1 and C, where
+   every entry is visible), S 1 at C 1, C 1,000 (no whole tiles), H 16, a
+   CUDA-graph replay bit for bit its eager call, H 24 and a 256-wide
+   latent refused.  Each is timed, in bf16 at each path's
    shapes (the scan in f32, as the prefill gives it), beside its
    plain version, its bound and a PyTorch yardstick the port never
    calls: one call where one computes the same function (SDPA, with a
@@ -128,7 +136,19 @@ non-zero and prints no result):
    position to the CPU's expert (read from ``rms_norm``, ``gqa_forward``
    and ``router_scores`` on both sides) and meet 1e-3 of max |logit|;
    its bf16 run is held to 5e-2 at the positions that route (and keep or
-   drop) as on the CPU, and the flips are printed;
+   drop) as on the CPU, and the flips are printed.  Then MLA, after the
+   same freeing: ``ServeEngine`` on deepseek-v2-236b at full width cut
+   to 7 of its 60 layers (d_model 5,120, 128 heads, q_lora 1,536,
+   kv_lora 512, rope 64, nope 128, v 128, 160 routed experts top-6 + 2
+   shared of d_ff 1,536, vocab 102,400; bf16, random weights from seed
+   0, 53.75 GiB; the cut printed) serves 8 requests of 1,000-4,200
+   prompt tokens x 32 through 8 slots x 4,352, M = 8: exactly 7 flash
+   launches (at (192, 128)) per admission and 7 ``mla_decode`` launches
+   per decode step, no decode-attention launch, the eager stream
+   token-identical, the capture's seconds, a profiled run; at 1 layer
+   the same CPU oracle on ~1,000 tokens (top-6 of 160: an f32 flip of
+   a near-tie is allowed and held like bf16's, flips printed with the
+   CPU router's margins);
 9. federation: ``SequentialFederation`` on fedmm-small at full width
    (12 layers, bf16, geodora, precision aggregation, the default 4 nodes
    x 10 local steps, batch 32 x 16 tokens, rank 8) runs 2 rounds; each
@@ -211,7 +231,7 @@ Peak device memory (allocated and reserved) is printed after each
 federation phase and after each capture, with what the capture added to
 the reserved memory.  Launch counters are set to 0 just before each path
 (serve, its eager oracle, chaos, ssm serve and its oracle, the hybrid,
-windowed and moe serves and their oracles, the hybrid freeze runs,
+windowed, moe and MLA serves and their oracles, the hybrid freeze runs,
 federation, engine, each participation round and block, each
 checkpointed run, each driver run) and read
 just after; the kernel checks' own launches never count.  A graph
@@ -260,13 +280,16 @@ from repro_torch.kernels.gram import (  # noqa: E402
     cosine_gram, gram_plan, n_blocks as gram_blocks)
 from repro_torch.kernels.lora_matmul import (  # noqa: E402
     _apply as lora_apply, lora_matmul, n_blocks as lora_blocks, tile_plan)
+from repro_torch.kernels.mla_decode import (  # noqa: E402
+    mla_decode, split_plan as mla_split_plan)
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     LANES, fold_steps, scan_plan, selective_scan)
 from repro_torch.graphs import COUNTED  # noqa: E402
 from repro_torch.graphs import capture as capture_graph  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.attention import gqa_forward  # noqa: E402
+from repro_torch.models.attention import (  # noqa: E402
+    gqa_forward, mla_forward)
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.models.moe import _capacity, router_scores  # noqa: E402
 from repro_torch.serve import (FaultPlan, ServeConfig,  # noqa: E402
@@ -288,7 +311,8 @@ TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 #: by the output's rounding; flash rounds P to bf16 for its P.V product,
 #: so an output near 0 summed from terms near 1 is off by a few 1e-3
 #: (the log prints each check's worst element as a share of its limit)
-ATTN_BF16 = {"decode": (2 ** -6, 1e-3), "flash": (2 ** -5, 5e-3)}
+ATTN_BF16 = {"decode": (2 ** -6, 1e-3), "flash": (2 ** -5, 5e-3),
+             "mla_decode": (2 ** -5, 5e-3)}
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -438,9 +462,11 @@ def decode_inputs(s, c, n_kv, rep, dh, lens, dtype, window=0, seed=0):
 
 
 def attn_err(kernel: str, name: str, got, want) -> float:
-    """max |got - want| of the ``kernel`` ("flash" or "decode") attention
-    kernel against its plain version, held to ``TOL`` and, in bf16, to
-    ``ATTN_BF16[kernel]`` element by element; raises past either."""
+    """max |got - want| of the ``kernel`` ("flash", "decode" or
+    "mla_decode") attention kernel against its plain version, held to
+    ``TOL`` and, in bf16, to ``ATTN_BF16[kernel]`` element by element
+    (mla_decode rounds P to bf16 for its P.V product, as flash does);
+    raises past either."""
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     err, tol = diff.max().item(), TOL[got.dtype]
@@ -451,7 +477,7 @@ def attn_err(kernel: str, name: str, got, want) -> float:
         ok &= scaled <= 1.0
         note += (f"; elementwise {scaled:.3g} of {atol} + {rtol} |want|, "
                  f"want rms {want.float().square().mean().sqrt():.3g}")
-    name = f"{kernel}_attention {name}"
+    name = f"{kernel}{'' if kernel == 'mla_decode' else '_attention'} {name}"
     log(f"  {name}: max_abs_err {err:.3g} ({note})")
     if not ok:
         raise AssertionError(f"{name}: max_abs_err {err} ({note})")
@@ -672,12 +698,12 @@ def chunk_decode_phase() -> list:
 
 # ----------------------------------------------------------------------
 # kernel phase: flash attention
-def flash_inputs(t, h, n_kv, dh, dtype, seed=0, b=1, s=None):
+def flash_inputs(t, h, n_kv, dh, dtype, seed=0, b=1, s=None, dv=None):
     g = torch.Generator(device="cuda").manual_seed(seed)
     s = t if s is None else s
     return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
                  for shape in ((b, t, h, dh), (b, s, n_kv, dh),
-                               (b, s, n_kv, dh)))
+                               (b, s, n_kv, dv or dh)))
 
 
 #: forward checks of the block shapes and masks of the bf16 kernel (and of
@@ -749,21 +775,26 @@ def window_mask(t: int, s: int, window: int, chunk: int = 0) -> torch.Tensor:
     return ok & (qi - ki < window) if window else ok
 
 
-def flash_timing(path, b, t, h, n_kv, dh, window=0, chunk=0) -> dict:
+def flash_timing(path, b, t, h, n_kv, dh, window=0, chunk=0, dv=None,
+                 plain_fn=None, plain_iters=None) -> dict:
     """Kernel, plain and SDPA times (bf16) and the bound of the visible
     (query, key) pairs.  SDPA runs ``is_causal`` for the causal mask and a
-    boolean (T, S) mask for a window or a chunk."""
+    boolean (T, S) mask for a window or a chunk; v's head dim is ``dv``
+    (default dh).  ``plain_fn`` replaces the plain version where its f32
+    scores would not fit at once (``grouped_ref``)."""
+    dv = dv or dh
     g = torch.Generator(device="cuda").manual_seed(t)
     q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
         torch.bfloat16) for shape in ((b, t, h, dh), (b, t, n_kv, dh),
-                                      (b, t, n_kv, dh)))
+                                      (b, t, n_kv, dv)))
     sets = copies((q, k, v))
 
     def kernel(*x):
         return flash_attention(*x, window=window, chunk=chunk)
 
     def plain(*x):
-        return ref.flash_attention_ref(*x, window=window, chunk=chunk)
+        return (plain_fn or ref.flash_attention_ref)(*x, window=window,
+                                                     chunk=chunk)
 
     mask = window_mask(t, t, window, chunk)
     masked = bool(window or chunk)
@@ -774,7 +805,8 @@ def flash_timing(path, b, t, h, n_kv, dh, window=0, chunk=0) -> dict:
 
     ms = time_ms(kernel, sets)
     issue_ms = host_ms(kernel, sets)
-    plain_ms = time_ms(plain, sets, iters=10 if masked else 30)
+    plain_ms = time_ms(plain, sets,
+                       iters=plain_iters or (10 if masked else 30))
     lib_sets = [tuple(a.transpose(1, 2).contiguous() for a in x)
                 for x in sets]
     library_ms = time_ms(library, lib_sets)
@@ -783,9 +815,11 @@ def flash_timing(path, b, t, h, n_kv, dh, window=0, chunk=0) -> dict:
     if not lib_err <= TOL[torch.bfloat16]:
         raise AssertionError(f"SDPA yardstick computes another function "
                              f"({lib_err})")
-    ops = 4 * b * h * dh * int(mask.sum())             # visible pairs only
-    b_ms, b_by = bound_ms(nbytes(q, k, v) + nbytes(q), ops, torch.bfloat16)
+    ops = 2 * b * h * (dh + dv) * int(mask.sum())      # visible pairs only
+    b_ms, b_by = bound_ms(nbytes(q, k, v) + nbytes(q) * dv // dh, ops,
+                          torch.bfloat16)
     shape = (f"B {b}, T {t}, H {h}, KV {n_kv}, dh {dh}"
+             + (f", dv {dv}" if dv != dh else "")
              + (f", window {window}" if window else "")
              + (f", chunk {chunk}" if chunk else ""))
     log(f"  flash_attention timing ({path}, bf16, {shape}): kernel "
@@ -891,6 +925,196 @@ def chunk_flash_phase() -> list:
                   (0, 1, 2), TOL[dtype])
     return [flash_timing(what, b, t, h, n_kv, dh, chunk=c)
             for what, (b, t, h, n_kv, dh, c) in CHUNK_FLASH.items()]
+
+
+#: DeepSeek-V2's MLA prefill: name -> (B, T, H, KV, dqk, dv); K's rope part
+#: is shared by the heads, so KV = H after the broadcast
+MLA_FLASH = {"DeepSeek-V2 prefill": (1, 4096, 128, 128, 192, 128)}
+#: smaller cases at (192, 128): name -> (B, T, S, H, KV, dqk, dv)
+MLA_FLASH_CASES = {
+    "ragged T 300": (1, 300, 300, 16, 16, 192, 128),
+    "T 100, S 300 (bottom-right)": (1, 100, 300, 16, 16, 192, 128),
+    "B 2, T 200, rep 4": (2, 200, 200, 16, 4, 192, 128),
+    "T 1": (2, 1, 1, 16, 16, 192, 128),
+}
+
+
+def mla_flash_phase() -> list:
+    """Flash at MLA's head dims (q.k 192, v 128): DeepSeek-V2's prefill
+    (its plain version run by head groups) and the smaller cases, against
+    the plain version in bf16 and f32; a gradient check at a small T; then
+    the prefill timed in bf16 beside SDPA (``is_causal``, Ev 128 != E
+    192)."""
+    log("kernel phase: flash_attention at MLA's (dqk 192, dv 128)")
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, (b, t, h, n_kv, dqk, dv) in MLA_FLASH.items():
+            a = flash_inputs(t, h, n_kv, dqk, dtype, seed=t + 2, b=b, dv=dv)
+            attn_err("flash", f"{what} (B {b}, T {t}, H {h}, KV {n_kv}, dqk "
+                     f"{dqk}, dv {dv}) {dtype}", flash_attention(*a),
+                     grouped_ref(*a))
+        for what, (b, t, sk, h, n_kv, dqk, dv) in MLA_FLASH_CASES.items():
+            a = flash_inputs(t, h, n_kv, dqk, dtype, seed=t + sk + 3, b=b,
+                             s=sk, dv=dv)
+            attn_err("flash", f"(192, 128) {what} {dtype}",
+                     flash_attention(*a), ref.flash_attention_ref(*a))
+        check_vjp(f"flash_attention (192, 128) gradient (B 1, T 256, H 8, "
+                  f"KV 8) {dtype}", flash_attention, ref.flash_attention_ref,
+                  flash_inputs(256, 8, 8, 192, dtype, seed=257, dv=128),
+                  (0, 1, 2), TOL[dtype])
+    try:
+        flash_attention(*flash_inputs(16, 4, 4, 192, torch.bfloat16, dv=192))
+    except ValueError as err:
+        log(f"  (192, 192), a pair it is not built for, raises: {err}")
+    else:
+        raise AssertionError("flash_attention took (192, 192)")
+    return [flash_timing(what, b, t, h, n_kv, dqk, dv=dv,
+                         plain_fn=grouped_ref, plain_iters=3)
+            for what, (b, t, h, n_kv, dqk, dv) in MLA_FLASH.items()]
+
+
+# ----------------------------------------------------------------------
+# kernel phase: absorbed MLA decode
+MLA_SCALE = 192 ** -0.5            # DeepSeek-V2: (nope + rope)^-0.5
+#: DeepSeek-V2's serve pool: S 8, C 4,352, H 128, the latent 512 + 64;
+#: slots at lens 0 (one entry), 1, 511, 1,000, 2,049, 4,095, C - 1 and C
+#: (every entry visible)
+MLA_POOL = (8, 4352, 128, [0, 1, 511, 1000, 2049, 4095, 4351, 4352])
+#: smaller pools: name -> (S, C, H, lens)
+MLA_POOL_CASES = {"S 1, C 1": (1, 1, 128, [0]),
+                  "C 1,000 (not whole tiles)": (3, 1000, 128, [999, 40, 1000]),
+                  "H 16": (4, 700, 16, [699, 0, 333, 700])}
+
+
+def mla_inputs(s, c, h, lens, dtype, seed=0):
+    """q_c (S, H, 512), q_rope (S, H, 64), c_kv (S, C, 512), k_rope (S, C,
+    64) from a seed, and lens (S,) int32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = ((s, h, 512), (s, h, 64), (s, c, 512), (s, c, 64))
+    return tuple(torch.randn(x, generator=g, device="cuda").to(dtype)
+                 for x in shapes) + (
+        torch.tensor(lens, dtype=torch.int32, device="cuda"),)
+
+
+def check_mla(name, args) -> float:
+    return attn_err("mla_decode", name, mla_decode(*args, MLA_SCALE),
+                    ref.mla_decode_ref(*args, MLA_SCALE))
+
+
+def mla_graph_check() -> None:
+    """One call over DeepSeek-V2's pool captured in a CUDA graph and
+    replayed twice, each replay bit for bit the eager call."""
+    args = mla_inputs(*MLA_POOL, torch.bfloat16, seed=9)
+    eager = mla_decode(*args, MLA_SCALE)
+    cap = capture_graph(lambda: mla_decode(*args, MLA_SCALE), [])
+    same = []
+    for _ in range(2):
+        cap.out.fill_(float("nan"))
+        cap.graph.replay()
+        torch.cuda.synchronize()
+        same.append(torch.equal(cap.out, eager))
+    log(f"  mla_decode graph replay (DeepSeek-V2 pool, bf16): replays bit "
+        f"for bit the eager call {same}; launches a replay "
+        f"{dict(zip((fn.__name__ for fn in COUNTED), cap.launches))}")
+    if not all(same):
+        raise AssertionError(f"mla_decode graph replay: {same}")
+    del cap
+
+
+def mla_decode_timing(path, s, c, h, lens) -> dict:
+    """Kernel, plain and SDPA times (bf16) and the bound of the visible
+    latent rows.  SDPA takes q (S, H, 1, 576) against one shared head, k
+    (S, 1, C, 576) and v (S, 1, C, 512), with a boolean mask and
+    ``enable_gqa``: the same function."""
+    args = mla_inputs(s, c, h, lens, torch.bfloat16, seed=c)
+    sets = copies(args)
+
+    def kernel(*x):
+        return mla_decode(*x, MLA_SCALE)
+
+    def plain(*x):
+        return ref.mla_decode_ref(*x, MLA_SCALE)
+
+    def library(q4, k4, v4, mask):
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              scale=MLA_SCALE,
+                                              enable_gqa=True)
+
+    ms = time_ms(kernel, sets)
+    issue_ms = host_ms(kernel, sets)
+    plain_ms = time_ms(plain, sets)
+    n = torch.arange(c, device="cuda")
+    lib_sets = [(torch.cat(x[:2], -1)[:, :, None],
+                 torch.cat(x[2:4], -1)[:, None], x[2][:, None],
+                 (n[None, :] <= x[4][:, None])[:, None, None])
+                for x in sets[:max(1, len(sets) // 2)]]
+    library_ms = time_ms(library, lib_sets)
+    lib_err = (library(*lib_sets[0])[:, :, 0].float()
+               - plain(*sets[0]).float()).abs().max().item()
+    if not lib_err <= TOL[torch.bfloat16]:
+        raise AssertionError(f"SDPA yardstick computes another function "
+                             f"({lib_err})")
+    n_vis = sum(min(x + 1, c) for x in lens)
+    row = 2 * (512 + 64)                               # one latent row, bf16
+    moved = 2 * nbytes(args[0]) + nbytes(args[1], args[4]) + n_vis * row
+    ops = 2 * n_vis * h * (576 + 512)
+    b_ms, b_by = bound_ms(moved, ops, torch.bfloat16)
+    n_split, split_len = mla_split_plan(s, h, c)
+    shape = f"S {s}, C {c}, H {h}, kvr 512, rd 64, lens {lens}"
+    log(f"  mla_decode timing ({path}, bf16, {shape}; {n_split} chunks of "
+        f"{split_len}): kernel {ms:.4f} ms on the device ({issue_ms:.4f} ms "
+        f"to issue), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} flops; the "
+        f"{n_vis} visible latent rows)")
+    return dict(path=path, shape=shape, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+def mla_decode_phase() -> dict:
+    """The absorbed-MLA decode kernel over DeepSeek-V2's pool and the
+    smaller pools, against its plain version in bf16 and f32; the slot at
+    lens == C must see every entry; a graph replay; H not a multiple of 16
+    and another latent must raise; then the pool timed in bf16."""
+    log("kernel phase: mla_decode (absorbed MLA decode, DeepSeek-V2)")
+    errs = {}
+    s, c, h, lens = MLA_POOL
+    for dtype in (torch.bfloat16, torch.float32):
+        a = mla_inputs(s, c, h, lens, dtype, seed=1)
+        errs[dtype] = check_mla(f"DeepSeek-V2 pool (S {s}, C {c}, H {h}, "
+                                f"lens {lens}) {dtype}", a)
+        for what, (s2, c2, h2, lens2) in MLA_POOL_CASES.items():
+            check_mla(f"{what} {dtype}", mla_inputs(s2, c2, h2, lens2, dtype,
+                                                    seed=c2))
+        # lens == C sees all C entries: the same as lens C - 1 + a slot
+        # past it; here, against the plain version restricted to C - 1
+        full = lens.index(c)
+        sub = tuple(t[full:full + 1] for t in a[:4]) + (
+            torch.tensor([c - 1], dtype=torch.int32, device="cuda"),)
+        got = mla_decode(*a, MLA_SCALE)[full:full + 1]
+        attn_err("mla_decode", f"slot at lens == C against lens C - 1 "
+                 f"{dtype}", got, ref.mla_decode_ref(*sub, MLA_SCALE))
+    n_split, split_len = mla_split_plan(s, h, c)
+    log(f"  mla_decode split at DeepSeek-V2's pool: {n_split} chunks of "
+        f"{split_len} positions, {n_split * s * h // 16} blocks of (chunk, "
+        f"16 heads, slot), then the combine's {s * h}")
+    mla_graph_check()
+    try:
+        mla_decode(*mla_inputs(4, 100, 24, [3] * 4, torch.bfloat16),
+                   MLA_SCALE)
+    except ValueError as err:
+        log(f"  H 24 raises: {err}")
+    else:
+        raise AssertionError("mla_decode took H 24")
+    q_c, q_rope, c_kv, k_rope, ln = mla_inputs(2, 64, 16, [3, 4],
+                                               torch.bfloat16)
+    try:
+        mla_decode(q_c[..., :256].contiguous(), q_rope,
+                   c_kv[..., :256].contiguous(), k_rope, ln, MLA_SCALE)
+    except ValueError as err:
+        log(f"  a 256-wide latent raises: {err}")
+    else:
+        raise AssertionError("mla_decode took a 256-wide latent")
+    timings = [mla_decode_timing("DeepSeek-V2 serve pool", *MLA_POOL)]
+    return dict(max_abs_err=errs[torch.bfloat16], timings=timings)
 
 
 # ----------------------------------------------------------------------
@@ -1394,7 +1618,8 @@ def scan_phase() -> dict:
 # launch counters of every wrapper, set to 0 just before a path runs
 WRAPPERS = {"decode_attention": decode_attention,
             "flash_attention": flash_attention, "gram": cosine_gram,
-            "lora_matmul": lora_matmul, "selective_scan": selective_scan}
+            "lora_matmul": lora_matmul, "selective_scan": selective_scan,
+            "mla_decode": mla_decode}
 
 
 def reset_counts() -> None:
@@ -1439,20 +1664,26 @@ def layer_kinds(cfg) -> tuple:
     return n_att, cfg.n_layers - n_att
 
 
+def decode_kernel(cfg) -> str:
+    """The kernel a decode step's attention launches: ``mla_decode`` under
+    MLA (DeepSeek-V2), else ``decode_attention``."""
+    return "mla_decode" if cfg.mla is not None else "decode_attention"
+
+
 def serve_launches(cfg, eng) -> dict:
     """What ``eng``'s runs so far launched by the design: per admission
     the flash kernel once per attention layer and the scan once per
     recurrent layer (ssm, RG-LRU), and per decode step the decode kernel
-    once per attention layer -- the replayed blocks' steps and each
-    capture's warm-up block."""
+    (``mla_decode`` under MLA) once per attention layer -- the replayed
+    blocks' steps and each capture's warm-up block."""
     n_att, n_rec = layer_kinds(cfg)
     admits = eng.stats["admit_dispatches"]
     steps = eng.scfg.block_steps * (eng.stats["block_dispatches"]
                                     + eng.graph_stats["captures"])
     want = dict.fromkeys(WRAPPERS, 0)
-    want.update(decode_attention=n_att * steps,
-                flash_attention=n_att * admits,
+    want.update(flash_attention=n_att * admits,
                 selective_scan=n_rec * admits)
+    want[decode_kernel(cfg)] = n_att * steps
     return want
 
 
@@ -1491,7 +1722,7 @@ def serve_phase(cfg, params, scfg=SERVE_CFG, reqs=None, rt=None) -> dict:
     per_replay = {name: graph.launches_by_name()[fn.__name__]
                   for name, fn in WRAPPERS.items()}
     want_replay = dict.fromkeys(WRAPPERS, 0)
-    want_replay["decode_attention"] = layer_kinds(cfg)[0] * scfg.block_steps
+    want_replay[decode_kernel(cfg)] = layer_kinds(cfg)[0] * scfg.block_steps
     if per_replay != want_replay:
         raise AssertionError(f"the decode block's graph records "
                              f"{per_replay}, want {want_replay}")
@@ -1512,7 +1743,7 @@ def serve_phase(cfg, params, scfg=SERVE_CFG, reqs=None, rt=None) -> dict:
     steps = st["block_dispatches"] * scfg.block_steps
     want = serve_launches(cfg, eng)
     # the capture's warm-up is not counted
-    want["decode_attention"] = layer_kinds(cfg)[0] * steps
+    want[decode_kernel(cfg)] = layer_kinds(cfg)[0] * steps
     if launches != want or st["admit_dispatches"] != len(reqs):
         raise AssertionError(f"kernel launches {launches}, want {want} "
                              f"({st['admit_dispatches']} admissions, "
@@ -1777,8 +2008,9 @@ def chaos_phase(cfg, params, temperature: float = 0.0) -> dict:
 
 
 def trace_phase(cfg, params, scfg=SERVE_CFG, reqs=None, rt=None) -> None:
-    """A separate, shorter serve run (8 requests x 17 tokens) under
-    ``torch.profiler``, its graph captured before the profiled window:
+    """A separate, shorter serve run (the first 8 requests, or fewer, x
+    17 tokens) under ``torch.profiler``, its graph captured before the
+    profiled window:
     device busy time against the host's wall time, and the device time by
     kernel.  The untraced serve phase above gives the tokens/s; this run
     only says where its time goes."""
@@ -2149,44 +2381,59 @@ def expert_share_phase(cfg, params, reqs) -> None:
         f"{busy / 1e3:.1f} ms busy")
 
 
-def moe_routes(params, cfg, tokens, device) -> torch.Tensor:
-    """The expert each position of ``tokens`` routes to in a 1-layer moe
-    model (top-1), from the port's own blocks over the whole sequence:
-    ``rms_norm``, ``gqa_forward`` with the config's mask, ``rms_norm``,
-    ``router_scores``."""
+def moe_routes(params, cfg, tokens, device) -> tuple:
+    """The routes of every position of ``tokens`` in a 1-layer moe model,
+    from the port's own blocks over the whole sequence (``rms_norm``, the
+    config's attention -- ``gqa_forward`` with its mask, or
+    ``mla_forward`` --, ``rms_norm``, ``router_scores``): the chosen
+    experts (T, k) in ascending order, the combine scores (T, E) and the
+    router's margin at each position, the k-th largest probability less
+    the (k+1)-th (what a flip of the top k turns on), all on the host."""
     bp = tree_map(lambda t: t[0], params["blocks"])
-    kind, window = T._attn_kind(cfg, T.Runtime())
     x = params["embed"][torch.tensor(tokens, device=device).long()][None]
     h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-    x = x + gqa_forward(bp["attn"], h, cfg, kind=kind, window=window)
-    _, idx, _ = router_scores(bp["moe"],
-                              rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps),
-                              cfg)
-    return idx[0, :, 0].cpu()
+    if cfg.mla is not None:
+        x = x + mla_forward(bp["attn"], h, cfg)
+    else:
+        kind, window = T._attn_kind(cfg, T.Runtime())
+        x = x + gqa_forward(bp["attn"], h, cfg, kind=kind, window=window)
+    h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+    scores, idx, _ = router_scores(bp["moe"], h, cfg)
+    k, n_exp = cfg.moe.top_k, cfg.moe.num_experts
+    probs = torch.softmax(h.float() @ bp["moe"]["router"]["w"].float(), -1)
+    top = probs[0].topk(min(k + 1, n_exp), dim=-1).values
+    gap = top[:, k - 1] - top[:, k] if k < n_exp else top[:, 0]
+    return (idx[0].sort(dim=-1).values.cpu(), scores[0].float().cpu(),
+            gap.cpu())
 
 
-def prefill_kept(routes: torch.Tensor, cfg) -> torch.Tensor:
-    """Which of a prompt's positions its expert keeps in the prefill (top-1
-    routes): each expert keeps its first ``capacity`` tokens by index."""
+def prefill_kept(scores: torch.Tensor, cfg) -> torch.Tensor:
+    """(T, E) bool: the (position, expert) pairs a prompt's prefill keeps,
+    as ``moe._expert_block`` picks them: each expert its ``capacity``
+    highest combine scores, equal scores by lower index, of the positions
+    routed to it."""
     m = cfg.moe
-    cap = _capacity(len(routes), m.top_k, m.num_experts, m.capacity_factor)
-    keep = torch.zeros(len(routes), dtype=torch.bool)
-    for e in range(m.num_experts):
-        keep[torch.nonzero(routes == e)[:cap, 0]] = True
-    return keep
+    cap = _capacity(scores.shape[0], m.top_k, m.num_experts,
+                    m.capacity_factor)
+    order = torch.sort(scores, dim=0, descending=True, stable=True).indices
+    keep = torch.zeros(scores.shape, dtype=torch.bool)
+    keep.scatter_(0, order[:cap], True)
+    return keep & (scores > 0)
 
 
 def moe_oracle_phase(cfg, params, req, tol=(5e-2, 1e-3),
-                     cache_len=SCOUT_CHUNK) -> None:
+                     cache_len=SCOUT_CHUNK, f32_may_flip=False) -> None:
     """``req`` (and 8 fed decode steps) through a 1-layer moe model on the
     card in f32 and bf16 against the plain versions on the CPU in f32.
-    Routing is discontinuous, so the expert of every position is read
-    from the port's blocks on each side (``moe_routes``): in f32 every
-    position must route as on the CPU and the logits lie within
-    ``tol[1]`` of max |logit|; in bf16 the logits of the positions that
-    route as on the CPU (and that their expert keeps, or drops, as on the
-    CPU: a flip elsewhere can push a prefill token past its expert's
-    capacity) are held to ``tol[0]``, and the flips counted."""
+    Routing is discontinuous, so the experts of every position are read
+    from the port's blocks on each side (``moe_routes``): the logits of
+    the positions that route to the same experts as on the CPU (and that
+    those experts keep, or drop, as on the CPU: a flip elsewhere can push
+    a prefill token past its expert's capacity) are held to ``tol[1]`` of
+    max |logit| in f32 and ``tol[0]`` in bf16, and the flips counted and
+    printed with the CPU router's margins.  Unless ``f32_may_flip`` (top-6
+    of 160 experts has near-ties that f32 sums in another order can flip)
+    the f32 run must route every position as on the CPU."""
     log(f"moe oracle phase: {cfg.arch_id} ({cfg.n_layers} layer, full "
         f"width), request {req.rid} ({len(req.tokens)} prompt tokens) + 8 "
         f"decode steps, cache_len {cache_len}, on the card vs the plain "
@@ -2197,12 +2444,14 @@ def moe_oracle_phase(cfg, params, req, tol=(5e-2, 1e-3),
     want, fed = run_one(cpu_params, cfg32, req.tokens, "cpu",
                         cache_len=cache_len)
     seq = list(req.tokens) + fed
-    want_routes = moe_routes(cpu_params, cfg32, seq, "cpu")
+    want_routes, want_scores, gaps = moe_routes(cpu_params, cfg32, seq,
+                                                "cpu")
     del cpu_params
     log(f"  CPU f32 run and routes: {time.perf_counter() - t0:.1f} s")
     n = len(req.tokens)
     m = cfg.moe
     cap = _capacity(n, m.top_k, m.num_experts, m.capacity_factor)
+    want_keep = prefill_kept(want_scores[:n], cfg32)
     positions = [torch.arange(n - ORACLE_LAST, n)] + [
         torch.tensor([n + i]) for i in range(len(fed))]
     for name, p, c, rel in (
@@ -2210,15 +2459,22 @@ def moe_oracle_phase(cfg, params, req, tol=(5e-2, 1e-3),
             ("card bf16", params, cfg, tol[0])):
         got, _ = run_one(p, c, req.tokens, "cuda", feed=fed,
                          cache_len=cache_len)
-        routes = moe_routes(p, c, seq, "cuda")
-        same = routes == want_routes
-        flips = int((~same).sum())
-        drops = prefill_kept(routes[:n], c) != prefill_kept(want_routes[:n],
-                                                            cfg32)
+        routes, scores, _ = moe_routes(p, c, seq, "cuda")
+        same = (routes == want_routes).all(dim=-1)
+        flipped = torch.nonzero(~same)[:, 0]
+        drops = (prefill_kept(scores[:n], c) != want_keep).any(dim=-1) \
+            & same[:n]                        # of the positions routed alike
         same[:n] &= ~drops
-        if c is cfg32 and flips:
-            raise AssertionError(f"{name}: {flips} positions route to "
-                                 f"another expert than on the CPU")
+        if flipped.numel():
+            g = gaps[flipped]
+            log(f"  {name}: flipped positions {flipped[:12].tolist()}"
+                f"{' ...' if flipped.numel() > 12 else ''}, the CPU "
+                f"router's top-{m.top_k} margin there min {g.min():.3g}, "
+                f"max {g.max():.3g} (over all positions: median "
+                f"{gaps.median():.3g})")
+        if c is cfg32 and flipped.numel() and not f32_may_flip:
+            raise AssertionError(f"{name}: {flipped.numel()} positions route "
+                                 f"to other experts than on the CPU")
         worst = 0.0
         for i, (g, w, pos) in enumerate(zip(got, want, positions)):
             keep = same[pos]
@@ -2229,9 +2485,9 @@ def moe_oracle_phase(cfg, params, req, tol=(5e-2, 1e-3),
                 what = "prefill" if i == 0 else f"decode step {i}"
                 raise AssertionError(f"{name} {what}: logits differ by {err}"
                                      f" (max |logit| {scale})")
-        log(f"  {name}: {flips} of {len(seq)} positions routed to another "
-            f"expert than on the CPU, {int(drops.sum())} more kept or "
-            f"dropped otherwise by a capacity of {cap}"
+        log(f"  {name}: {flipped.numel()} of {len(seq)} positions routed to "
+            f"other experts than on the CPU, {int(drops.sum())} more kept "
+            f"or dropped otherwise by a capacity of {cap}"
             f"; logits of the others within "
             f"{worst:.3g} of max |logit| (tol {rel}) over the prefill's last "
             f"{ORACLE_LAST} positions and {len(fed)} decode steps")
@@ -2267,6 +2523,67 @@ def scout_phases() -> dict:
     return served
 
 
+DEEPSEEK_LAYERS = 7
+DEEPSEEK_CFG = ServeConfig(n_slots=8, cache_len=4352, block_steps=8,
+                           max_new_tokens=32)
+
+
+def host_free_gib() -> float:
+    """MemAvailable of the host, GiB (``/proc/meminfo``)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def deepseek_phases() -> dict:
+    """DeepSeek-V2-236B at full width, cut to 7 of its 60 layers (bf16,
+    random weights from seed 0): the serve phase (8 requests of
+    1,000-4,200 prompt tokens x 32 through 8 slots x 4,352), its eager
+    oracle and a profiled run; then at 1 layer the CPU oracle with its
+    routing check (top-6 of 160: f32 may flip a near-tie, and is then held
+    where it routes as the CPU)."""
+    t0 = time.perf_counter()
+    free_device("the MLA phases")
+    full = get_config("deepseek-v2-236b")
+    cfg = full.with_(n_layers=DEEPSEEK_LAYERS)
+    params = build_params(cfg, f"moe with MLA ({DEEPSEEK_LAYERS} of "
+                          f"{full.n_layers} layers)")
+    gib = 2 ** 30
+    per = {k: sum(nbytes(t) for t in tree_leaves(v)) / DEEPSEEK_LAYERS
+           for k, v in params["blocks"].items()}
+    outer = sum(nbytes(t) for k, v in params.items() if k != "blocks"
+                for t in tree_leaves(v))
+    layer = sum(per.values())
+    log(f"  the cut: a layer holds {layer / gib:.3f} GiB (attention "
+        f"{per['attn'] / gib:.3f}, MoE {per['moe'] / gib:.3f}: 160 routed "
+        f"experts top-6 + 2 shared, the f32 router), embedding, norm and "
+        f"head {outer / gib:.3f} GiB; {DEEPSEEK_LAYERS} layers "
+        f"{(DEEPSEEK_LAYERS * layer + outer) / gib:.2f} GiB, all "
+        f"{full.n_layers} {(full.n_layers * layer + outer) / gib:.1f} GiB "
+        f"(sharding waits for the mesh slice)")
+    reqs = long_requests(cfg, 8, 1000, 4200, 32, seed=28)
+    served = serve_phase(cfg, params, DEEPSEEK_CFG, reqs)
+    served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
+    # 4 admissions: each runs ~55,000 kernels that the profiler records
+    trace_phase(cfg, params, DEEPSEEK_CFG, reqs[:4])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = cfg.with_(n_layers=1)
+    params = build_params(small, "moe with MLA (1 layer)")
+    log(f"  host memory available before the oracle: {host_free_gib():.1f} "
+        f"GiB (the CPU f32 copy of a layer takes ~20 GB)")
+    moe_oracle_phase(small, params, long_requests(cfg, 1, 1000, 1000, 8,
+                                                  seed=29)[0],
+                     cache_len=1024, f32_may_flip=True)
+    del params
+    gc.collect()
+    served["phase_s"] = time.perf_counter() - t0
+    log(f"MLA phases: {served['phase_s']:.1f} s")
+    return served
+
+
 # ----------------------------------------------------------------------
 # federation phases: the paper's round on fedmm-small at full width
 def federation_phase(rounds: int = 2, lora_rank: int = 8,
@@ -2299,7 +2616,7 @@ def federation_phase(rounds: int = 2, lora_rank: int = 8,
             "lora_matmul": steps * passes * n_lin * 2,   # forward and dx
             "flash_attention": steps * passes * cfg.n_layers,
             "gram": steps + fcfg.n_nodes,                # loss, then upload
-            "selective_scan": 0}
+            "selective_scan": 0, "mla_decode": 0}
     total = dict.fromkeys(want, 0)
     walls = []
     for r in range(rounds):
@@ -2429,7 +2746,8 @@ def engine_launches(fed, rounds: int = 1) -> dict:
     return {"decode_attention": 0,
             "lora_matmul": rounds * steps * passes * n_lin * 2,
             "flash_attention": rounds * steps * passes * cfg.n_layers,
-            "gram": rounds * (steps + 1), "selective_scan": 0}
+            "gram": rounds * (steps + 1), "selective_scan": 0,
+            "mla_decode": 0}
 
 
 def check_record(what: str, rec: dict) -> None:
@@ -3099,7 +3417,7 @@ def driver_launches(args, cfg) -> dict:
     return {"decode_attention": 0,
             "lora_matmul": steps * 2 * (n_lin + n_lin - 3),
             "flash_attention": steps * 2 * cfg.n_layers,
-            "gram": steps + 1, "selective_scan": 0}
+            "gram": steps + 1, "selective_scan": 0, "mla_decode": 0}
 
 
 def _random_block(run, args, m: int, seed: int = 0):
@@ -3269,12 +3587,14 @@ def main() -> int:
             "flash_attention": flash_phase(),
             "gram": gram_phase(),
             "lora_matmul": lora_phase(),
-            "selective_scan": scan_phase()}
+            "selective_scan": scan_phase(),
+            "mla_decode": mla_decode_phase()}
     rows["lora_matmul"]["timings"] += lora_nodes_phase()
     rows["flash_attention"]["timings"] += window_flash_phase()
     rows["decode_attention"]["timings"] += window_decode_phase()
     rows["flash_attention"]["timings"] += chunk_flash_phase()
     rows["decode_attention"]["timings"] += chunk_decode_phase()
+    rows["flash_attention"]["timings"] += mla_flash_phase()
     stamp("kernel phases")
 
     cfg = get_config("fedmm-base")
@@ -3297,6 +3617,8 @@ def main() -> int:
     stamp("hybrid and windowed phases")
     scout = scout_phases()
     stamp("moe phases")
+    deepseek = deepseek_phases()
+    stamp("MLA phases")
 
     fed, rounds = federation_phase()
     federation_trace_phase(fed)
@@ -3353,7 +3675,9 @@ def main() -> int:
                "flash_attention": "src/repro/kernels/flash_attention.py:69",
                "gram": "src/repro/kernels/gram.py:31",
                "lora_matmul": "src/repro/kernels/lora_matmul.py:44",
-               "selective_scan": "src/repro/kernels/selective_scan.py:49"}
+               "selective_scan": "src/repro/kernels/selective_scan.py:49",
+               # no Pallas kernel: the jnp einsums of mla_decode_slots
+               "mla_decode": "src/repro/models/attention.py:466"}
     by_path = {k: {"serve (replayed blocks)": served["launches"][k],
                    "serve graph oracle (eager blocks)":
                        served["oracle"]["launches"][k],
@@ -3377,6 +3701,10 @@ def main() -> int:
                        scout["launches"][k],
                    "moe serve graph oracle (eager blocks)":
                        scout["oracle"]["launches"][k],
+                   "moe serve with MLA, DeepSeek-V2 7 layers (replayed "
+                   "blocks)": deepseek["launches"][k],
+                   "moe serve with MLA graph oracle (eager blocks)":
+                       deepseek["oracle"]["launches"][k],
                    "federation": rounds["launches"][k],
                    "federation at rank 64 (2 layers)":
                        rank64["launches"][k],
@@ -3420,7 +3748,9 @@ def main() -> int:
     for what, run in (("serve", served), ("ssm serve", ssm_served),
                       ("hybrid serve", hybrid),
                       ("windowed fedmm-base serve", windowed),
-                      ("moe serve (Llama-4-Scout, 12 of 48 layers)", scout)):
+                      ("moe serve (Llama-4-Scout, 12 of 48 layers)", scout),
+                      ("moe serve with MLA (DeepSeek-V2-236B, 7 of 60 "
+                       "layers)", deepseek)):
         log(f"{what}: {run['tokens'] / run['wall_s']} tokens/s replayed "
             f"(eager blocks: {run['tokens'] / run['oracle']['wall_s']}), "
             f"wall {run['wall_s']} s, capture {run['capture_s']} s, "
@@ -3429,7 +3759,7 @@ def main() -> int:
             f"{run['ttft'][len(run['ttft']) // 2]} / {run['ttft'][-1]} s, "
             f"a replayed decode step {run['step_ms']} ms")
     log(f"hybrid and windowed dense phases: {new_s:.1f} s; moe phases "
-        f"{scout['phase_s']:.1f} s")
+        f"{scout['phase_s']:.1f} s; MLA phases {deepseek['phase_s']:.1f} s")
     log(f"federation: round wall {rounds['walls']} s; at rank 64 (2 "
         f"layers) {rank64['walls']} s")
     log(f"engine: replayed round wall {engine['walls']} s; block of 2 "

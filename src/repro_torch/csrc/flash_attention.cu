@@ -5,9 +5,10 @@
 // (`_flash_kernel`; its jnp twin blockwise_attention is what the JAX
 // prefill runs).
 //
-// q (B, T, H, dh), k / v (B, S, KV, dh) -- the blockwise_attention layout,
-// so gqa_forward passes its projections without a transpose copy; out
-// (B, T, H, dh) in q's dtype (bf16 or f32).  Query head h reads KV head
+// q (B, T, H, dh), k (B, S, KV, dh), v (B, S, KV, dv) -- the
+// blockwise_attention layout, so gqa_forward passes its projections
+// without a transpose copy; out (B, T, H, dv) in q's dtype (bf16 or f32);
+// dv == dh but for MLA's (192, 128).  Query head h reads KV head
 // h / (H / KV).  Causal masking is aligned bottom-right, k <= q + (S - T),
 // as in the JAX oracle; with S == T (prefill) it is the Pallas rule.  With
 // window > 0 a key is also dropped once it lies window or more behind the
@@ -89,6 +90,16 @@
 // runs (KS 1): 128 threads and 96 KB of shared memory a block, two blocks
 // an SM.  dh 64 and 128 keep the plan above.
 //
+// DeepSeek-V2's MLA prefill gives q.k heads of 192 (128 nope + 64 rope)
+// and v heads of 128, so both kernels are templated on the two head dims
+// (DQK, DV), and the wrapper accepts a pair only where it is built: (64,
+// 64), (128, 128), (256, 256) and (192, 128).  At (192, 128) the bf16
+// plan is dh 128's (64-key tiles, Q fragments in registers: 12 k-steps of
+// 4 registers, beside an O accumulator of 16 x 128), with a K tile of 192
+// columns (24 16-byte chunks a row, swizzled like the others) and a V
+// tile of 128; its shared memory is 80 KB a key group.  Nothing is
+// padded: K and V are read at their own widths.
+//
 // The f32 instantiations keep the FMA body of the first port (the second kernel
 // below).  They exist for chip_smoke.py's f32 checks (TOL 1e-4) and its
 // f32 serve oracle (1e-3 of max |logit|); TF32 tensor cores keep ~3
@@ -116,18 +127,19 @@ using bf16 = __nv_bfloat16;
 constexpr int kMaxWarps = 4;                          // row warps per key group
 constexpr int kStages = 2;                            // the cp.async ring
 
-// keys per tile: 64, and 32 at dh 256 (see the note at the top)
-template <int DH>
-constexpr int kBK = DH == 256 ? 32 : 64;
+// keys per tile: 64, and 32 at dh 256 (see the note at the top); DQK is
+// the q.k head dim
+template <int DQK>
+constexpr int kBK = DQK == 256 ? 32 : 64;
 
 // Q fragments from shared memory (dh 256) instead of registers
-template <int DH>
-constexpr bool kQShared = DH == 256;
+template <int DQK>
+constexpr bool kQShared = DQK == 256;
 
 // key groups per block at most: 16 warps of <= 128 registers at dh 64, 8
-// warps at dh 128 (more registers a thread), 4 at dh 256
-template <int DH>
-constexpr int kMaxKS = DH == 64 ? 4 : DH == 128 ? 2 : 1;
+// warps at dh 128 and (192, 128) (more registers a thread), 4 at dh 256
+template <int DQK>
+constexpr int kMaxKS = DQK == 64 ? 4 : DQK == 256 ? 1 : 2;
 
 // 2^x on the special-function unit (exp2f adds range handling around it)
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -149,30 +161,32 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int DH>
+template <int DQK, int DV>
 constexpr size_t mma_smem_bytes(int ks) {
-  return sizeof(bf16) * (kStages * ks * 2 /*K, V*/ * kBK<DH> * DH +
-                         (kQShared<DH> ? kMaxWarps * 16 * DH : 0));
+  return sizeof(bf16) * (kStages * ks * kBK<DQK> * (DQK + DV) +
+                         (kQShared<DQK> ? kMaxWarps * 16 * DQK : 0));
 }
 
-template <int DH>
-__global__ void __launch_bounds__(32 * kMaxWarps * kMaxKS<DH>)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(32 * kMaxWarps * kMaxKS<DQK>)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, int Tq,
                  int S, int H, int KV, int RQ, int HB, int KS, int window,
                  int chunk, float scale_log2) {
-  constexpr int BK = kBK<DH>;                         // keys per tile
+  constexpr int BK = kBK<DQK>;                        // keys per tile
   constexpr int NJ = BK / 8;                          // 8-key column tiles of S
   constexpr int NKC = BK / 16;                        // 16-key k-steps of P V
-  constexpr bool QS = kQShared<DH>;
-  constexpr int CH = DH / 8;                          // 16-byte chunks per key row
-  constexpr int KC = DH / 16;                         // k-steps of Q K^T
-  constexpr int NO = DH / 8;                          // 8-column tiles of the output
-  constexpr int TILE = BK * DH;                       // elements of one K (or V) tile
+  constexpr bool QS = kQShared<DQK>;
+  constexpr int CH = DQK / 8;                         // 16-byte chunks per key row
+  constexpr int CHV = DV / 8;                         // ... per value row
+  constexpr int KC = DQK / 16;                        // k-steps of Q K^T
+  constexpr int NO = DV / 8;                          // 8-column tiles of the output
+  constexpr int TILE = BK * DQK;                      // elements of one K tile
+  constexpr int TILEV = BK * DV;                      // ... of one V tile
   constexpr int NS = kStages;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);       // [NS stages][KS][BK][DH], swizzled
-  bf16* sV = sK + NS * KS * TILE;                     // the same for V
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);       // [NS stages][KS][BK][DQK], swizzled
+  bf16* sV = sK + NS * KS * TILE;                     // [NS][KS][BK][DV], swizzled
 
   const int nthreads = blockDim.x, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, gr = lane / 4, tq = lane % 4;
@@ -209,27 +223,31 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // every row of the warp
   const int whole_beg = first_key(t0 + 15 + shift, window, chunk);
 
+  // K and V chunks of one key row from one thread, back to back (a K
+  // loop then a V loop ran the dh 64 / 128 / 256 prefills 27-32% slower
+  // on an H100); V's row has CHV <= CH chunks, and DV == DQK folds the test
   auto load_step = [&](int step) {                    // the KS tiles of one step
     const int stage = step % NS;
     for (int i = tid; i < KS * BK * CH; i += nthreads) {
       const int j = i / (BK * CH), r = i / CH % BK, c = i % CH;
       const int tile = step * KS + j, s = (tile0 + tile) * BK + r;
       if (tile >= ntiles) break;                      // j only grows along i
-      const size_t off =
-          ((static_cast<size_t>(b) * S + min(s, S - 1)) * KV + g) * DH + c * 8;
-      const int dst = (stage * KS + j) * TILE + swz<DH>(r, c);
-      cp_async16(sK + dst, k + off, s < S);
-      cp_async16(sV + dst, v + off, s < S);
+      const size_t row = (static_cast<size_t>(b) * S + min(s, S - 1)) * KV + g;
+      cp_async16(sK + (stage * KS + j) * TILE + swz<DQK>(r, c), k + row * DQK + c * 8,
+                 s < S);
+      if (DV == DQK || c < CHV)
+        cp_async16(sV + (stage * KS + j) * TILEV + swz<DV>(r, c), v + row * DV + c * 8,
+                   s < S);
     }
   };
   // at dh 256 each warp stages its own 16 Q rows (zero past Tq) with the
   // first step's tiles; they have landed when that step's wait returns
-  bf16* sQ = sV + NS * KS * TILE + warp * 16 * DH;    // [16][DH], swizzled
+  bf16* sQ = sV + NS * KS * TILEV + warp * 16 * DQK;  // [16][DQK], swizzled
   if constexpr (QS) {
     for (int i = lane; i < 16 * CH; i += 32) {
       const int r = i / CH, c = i % CH, row = t0 + r;
-      cp_async16(sQ + swz<DH>(r, c),
-                 q + ((static_cast<size_t>(b) * Tq + min(row, Tq - 1)) * H + h) * DH + c * 8,
+      cp_async16(sQ + swz<DQK>(r, c),
+                 q + ((static_cast<size_t>(b) * Tq + min(row, Tq - 1)) * H + h) * DQK + c * 8,
                  row < Tq);
     }
   }
@@ -239,14 +257,14 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
   }
 
-  // Q fragments (A operand, 16 rows x DH) straight from global memory
+  // Q fragments (A operand, 16 rows x DQK) straight from global memory
   const int ra = t0 + gr, rb = ra + 8;                // this lane's two rows
   const int lo[2] = {first_key(ra + shift, window, chunk),
                      first_key(rb + shift, window, chunk)};
   uint32_t qf[QS ? 1 : KC][4];
   if constexpr (!QS) {
-    const bf16* qa = q + ((static_cast<size_t>(b) * Tq + ra) * H + h) * DH + 2 * tq;
-    const bf16* qb = q + ((static_cast<size_t>(b) * Tq + rb) * H + h) * DH + 2 * tq;
+    const bf16* qa = q + ((static_cast<size_t>(b) * Tq + ra) * H + h) * DQK + 2 * tq;
+    const bf16* qb = q + ((static_cast<size_t>(b) * Tq + rb) * H + h) * DQK + 2 * tq;
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       qf[kk][0] = ra < Tq ? ld32(qa + 16 * kk) : 0u;
@@ -269,7 +287,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = (tile0 + step * KS + kg) * BK;
     if (k0 < wend && k0 + BK > wbeg) {                // warp-uniform
       const bf16* Ks = sK + ((step % NS) * KS + kg) * TILE;
-      const bf16* Vs = sV + ((step % NS) * KS + kg) * TILE;
+      const bf16* Vs = sV + ((step % NS) * KS + kg) * TILEV;
 
       float sc[NJ][4];
 #pragma unroll
@@ -278,12 +296,12 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int p = 0; p < KC / 2; ++p) {            // 32 dh each
           uint32_t qa[2][4];                          // k-steps 2p and 2p + 1
-          ldsm_x4(qa[0], sQ + swz<DH>(lane & 15, 4 * p + (lane >> 4)));
-          ldsm_x4(qa[1], sQ + swz<DH>(lane & 15, 4 * p + 2 + (lane >> 4)));
+          ldsm_x4(qa[0], sQ + swz<DQK>(lane & 15, 4 * p + (lane >> 4)));
+          ldsm_x4(qa[1], sQ + swz<DQK>(lane & 15, 4 * p + 2 + (lane >> 4)));
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {              // 8 keys each
             uint32_t kb[4];
-            ldsm_x4(kb, Ks + swz<DH>(8 * j + (lane & 7), 4 * p + (lane >> 3)));
+            ldsm_x4(kb, Ks + swz<DQK>(8 * j + (lane & 7), 4 * p + (lane >> 3)));
             mma_bf16(sc[j], qa[0], kb[0], kb[1]);
             mma_bf16(sc[j], qa[1], kb[2], kb[3]);
           }
@@ -295,7 +313,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int p = 0; p < KC / 2; ++p) {          // 32 dh each
             uint32_t kb[4];
             const int r = 8 * j + (lane & 7);
-            ldsm_x4(kb, Ks + swz<DH>(r, 4 * p + (lane >> 3)));
+            ldsm_x4(kb, Ks + swz<DQK>(r, 4 * p + (lane >> 3)));
             mma_bf16(sc[j], qf[2 * p], kb[0], kb[1]);
             mma_bf16(sc[j], qf[2 * p + 1], kb[2], kb[3]);
           }
@@ -359,7 +377,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int n2 = 0; n2 < NO / 2; ++n2) {         // 16 output columns each
           uint32_t vb[4];
           const int r = 16 * kc + (lane & 7) + 8 * ((lane >> 3) & 1);
-          ldsm_x4_trans(vb, Vs + swz<DH>(r, 2 * n2 + (lane >> 4)));
+          ldsm_x4_trans(vb, Vs + swz<DV>(r, 2 * n2 + (lane >> 4)));
           mma_bf16(o[2 * n2], pf[kc], vb[0], vb[1]);
           mma_bf16(o[2 * n2 + 1], pf[kc], vb[2], vb[3]);
         }
@@ -415,7 +433,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int row = i ? rb : ra;
     if (row >= Tq) continue;
-    bf16* dst = out + ((static_cast<size_t>(b) * Tq + row) * H + h) * DH + 2 * tq;
+    bf16* dst = out + ((static_cast<size_t>(b) * Tq + row) * H + h) * DV + 2 * tq;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(dst + 8 * n) =
@@ -423,7 +441,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DH>
+template <int DQK, int DV>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Tq,
                int S, int H, int KV, int window, int chunk, float scale,
                cudaStream_t stream) {
@@ -434,9 +452,9 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_mma_kernel<DH>,
+      err = cudaFuncSetAttribute(flash_mma_kernel<DQK, DV>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(mma_smem_bytes<DH>(kMaxKS<DH>)));
+                                 static_cast<int>(mma_smem_bytes<DQK, DV>(kMaxKS<DQK>)));
     if (err != cudaSuccess) {
       n_sm = 0;
       return static_cast<int>(err);
@@ -455,11 +473,11 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   // of 4 blocks' worth per SM, never past the number of key tiles
   const long long blocks = static_cast<long long>(grid.x) * grid.y * grid.z;
   int ks = 1;
-  while (2 * ks <= kMaxKS<DH> && 2 * ks <= (S + kBK<DH> - 1) / kBK<DH> &&
+  while (2 * ks <= kMaxKS<DQK> && 2 * ks <= (S + kBK<DQK> - 1) / kBK<DQK> &&
          blocks * 2 * ks <= 4LL * n_sm)
     ks *= 2;
-  const size_t bytes = mma_smem_bytes<DH>(ks);
-  flash_mma_kernel<DH><<<grid, 32 * hb * (rq / 16) * ks, bytes, stream>>>(
+  const size_t bytes = mma_smem_bytes<DQK, DV>(ks);
+  flash_mma_kernel<DQK, DV><<<grid, 32 * hb * (rq / 16) * ks, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, S, H, KV, rq, hb, ks,
       window, chunk, scale * 1.4426950408889634f);
@@ -470,28 +488,36 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
 constexpr int kThreads = 256;
 constexpr int BQ = 64, BK = 64;
 
-template <int DH>
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (DH + 1) + BK * (DH + 1) + BK * DH + BQ * (BK + 1));
+  return sizeof(float) * (BQ * (DQK + 1) + BK * (DQK + 1) + BK * DV + BQ * (BK + 1));
 }
 
-template <int DH>
+// the most of n (<= 8) that divides n: 16-byte loads in flight together
+__host__ __device__ constexpr int in_flight(int n) {
+  int nb = n < 8 ? n : 8;
+  while (n % nb) --nb;
+  return nb;
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int Tq, int S,
                  int H, int KV, int window, int chunk, float scale) {
   using T = float;
-  constexpr int CPT = DH / 16;                        // output columns per thread
+  constexpr int DH = DQK;                             // Q and K rows
+  constexpr int CPT = DV / 16;                        // output columns per thread
   constexpr int VEC = kVec<T>;
-  constexpr int NV = BQ * DH / VEC / kThreads;        // 16-byte loads per tile per thread
-  constexpr int NB = NV > 8 ? 8 : NV;                 // of them in flight together
-  static_assert(BQ == BK && NV * VEC * kThreads == BQ * DH && NV % NB == 0,
+  constexpr int NV = BQ * DH / VEC / kThreads;        // 16-byte loads per Q / K tile per thread
+  constexpr int NB = in_flight(NV);                   // of them in flight together
+  static_assert(BQ == BK && NV * VEC * kThreads == BQ * DH && DV <= DH && DV % VEC == 0,
                 "a tile must split into whole 16-byte loads");
   extern __shared__ float smem[];
   float* sQ = smem;                                   // [BQ][DH + 1]
   float* sK = sQ + BQ * (DH + 1);                     // [BK][DH + 1]
-  float* sV = sK + BK * (DH + 1);                     // [BK][DH]
-  float* sP = sV + BK * DH;                           // [BQ][BK + 1]
+  float* sV = sK + BK * (DH + 1);                     // [BK][DV]
+  float* sP = sV + BK * DV;                           // [BQ][BK + 1]
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (H / KV);
@@ -537,24 +563,26 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) lo[i] = first_key(q0 + ty + 16 * i + shift, window, chunk);
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();                                  // last tile's shared reads are done
+    // the K and V elements of one key row from one thread, loads in flight
+    // together (as in the bf16 path); V's row has DV <= DH elements
 #pragma unroll
     for (int j0 = 0; j0 < NV; j0 += NB) {
       uint4 kr[NB], vr[NB];
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
-        const int i = (tid + (j0 + j) * kThreads) * VEC, s = k0 + i / DH;
+        const int i = (tid + (j0 + j) * kThreads) * VEC, s = k0 + i / DH, d = i % DH;
         kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);     // the ragged tail stages as 0
         if (s < S) {
-          const size_t off = ((static_cast<size_t>(b) * S + s) * KV + g) * DH + i % DH;
-          kr[j] = *reinterpret_cast<const uint4*>(k + off);
-          vr[j] = *reinterpret_cast<const uint4*>(v + off);
+          const size_t row = (static_cast<size_t>(b) * S + s) * KV + g;
+          kr[j] = *reinterpret_cast<const uint4*>(k + row * DH + d);
+          if (DV == DH || d < DV) vr[j] = *reinterpret_cast<const uint4*>(v + row * DV + d);
         }
       }
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
         const int i = (tid + (j0 + j) * kThreads) * VEC, r = i / DH, d = i % DH;
         widen16<T>(kr[j], &sK[r * (DH + 1) + d]);
-        widen16<T>(vr[j], &sV[r * DH + d]);
+        if (DV == DH || d < DV) widen16<T>(vr[j], &sV[r * DV + d]);
       }
     }
     __syncthreads();
@@ -610,7 +638,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * (BK + 1) + kk];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = sV[kk * DH + tx + 16 * c];
+      for (int c = 0; c < CPT; ++c) vv[c] = sV[kk * DV + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -623,27 +651,27 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int t = q0 + ty + 16 * i;
     if (t >= Tq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* o = out + ((static_cast<size_t>(b) * Tq + t) * H + h) * DH;
+    T* o = out + ((static_cast<size_t>(b) * Tq + t) * H + h) * DV;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c] * inv);
   }
 }
 
-template <int DH>
+template <int DQK, int DV>
 int launch_fma(const void* q, const void* k, const void* v, void* out, int B, int Tq,
                int S, int H, int KV, int window, int chunk, float scale,
                cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<DH>();
+  constexpr size_t bytes = smem_bytes<DQK, DV>();
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fma_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fma_kernel<DH><<<grid, kThreads, bytes, stream>>>(
+  flash_fma_kernel<DQK, DV><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Tq, S, H, KV, window, chunk,
       scale);
@@ -654,22 +682,25 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, int B, in
 
 // Returns a cudaError_t: 0 when the launch was accepted.  window and chunk
 // 0 is the causal mask; window > 0 the sliding one, chunk > 0 the chunked
-// one (not both).
+// one (not both).  dh is q's and k's head dim, dv v's and out's; a pair the
+// kernels are not built for is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int Tq, int S, int H, int KV,
-                                      int dh, int window, int chunk, float scale,
+                                      int dh, int dv, int window, int chunk, float scale,
                                       int is_bf16, void* stream) {
   if (B < 1 || Tq < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535 ||
       window < 0 || chunk < 0 || (window > 0 && chunk > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh * 2 + (is_bf16 ? 1 : 0)) {
-    case 129: return launch_mma<64>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
-    case 128: return launch_fma<64>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
-    case 257: return launch_mma<128>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
-    case 256: return launch_fma<128>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
-    case 513: return launch_mma<256>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
-    case 512: return launch_fma<256>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool bf = is_bf16 != 0;
+#define FLASH_CASE(DQK, DV)                                                              \
+  if (dh == DQK && dv == DV)                                                             \
+    return bf ? launch_mma<DQK, DV>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st) \
+              : launch_fma<DQK, DV>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
+  FLASH_CASE(64, 64)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(256, 256)
+  FLASH_CASE(192, 128)
+#undef FLASH_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

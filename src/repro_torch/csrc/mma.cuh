@@ -62,11 +62,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // at one logical chunk land in 8 distinct 16-byte bank groups: f(r) = r & 7
 // for rows of 128 bytes or more, and for a row of 64 or 32 bytes the rows
 // that share a 128-byte line are told apart by the bits above them.  A
-// 16-byte row needs no swizzle: 8 rows already span all 32 banks.
+// 16-byte row needs no swizzle: 8 rows already span all 32 banks.  A row
+// of 128 bytes or more may hold any multiple of 8 chunks (MLA's 192- and
+// 576-wide rows): the XOR keeps c within its aligned group of 8.
 template <int ROW>
 __device__ __forceinline__ int swz(int r, int c) {
   constexpr int CH = ROW / 8;
-  static_assert(ROW % 8 == 0 && (CH & (CH - 1)) == 0, "rows of 2^n 16-byte chunks");
+  static_assert(ROW % 8 == 0 && ((CH & (CH - 1)) == 0 || CH % 8 == 0),
+                "rows of 2^n 16-byte chunks, or of a multiple of 8");
   constexpr int MASK = (CH < 8 ? CH : 8) - 1;
   constexpr int SHIFT = CH >= 8 ? 0 : CH == 4 ? 1 : CH == 2 ? 2 : 3;
   return (r * CH + (c ^ ((r >> SHIFT) & MASK))) * 8;

@@ -34,11 +34,12 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gram import cosine_gram
 from repro_torch.kernels.lora_matmul import lora_matmul
+from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.kernels.selective_scan import selective_scan
 
 #: every kernel wrapper's launch counter, which replays keep exact
 COUNTED = (decode_attention, flash_attention, cosine_gram, lora_matmul,
-           selective_scan)
+           selective_scan, mla_decode)
 
 
 @dataclass

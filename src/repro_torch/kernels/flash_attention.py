@@ -3,9 +3,12 @@
 its gradient.
 
 ``flash_attention(q, k, v, window=0, chunk=0)`` takes the layout
-``blockwise_attention`` uses -- q (B, T, H, dh), k / v (B, S, KV, dh),
-query head h reading KV head h // (H // KV), dh 64, 128 or 256 -- and
-returns (B, T, H, dh) in q's dtype.  The mask is causal, aligned
+``blockwise_attention`` uses -- q (B, T, H, dh), k (B, S, KV, dh), v (B,
+S, KV, dv), query head h reading KV head h // (H // KV) -- and returns
+(B, T, H, dv) in q's dtype.  (dh, dv) is one of ``HEAD_DIM_PAIRS``: dh
+64, 128 or 256 with dv == dh, or DeepSeek-V2's MLA prefill, q.k heads of
+192 (128 nope + 64 rope) and v heads of 128; any other pair raises (K and
+V are never padded to a wider built case).  The mask is causal, aligned
 bottom-right (``k <= q + (S - T)``); with ``window`` > 0 it is
 ``blockwise_attention``'s sliding kind, which also drops a key that lies
 ``window`` or more behind the query (``q + (S - T) - k < window``): the
@@ -37,23 +40,26 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
-#: head dims the kernel is built for
+#: head dims the kernel is built for with dv == dh
 HEAD_DIMS = (64, 128, 256)
+#: the (q.k, v) head-dim pairs the kernel is built for
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 
 
 def _check(q, k, v, window: int, chunk: int = 0) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: want q (B, T, H, dh) and k, v "
-                         f"(B, S, KV, dh); got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention: want q (B, T, H, dh), k (B, S, "
+                         f"KV, dh) and v (B, S, KV, dv); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, _, h, dh = q.shape
     n_kv = k.shape[2]
     if k.shape[0] != b or k.shape[3] != dh or h % n_kv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
                          f"match k {tuple(k.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes dh 64, 128 or 256; "
-                         f"got {dh}")
+    if (dh, v.shape[3]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention kernel takes (dh, dv) in "
+                         f"{HEAD_DIM_PAIRS}; got ({dh}, {v.shape[3]})")
     for name, n in (("window", window), ("chunk", chunk)):
         if not isinstance(n, int) or n < 0:
             raise ValueError(f"flash_attention: {name} must be an int >= 0 "
@@ -83,12 +89,12 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"kernels launch on cuda:0)")
     _check(q, k, v, window, chunk)
     b, t, h, dh = q.shape
-    s, n_kv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    s, n_kv, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = q.new_empty((b, t, h, dv))
     lib = _build.load("flash_attention")
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, s, h,
-        n_kv, dh, window, chunk, float(dh ** -0.5),
+        n_kv, dh, dv, window, chunk, float(dh ** -0.5),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attention", err)
@@ -121,4 +127,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 
-__all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS",
+           "HEAD_DIM_PAIRS"]

@@ -2,7 +2,9 @@
 
 Each wrapper in ``kernels/`` sends a CPU tensor here; on the card
 ``chip_smoke.py`` holds the CUDA kernel against these on the same inputs.
-They mirror the JAX oracles in ``repro/kernels/ref.py``.  ``cosine_gram_ref``
+They mirror the JAX oracles in ``repro/kernels/ref.py``; ``mla_decode_ref``,
+whose kernel replaces no Pallas kernel, mirrors the jnp einsums of
+``repro.models.attention.mla_decode_slots``.  ``cosine_gram_ref``
 also takes a stack (K, B, D) of node batches, and ``lora_matmul_ref`` has
 no scale (every caller of the JAX ``linear`` uses 1).  The attention
 versions differ from the JAX oracles in two deliberate ways, both of
@@ -86,8 +88,10 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, window: int = 0, chunk: int = 0) -> torch.Tensor:
     """Causal (``window`` and ``chunk`` 0), sliding-window or chunked
-    full-sequence attention.  q: (B, T, H, dh); k, v: (B, S, KV, dh) with
-    H = KV * rep.  Returns (B, T, H, dh)."""
+    full-sequence attention.  q: (B, T, H, dh); k: (B, S, KV, dh) and v
+    (B, S, KV, dv) with H = KV * rep; dv may differ from dh (MLA's q.k
+    heads of 192 and v heads of 128), and the scores are scaled by
+    dh^-0.5 all the same.  Returns (B, T, H, dv)."""
     _check_mask(window, chunk)
     b, t, h, dh = q.shape
     s, n_kv = k.shape[1], k.shape[2]
@@ -104,7 +108,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ok = ok & (ki >= _chunk_start(qa, chunk))
     ok = ok.expand(b, n_kv, rep, t, s)
     out = _masked_softmax_av(sc, ok, "bgrts,bsgd->btgrd", v)
-    return out.reshape(b, t, h, dh).to(q.dtype)
+    return out.reshape(b, t, h, v.shape[-1]).to(q.dtype)
+
+
+def mla_decode_ref(q_c: torch.Tensor, q_rope: torch.Tensor,
+                   c_kv: torch.Tensor, k_rope: torch.Tensor,
+                   lens: torch.Tensor, scale: float) -> torch.Tensor:
+    """Absorbed MLA decode over the latent pool: every query head of a
+    slot reads the slot's one latent row per position, which is both its
+    key (with the rope key beside it) and its value.
+    q_c: (S, H, kvr); q_rope: (S, H, rd); c_kv: (S, C, kvr); k_rope:
+    (S, C, rd); lens: (S,) int32.  Entry c of slot s is visible when
+    ``c <= lens[s]`` (so at ``lens == C`` all C are).  Scores
+    ``(q_c . c_kv + q_rope . k_rope) * scale``, the softmax and the
+    weighted sum of ``c_kv`` run in float32; returns (S, H, kvr) in q's
+    dtype."""
+    sc = (torch.einsum("shc,snc->shn", q_c.float(), c_kv.float())
+          + torch.einsum("shd,snd->shn", q_rope.float(), k_rope.float())
+          ) * scale
+    n = torch.arange(c_kv.shape[1], device=c_kv.device)
+    ok = (n[None, :] <= lens.to(torch.int64)[:, None])[:, None, :]
+    out = _masked_softmax_av(sc, ok.expand_as(sc), "shn,snc->shc", c_kv)
+    return out.to(q_c.dtype)
 
 
 def cosine_gram_ref(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -174,6 +199,6 @@ def selective_scan_chunked_ref(da: torch.Tensor, dbx: torch.Tensor,
     return h_all, h
 
 
-__all__ = ["decode_attention_ref", "flash_attention_ref", "cosine_gram_ref",
-           "lora_matmul_ref", "selective_scan_ref",
+__all__ = ["decode_attention_ref", "flash_attention_ref", "mla_decode_ref",
+           "cosine_gram_ref", "lora_matmul_ref", "selective_scan_ref",
            "selective_scan_chunked_ref"]

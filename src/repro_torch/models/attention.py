@@ -1,5 +1,6 @@
-"""GQA attention: prefill and training through the flash kernel (which
-carries a gradient), slot decode through the decode kernel.
+"""GQA and MLA attention: prefill and training through the flash kernel
+(which carries a gradient), slot decode through the decode kernel (GQA)
+or the absorbed-MLA decode kernel (MLA).
 
 Ports ``make_gqa``, ``_qkv``, ``gqa_forward`` and ``gqa_decode_slots`` from
 ``repro.models.attention`` for the ``causal`` kind, the ``sliding`` kind
@@ -7,8 +8,24 @@ with its window (the dense family's sliding-window variant and the
 hybrid family's local attention) and the ``chunked`` kind with its chunk
 (llama4's local attention: a key is seen when it is causal and lies in
 the query's chunk of ``window`` positions); under the last two the
-decode cache is a ring.  The ``full`` kind, cross attention and MLA are
-later slices and raise ``NotImplementedError``.
+decode cache is a ring.  The ``full`` kind and cross attention are later
+slices and raise ``NotImplementedError``.
+
+Also DeepSeek-V2's multi-head latent attention [arXiv:2405.04434]:
+``make_mla``, ``_mla_q``, ``_mla_ckv``, ``mla_forward``,
+``init_mla_cache`` and ``mla_decode_slots``, with the reference's trees
+and arithmetic.  The prefill up-projects K and V from the latent
+``c_kv`` with ``w_ukv`` (one ``torch.matmul`` over the whole sequence,
+where the reference up-projects block by block inside its scan),
+broadcasts the rope key over the heads into K's last ``rope_head_dim``
+values and runs the causal flash kernel at q.k heads of nope + rope and
+v heads of ``v_head_dim`` (192 and 128 at full size); the scores are
+scaled by (nope + rope)^-0.5 as in the reference.  The decode keeps the
+cache compressed -- per position one latent row of ``kv_lora_rank``
+values and one rope key -- and absorbs ``w_uk`` into the query (``q_c``)
+and ``w_uv`` into the output, so the ``mla_decode`` kernel attends over
+the latent rows themselves.  The single-position ``mla_decode`` belongs
+to ``decode_step`` and comes with it.
 """
 from __future__ import annotations
 
@@ -19,6 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.models.common import (apply_rope, linear, make_linear,
                                        make_rms_norm, rms_norm)
 
@@ -131,4 +149,150 @@ def gqa_decode_slots(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     return o, new_cache
 
 
-__all__ = ["make_gqa", "gqa_forward", "gqa_decode_slots"]
+# ======================================================================
+# DeepSeek-V2 MLA [arXiv:2405.04434]
+def make_mla(gen: torch.Generator, cfg: ModelConfig, dtype, *, batch=(),
+             device=None) -> dict:
+    """MLA's parameters, the reference's tree: a low-rank query
+    (``wq_a``, ``q_norm``, ``wq_b``) when ``q_lora_rank`` > 0, else
+    ``wq``; the joint KV down-projection ``w_dkv`` (latent and rope key),
+    ``kv_norm``, the up-projection ``w_ukv`` (K's nope part and V per
+    head) and ``wo``."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+    kw = dict(batch=batch, device=device)
+    p = {}
+    if m.q_lora_rank:
+        p["wq_a"] = make_linear(gen, d, m.q_lora_rank, dtype, **kw)
+        p["q_norm"] = make_rms_norm(m.q_lora_rank, dtype, **kw)
+        p["wq_b"] = make_linear(gen, m.q_lora_rank, h * qd, dtype, **kw)
+    else:
+        p["wq"] = make_linear(gen, d, h * qd, dtype, **kw)
+    p["w_dkv"] = make_linear(gen, d, m.kv_lora_rank + m.rope_head_dim,
+                             dtype, **kw)
+    p["kv_norm"] = make_rms_norm(m.kv_lora_rank, dtype, **kw)
+    p["w_ukv"] = make_linear(gen, m.kv_lora_rank,
+                             h * (m.nope_head_dim + m.v_head_dim), dtype,
+                             **kw)
+    p["wo"] = make_linear(gen, h * m.v_head_dim, d, dtype, **kw)
+    return p
+
+
+def _mla_q(p: dict, x: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor):
+    """(q_nope (B, T, H, nope), rope'd q_rope (B, T, H, rd))."""
+    m = cfg.mla
+    b, t = x.shape[:2]
+    qd = m.nope_head_dim + m.rope_head_dim
+    if "wq_a" in p:
+        ql = rms_norm(linear(x, p["wq_a"]), p["q_norm"]["scale"],
+                      cfg.norm_eps)
+        q = linear(ql, p["wq_b"]).reshape(b, t, cfg.n_heads, qd)
+    else:
+        q = linear(x, p["wq"]).reshape(b, t, cfg.n_heads, qd)
+    q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(p: dict, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor):
+    """(normed latent c_kv (B, T, kvr), rope'd k_rope (B, T, rd))."""
+    m = cfg.mla
+    c_kv, k_rope = linear(x, p["w_dkv"]).split(
+        [m.kv_lora_rank, m.rope_head_dim], dim=-1)
+    c_kv = rms_norm(c_kv, p["kv_norm"]["scale"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[..., None, :], positions,
+                        cfg.rope_theta)[..., 0, :]
+    return c_kv, k_rope
+
+
+def mla_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                positions: Optional[torch.Tensor] = None,
+                return_kv: bool = False):
+    """Train / prefill MLA, causal, x: (B, T, d_model); differentiable.
+    K / V are up-projected from the latent once and attended through the
+    flash kernel at (nope + rope, v_head_dim); ``positions`` feed RoPE
+    only (the mask is by index) and must run 0..T-1 as in prefill.
+    Under ``return_kv`` also returns the cache entries ``{"c_kv": (B, T,
+    kvr), "k_rope": (B, T, rd)}``."""
+    m = cfg.mla
+    b, t = x.shape[:2]
+    h = cfg.n_heads
+    if positions is None:
+        positions = torch.arange(t, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, t)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_ckv(p, x, cfg, positions)
+    kv = (c_kv @ p["w_ukv"]["w"].to(c_kv.dtype)).reshape(
+        b, t, h, m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.nope_head_dim, m.v_head_dim], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, t, h, m.rope_head_dim)], dim=-1)
+    out = flash_attention(q, k, v.contiguous())
+    y = linear(out.reshape(b, t, h * m.v_head_dim), p["wo"])
+    if return_kv:
+        return y, {"c_kv": c_kv, "k_rope": k_rope}
+    return y
+
+
+def init_mla_cache(batch: int, cache_len: int, cfg: ModelConfig, dtype,
+                   device=None) -> dict:
+    """An empty single-sequence MLA cache, as the reference's: latents and
+    rope keys of ``cache_len`` positions and the scalar ``len``."""
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, cache_len, m.rope_head_dim),
+                                  dtype=dtype, device=device),
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _write_at(buf: torch.Tensor, lens: torch.Tensor,
+              new: torch.Tensor) -> None:
+    """``buf[s, lens[s]] = new[s]`` in place, with the reference's rule for
+    an index past the buffer (``lens[s] >= C``): the write is dropped, as
+    JAX drops an out-of-bounds scatter.  No host read: the row at
+    min(lens, C - 1) is rewritten with its own value there."""
+    c = buf.shape[1]
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    idx = lens.clamp(max=c - 1).long()
+    keep = (lens < c)[:, None]
+    buf[rows, idx] = torch.where(keep, new.to(buf.dtype), buf[rows, idx])
+
+
+def mla_decode_slots(p: dict, x: torch.Tensor, cache: dict,
+                     cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+    """Absorbed MLA decode with PER-SLOT positions (the serving pool).
+    x: (S, 1, d_model); cache: ``c_kv`` (S, C, kvr), ``k_rope`` (S, C,
+    rd), ``lens`` (S,) int32.  Slot s writes its new latent and rope key
+    at index ``lens[s]`` of the linear buffer, unclamped (at ``lens ==
+    C`` the write is dropped, as in the reference), IN PLACE into the
+    cache tensors, and attends at query position ``lens[s]`` over the
+    entries ``c <= lens[s]`` through the ``mla_decode`` kernel; the
+    returned dict holds the same tensors and ``lens + 1``."""
+    m = cfg.mla
+    b, h = x.shape[0], cfg.n_heads
+    lens = cache["lens"]                                  # (S,) int32
+    positions = lens[:, None]                             # (S, 1)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_new, kr_new = _mla_ckv(p, x, cfg, positions)
+    _write_at(cache["c_kv"], lens, c_new[:, 0])
+    _write_at(cache["k_rope"], lens, kr_new[:, 0])
+    w_ukv = p["w_ukv"]["w"].reshape(m.kv_lora_rank, h,
+                                    m.nope_head_dim + m.v_head_dim)
+    w_uk = w_ukv[..., :m.nope_head_dim]                   # (kvr, h, nope)
+    w_uv = w_ukv[..., m.nope_head_dim:]                   # (kvr, h, v)
+    q_c = torch.einsum("bthd,chd->bhc", q_nope, w_uk.to(q_nope.dtype))
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    o_c = mla_decode(q_c.contiguous(), q_rope[:, 0].contiguous(),
+                     cache["c_kv"], cache["k_rope"], lens, scale)
+    out = torch.einsum("bhc,chd->bhd", o_c, w_uv.to(o_c.dtype))
+    new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
+                 "lens": lens + 1}
+    return linear(out.reshape(b, 1, h * m.v_head_dim), p["wo"]), new_cache
+
+
+__all__ = ["make_gqa", "gqa_forward", "gqa_decode_slots", "make_mla",
+           "mla_forward", "init_mla_cache", "mla_decode_slots"]

@@ -13,11 +13,17 @@ loop where JAX scans.
   ``Runtime(window_override=)`` (the family's sliding-window variant), or
   chunked under ``cfg.attention_chunk`` (llama4); the decode cache is
   then a ring of the window's or chunk's width.
-- moe (Llama-4-Scout): the dense block with the MoE FFN of
+- moe (Llama-4-Scout, DeepSeek-V2): the dense block with the MoE FFN of
   ``models/moe.py`` (capacity routing over the routed experts, plus the
-  shared expert) in place of the SwiGLU; ``forward`` returns the
+  shared experts) in place of the SwiGLU; ``forward`` returns the
   router's ``load_balance`` and ``router_z``, each the mean over the
-  layers (0 for the other families, as in the reference).
+  layers (0 for the other families, as in the reference).  Under
+  ``cfg.mla`` (DeepSeek-V2) the block's attention is MLA
+  (``attention.make_mla`` / ``mla_forward`` / ``mla_decode_slots``,
+  always causal) and the decode cache holds the compressed latents:
+  ``{"c_kv": (L, B, C, kv_lora_rank), "k_rope": (L, B, C,
+  rope_head_dim), "len"}``, a linear buffer indexed by position, with no
+  ``pos`` leaf.
 - ssm (Falcon-Mamba): one pre-norm Mamba mixer a layer, whose cache is its
   recurrent state.
 - hybrid (RecurrentGemma): ``groups`` stacks the repeated block pattern
@@ -26,9 +32,8 @@ loop where JAX scans.
   SwiGLU, an attention block pre-norm local (sliding, width
   ``cfg.rglru.local_window``) GQA and SwiGLU, its cache a ring.
 
-The other families (vlm, audio), MLA (DeepSeek-V2's moe) and the
-single-position ``decode_step`` are later slices and raise
-``NotImplementedError``.
+The other families (vlm, audio) and the single-position ``decode_step``
+are later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -79,11 +84,11 @@ def _attn_kind(cfg: ModelConfig, rt: Runtime) -> Tuple[str, int]:
 def _check_supported(cfg: ModelConfig, rt: Optional[Runtime]) -> Runtime:
     """Raise on what the port does not run yet; returns the runtime."""
     if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.mla is not None):
+            or (cfg.mla is not None and cfg.family != "moe")):
         raise NotImplementedError(
             f"family {cfg.family!r}{' with MLA' if cfg.mla else ''}: the "
-            f"port runs the dense, moe (without MLA), ssm and hybrid "
-            f"families; the others come in later slices")
+            f"port runs the dense, moe (with or without MLA), ssm and "
+            f"hybrid families; the others come in later slices")
     return rt or _RT
 
 
@@ -104,11 +109,12 @@ def _hybrid_shape(cfg: ModelConfig) -> Tuple[tuple, int, int]:
 # ======================================================================
 # init
 def _dense_block(gen, cfg: ModelConfig, dtype, batch, dev) -> dict:
-    """Pre-norm attention and FFN: the MoE FFN for the moe family, else a
-    SwiGLU."""
+    """Pre-norm attention (MLA under ``cfg.mla``, else GQA) and FFN: the
+    MoE FFN for the moe family, else a SwiGLU."""
     d, kw = cfg.d_model, dict(batch=batch, device=dev)
+    make_attn = attn.make_mla if cfg.mla is not None else attn.make_gqa
     p = {"ln1": make_rms_norm(d, dtype, **kw),
-         "attn": attn.make_gqa(gen, cfg, dtype, **kw),
+         "attn": make_attn(gen, cfg, dtype, **kw),
          "ln2": make_rms_norm(d, dtype, **kw)}
     if cfg.family == "moe":
         p["moe"] = moe.make_moe(gen, cfg, dtype, **kw)
@@ -186,11 +192,16 @@ def _ffn(bp: dict, h: torch.Tensor, cfg: ModelConfig):
 
 def _attn_block(bp: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, kind: str, window: int, collect: bool):
-    """Pre-norm GQA attention and the FFN (SwiGLU or MoE); returns (x,
-    rope'd K/V or None, the router's aux values or None)."""
+    """Pre-norm attention (GQA, or MLA under ``cfg.mla``) and the FFN
+    (SwiGLU or MoE); returns (x, the cache entry or None -- rope'd K/V,
+    or MLA's latent and rope key --, the router's aux values or None)."""
     h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-    h = attn.gqa_forward(bp["attn"], h, cfg, kind=kind, window=window,
-                         positions=positions, return_kv=collect)
+    if cfg.mla is not None:
+        h = attn.mla_forward(bp["attn"], h, cfg, positions=positions,
+                             return_kv=collect)
+    else:
+        h = attn.gqa_forward(bp["attn"], h, cfg, kind=kind, window=window,
+                             positions=positions, return_kv=collect)
     h, kv = h if collect else (h, None)
     x = x + h
     h, aux = _ffn(bp, rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps), cfg)
@@ -334,6 +345,9 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
     "len": ()}``, empty entries at the position sentinel -- under a
     sliding window or a chunk a ring of its width (``cache_len`` is then
     not read);
+    under ``cfg.mla`` the latents ``{"c_kv": (L, B, C, kv_lora_rank),
+    "k_rope": (L, B, C, rope_head_dim), "len": ()}``, grown to
+    ``cache_len`` with zeros;
     for the ssm family the stacked final states ``{"h": (L, B, d_inner, N)
     f32, "conv": (L, B, K - 1, d_inner), "len": ()}``; for the hybrid
     family ``{"groups": {"b{i}": ...}, "tail": [...], "len": ()}``, each
@@ -352,6 +366,14 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
                         "conv": torch.stack([st["conv"] for st in caches]),
                         "len": length}
     target = max(cache_len if cache_len is not None else s + 1024, s)
+    if cfg.mla is not None:
+        def grow(t):
+            out = t.new_zeros((t.shape[0], target) + tuple(t.shape[2:]))
+            out[:, :s] = t
+            return out
+        cache = {name: torch.stack([grow(c[name]) for c in caches])
+                 for name in ("c_kv", "k_rope")}
+        return logits, dict(cache, len=length)
     if cfg.family in ("dense", "moe"):
         cache = _pack_kv([kv["k"] for kv in caches],
                          [kv["v"] for kv in caches], positions,
@@ -410,8 +432,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
     """An empty decode cache for ``batch`` sequences (default ``cuda``), as
     ``prefill`` shapes it: for the dense and moe families a linear buffer
     of ``cache_len`` or, under a sliding window or a chunk, a ring of
-    min(cache_len, its width); for the ssm family zero states; for the hybrid family zero
-    RG-LRU states and rings of min(cache_len, local_window)."""
+    min(cache_len, its width) -- under ``cfg.mla`` zero latents ``c_kv``
+    (L, batch, C, kv_lora_rank) and rope keys ``k_rope`` (L, batch, C,
+    rope_head_dim), C as the reference reckons it --; for the ssm family
+    zero states; for the hybrid family zero RG-LRU states and rings of
+    min(cache_len, local_window)."""
     rt = _check_supported(cfg, rt)
     dev = resolve_device(device)
     if cfg.family == "ssm":
@@ -430,7 +455,12 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
     else:
         window = _attn_kind(cfg, rt)[1]
         eff_len = min(cache_len, window) if window else cache_len
-        c = _empty_kv(cfg, (cfg.n_layers, batch), eff_len, dev)
+        if cfg.mla is not None:
+            one = attn.init_mla_cache(batch, eff_len, cfg, _dtype(cfg), dev)
+            c = {k: one[k].expand(cfg.n_layers, *one[k].shape).contiguous()
+                 for k in ("c_kv", "k_rope")}
+        else:
+            c = _empty_kv(cfg, (cfg.n_layers, batch), eff_len, dev)
     c["len"] = torch.zeros((), dtype=torch.int32, device=dev)
     return c
 
@@ -452,7 +482,8 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
 
     ``step_mask`` (S,) bool freezes masked slots: their position does not
     advance.  Attention writes at a frozen position are idempotent, so
-    K/V are written for every slot, as in the JAX package.  A recurrent
+    K/V (or MLA's latent and rope key) are written for every slot, as in
+    the JAX package.  A recurrent
     update is not idempotent: a masked slot's ssm or RG-LRU ``h`` and
     ``conv`` keep their bits (JAX's ``keep``), so a slot that resumes
     continues exactly.  The cache's K/V/pos, or h/conv, tensors are
@@ -465,8 +496,11 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
     def att_step(x, bp, lc, kind, window):
         lc = dict(lc, lens=lens)
         h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-        h, _ = attn.gqa_decode_slots(bp["attn"], h, lc, cfg, kind=kind,
-                                     window=window)
+        if cfg.mla is not None:
+            h, _ = attn.mla_decode_slots(bp["attn"], h, lc, cfg)
+        else:
+            h, _ = attn.gqa_decode_slots(bp["attn"], h, lc, cfg, kind=kind,
+                                         window=window)
         x = x + h
         h, _ = _ffn(bp, rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps), cfg)
         return x + h
@@ -496,9 +530,10 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
                 _keep(hs, new["h"], step_mask)
                 _keep(cs, new["conv"], step_mask)
                 continue
-            lc = {"k": cache["k"][i], "v": cache["v"][i],
-                  "pos": cache["pos"][i]}
-            x = att_step(x, bp, lc, kind, window)
+            names = ("c_kv", "k_rope") if cfg.mla is not None \
+                else ("k", "v", "pos")
+            x = att_step(x, bp, {n: cache[n][i] for n in names}, kind,
+                         window)
     new_lens = lens + 1 if step_mask is None \
         else torch.where(step_mask, lens + 1, lens)
     logits = _head(params, _final(params, x, cfg), cfg)

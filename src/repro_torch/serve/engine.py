@@ -2,7 +2,8 @@
 
 The port of ``repro.serve.engine.ServeEngine`` for the dense (with its
 sliding-window variant, ``rt=Runtime(window_override=)``), moe
-(Llama-4-Scout: MoE FFN, chunked attention), ssm and hybrid families:
+(Llama-4-Scout: MoE FFN, chunked attention; DeepSeek-V2: MoE FFN and
+MLA over a compressed latent pool), ssm and hybrid families:
 
   - the S request slots live in ONE device-resident cache pool
     (``serve.pool``) with per-slot positions, ``active`` / ``stopped``
@@ -46,7 +47,10 @@ always runs eagerly (the tests' path).  A capture that fails raises.
 For the dense and moe families every decode step launches the
 decode-attention kernel once per layer and every admission the flash
 kernel once per layer (the moe family's experts are ``torch.matmul``
-products, as in the reference, and launch no kernel of the port); for
+products, as in the reference, and launch no kernel of the port); under
+MLA (DeepSeek-V2) every admission launches the flash kernel once per
+layer at q.k 192 / v 128 and every decode step the ``mla_decode`` kernel
+once per layer, and no decode-attention kernel; for
 the ssm family every admission launches the selective-scan
 kernel once per layer, and a decode step's O(1) state update is plain
 PyTorch; for the hybrid family every admission launches the flash kernel

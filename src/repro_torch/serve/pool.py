@@ -5,9 +5,13 @@ slot axis, with one position per slot (``len`` (S,)) instead of the
 single-batch scalar, as in ``repro.serve.pool``.  Admitting a request is a
 scatter of its prefilled single-request cache into a free slot; the
 in-flight slots are not touched.  Layer-stacked leaves -- dense K/V/pos,
-ssm h/conv, the hybrid family's ``groups`` -- are (L, S, ...), so their
-slot axis is axis 1; the hybrid family's ``tail`` blocks are unstacked
-(S, ...), slot axis 0 (``_batch_axis``).  The port writes the slot in
+MLA's latent ``c_kv`` and rope key ``k_rope`` (DeepSeek-V2: (L, S, C,
+kvr) and (L, S, C, rd), no ``pos`` leaf), ssm h/conv, the hybrid family's
+``groups`` -- are (L, S, ...), so their slot axis is axis 1; the hybrid
+family's ``tail`` blocks are unstacked (S, ...), slot axis 0
+(``_batch_axis``).  ``scatter_slot``, ``gather_slot`` and the serve
+snapshots walk whatever leaves the cache holds, so the MLA pool rides
+them as it is.  The port writes the slot in
 place (the JAX package returns a new pool and donates the old one's
 buffers).
 """

@@ -210,16 +210,14 @@ def test_bf16_prefill_and_decode_close(tiny):
 
 
 @pytest.mark.parametrize("arch,over", [
-    ("deepseek-v2-236b", {}), ("phi-3-vision-4.2b", {}),
-    ("whisper-large-v3", {}),
-    ("llama4-scout-17b-a16e", {"mla": get_config("deepseek-v2-236b").mla})])
+    ("phi-3-vision-4.2b", {}), ("whisper-large-v3", {})])
 def test_later_slices_raise(arch, over):
-    """The vlm and audio families and MLA (DeepSeek-V2's moe, or any moe
-    model given MLA) are not ported yet: the port refuses them instead of
-    computing something else (sliding windows and the hybrid family are
-    served since slice 11, the moe family and chunked attention since
-    slice 13: ``tests/test_torch_hybrid.py`` and
-    ``tests/test_torch_chunked.py`` hold them against JAX)."""
+    """The vlm and audio families are not ported yet: the port refuses
+    them instead of computing something else (sliding windows and the
+    hybrid family are served since slice 11, the moe family and chunked
+    attention since slice 13, MLA since slice 14:
+    ``tests/test_torch_hybrid.py``, ``tests/test_torch_chunked.py`` and
+    ``tests/test_torch_mla.py`` hold them against JAX)."""
     from repro_torch.configs import reduced
     cfg = reduced(get_config(arch)).with_(**over)
     with pytest.raises(NotImplementedError):
@@ -228,17 +226,10 @@ def test_later_slices_raise(arch, over):
         TT.init_cache(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("arch,over", [
-    ("mistral-nemo-12b", {"sliding_window": 64, "attention_chunk": 64}),
-    ("mistral-nemo-12b", {"attention_chunk": 64}),
-    ("recurrentgemma-9b", {"attention_chunk": 64}),
-    ("llama4-scout-17b-a16e", {})])
-def test_chunk_and_moe_configs_build_like_jax(arch, over):
-    """Configs the port refused before slice 13 -- a chunk on the dense
-    family (with and without a sliding window, which wins, as in
-    ``_attn_kind``), on the hybrid (whose local attention ignores it), and
-    the moe family -- now give the reference's parameter and cache trees:
-    keys, shapes and dtypes."""
+def _builds_like_jax(arch, over):
+    """The port's ``init_params`` and ``init_cache`` trees on the reduced
+    ``arch`` (with ``over``) against the reference's: keys, shapes and
+    dtypes."""
     from repro.configs import reduced as jreduced
     from repro_torch.configs import reduced
     cfg = reduced(get_config(arch)).with_(**over)
@@ -254,6 +245,31 @@ def test_chunk_and_moe_configs_build_like_jax(arch, over):
     assert spec(bridge.params_to_numpy(
         TT.init_cache(cfg, 1, 8, device="cpu"))) == \
         spec(jax.eval_shape(lambda: JT.init_cache(jcfg, 1, 8)))
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("deepseek-v2-236b", {}),
+    ("llama4-scout-17b-a16e", {"mla": get_config("deepseek-v2-236b").mla})])
+def test_mla_configs_build_like_jax(arch, over):
+    """MLA (DeepSeek-V2's moe, and a moe model given DeepSeek-V2's MLA),
+    refused before slice 14, now gives the reference's parameter and
+    cache trees: ``make_mla``'s leaves in every block, and the latent
+    cache ``c_kv`` / ``k_rope`` with no ``pos`` leaf."""
+    _builds_like_jax(arch, over)
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("mistral-nemo-12b", {"sliding_window": 64, "attention_chunk": 64}),
+    ("mistral-nemo-12b", {"attention_chunk": 64}),
+    ("recurrentgemma-9b", {"attention_chunk": 64}),
+    ("llama4-scout-17b-a16e", {})])
+def test_chunk_and_moe_configs_build_like_jax(arch, over):
+    """Configs the port refused before slice 13 -- a chunk on the dense
+    family (with and without a sliding window, which wins, as in
+    ``_attn_kind``), on the hybrid (whose local attention ignores it), and
+    the moe family -- now give the reference's parameter and cache trees:
+    keys, shapes and dtypes."""
+    _builds_like_jax(arch, over)
 
 
 def test_config_copy_matches_jax_registry():

@@ -13,8 +13,8 @@ weights (JAX init -> numpy -> ``bridge``) and greedy decoding:
 - prompt + max_new + 1 > ``cache_len`` raises at admission, and a
   ``cache_len`` below the chunk fails at the first admission's scatter,
   in both packages;
-- MLA (DeepSeek-V2) and the ``full`` mask still raise
-  ``NotImplementedError``.
+- a reduced DeepSeek-V2 engine (MLA, served since slice 14) admits and
+  steps; the ``full`` mask still raises ``NotImplementedError``.
 """
 import dataclasses
 
@@ -179,13 +179,27 @@ def test_cache_length_rules_match_reference(models):
         _port(m, short).serve(_reqs(m, (20,)))
 
 
-def test_mla_and_full_mask_still_raise():
+def test_reduced_deepseek_engine_admits_and_steps():
+    """MLA, refused before slice 14: a ``ServeEngine`` on the reduced
+    DeepSeek-V2 (random weights from a seed) admits 3 requests into its
+    latent pool and steps them to completion (``tests/test_torch_serve_
+    mla.py`` holds the tokens against the JAX engine)."""
     cfg = reduced(get_config("deepseek-v2-236b"))
     assert cfg.family == "moe" and cfg.mla is not None
-    with pytest.raises(NotImplementedError, match="MLA"):
-        TT.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        ServeEngine(None, cfg, SCFG, device="cpu")
+    eng = ServeEngine(TT.init_params(0, cfg, device="cpu"), cfg,
+                      dataclasses.replace(SCFG, cache_len=64), device="cpu")
+    assert set(eng.state["cache"]) == {"c_kv", "k_rope", "len"}
+    reqs = poisson_requests(3, 0.0, prompt_len=20,
+                            vocab_size=cfg.vocab_size, seed=5)
+    recs = eng.serve(reqs)
+    assert all(recs[r.rid].state == "completed"
+               and len(recs[r.rid].tokens) == SCFG.max_new_tokens
+               for r in reqs)
+    assert eng.stats["admit_dispatches"] == 3
+    assert eng.stats["block_dispatches"] >= 1
+
+
+def test_full_mask_still_raises():
     scout = reduced(get_config(ARCH))
     attn0 = jax.tree_util.tree_map(
         lambda w: w[0], TT.init_params(0, scout, device="cpu")["blocks"]["attn"])
