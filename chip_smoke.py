@@ -53,9 +53,19 @@ non-zero and prints no result):
    gradient; (192, 192) refused) and the absorbed-MLA decode kernel
    ``mla_decode`` over its pool (S 8, C 4,352, H 128, latent 512 + rope
    64; slots at lens 0, 1, 511, 1,000, 2,049, 4,095, C - 1 and C, where
-   every entry is visible), S 1 at C 1, C 1,000 (no whole tiles), H 16, a
-   CUDA-graph replay bit for bit its eager call, H 24 and a 256-wide
-   latent refused.  Each is timed, in bf16 at each path's
+   every entry is visible: the wgmma design ``mla_plan`` picks), S 1 at C
+   1, C 1,000 (no whole tiles), H 64, all slots at lens 0, all at C, one
+   at C with seven at 0, S 64 at C 128, and the mma design at H 16
+   (with a pool that leaves most chunks empty), each in bf16 and f32 (the
+   FMA kernel); two eager calls and a CUDA-graph replay bit for bit; the
+   output read by the next kernel with no synchronisation between, at a
+   pool whose slots leave no piece and at the pool; H 24 and a 256-wide
+   latent refused; ptxas's registers, spills and each design's shared
+   memory printed; timed beside the mma design (``A B B
+   A``), with the plan's shares and pieces, and beside two SDPA calls:
+   ``enable_gqa``, and K / V expanded to H heads as views under the first
+   backend that takes them (efficient attention; ``library_ms``).  Each
+   is timed, in bf16 at each path's
    shapes (the scan in f32, as the prefill gives it), beside its
    plain version, its bound and a PyTorch yardstick the port never
    calls: one call where one computes the same function (SDPA, with a
@@ -134,7 +144,9 @@ non-zero and prints no result):
    full width, a ~1,000-token prompt and 8 decode steps against the CPU
    in f32 (cache_len 8,192): the card's f32 run must route every
    position to the CPU's expert (read from ``rms_norm``, ``gqa_forward``
-   and ``router_scores`` on both sides) and meet 1e-3 of max |logit|;
+   and ``router_scores`` on both sides for the prompt, from the decode
+   path's own router calls for the decode steps) and meet 1e-3 of max
+   |logit|;
    its bf16 run is held to 5e-2 at the positions that route (and keep or
    drop) as on the CPU, and the flips are printed.  Then MLA, after the
    same freeing: ``ServeEngine`` on deepseek-v2-236b at full width cut
@@ -281,7 +293,8 @@ from repro_torch.kernels.gram import (  # noqa: E402
 from repro_torch.kernels.lora_matmul import (  # noqa: E402
     _apply as lora_apply, lora_matmul, n_blocks as lora_blocks, tile_plan)
 from repro_torch.kernels.mla_decode import (  # noqa: E402
-    mla_decode, split_plan as mla_split_plan)
+    DESIGNS, launch_design, mla_decode, mla_plan, share_plan,
+    split_plan as mla_split_plan)
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     LANES, fold_steps, scan_plan, selective_scan)
 from repro_torch.graphs import COUNTED  # noqa: E402
@@ -291,6 +304,7 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     gqa_forward, mla_forward)
 from repro_torch.models.common import rms_norm  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import _capacity, router_scores  # noqa: E402
 from repro_torch.serve import (FaultPlan, ServeConfig,  # noqa: E402
                                ServeEngine, SimulatedCrash, init_pool_cache,
@@ -979,10 +993,21 @@ MLA_SCALE = 192 ** -0.5            # DeepSeek-V2: (nope + rope)^-0.5
 #: slots at lens 0 (one entry), 1, 511, 1,000, 2,049, 4,095, C - 1 and C
 #: (every entry visible)
 MLA_POOL = (8, 4352, 128, [0, 1, 511, 1000, 2049, 4095, 4351, 4352])
-#: smaller pools: name -> (S, C, H, lens)
-MLA_POOL_CASES = {"S 1, C 1": (1, 1, 128, [0]),
-                  "C 1,000 (not whole tiles)": (3, 1000, 128, [999, 40, 1000]),
-                  "H 16": (4, 700, 16, [699, 0, 333, 700])}
+#: smaller and skewed pools: name -> (S, C, H, lens).  The wgmma design
+#: takes the H 64 / 128 cases (the unbalanced pool leaves its long slot in
+#: 23 pieces; S 64 at C 128 takes one share a slot and no combine); PR
+#: 25's mma design the H 16 ones, whose split leaves most chunks of the
+#: short slots empty (they write no acc)
+MLA_POOL_CASES = {
+    "S 1, C 1": (1, 1, 128, [0]),
+    "C 1,000 (not whole tiles)": (3, 1000, 128, [999, 40, 1000]),
+    "H 64": (4, 2000, 64, [1999, 0, 1000, 2000]),
+    "all slots at lens 0": (8, 4352, 128, [0] * 8),
+    "all slots at lens C": (8, 4352, 128, [4352] * 8),
+    "one slot at C, seven at 0": (8, 4352, 128, [4352] + [0] * 7),
+    "S 64, C 128": (64, 128, 128, [(37 * i) % 129 for i in range(64)]),
+    "H 16": (4, 700, 16, [699, 0, 333, 700]),
+    "H 16, empty chunks": (4, 4352, 16, [0, 5, 600, 4351])}
 
 
 def mla_inputs(s, c, h, lens, dtype, seed=0):
@@ -995,16 +1020,62 @@ def mla_inputs(s, c, h, lens, dtype, seed=0):
         torch.tensor(lens, dtype=torch.int32, device="cuda"),)
 
 
+def mla_plan_note(s, c, h, lens, dtype=torch.bfloat16) -> str:
+    """The plan ``mla_plan`` gives a pool: the design, and for the wgmma
+    design its budget G, least share and the shares and pieces this
+    pool's lens leave."""
+    design, n_split, split_len = mla_plan(dtype, s, h, c)
+    if design != "wgmma":
+        return f"{design}, {n_split} chunks of {split_len}"
+    segs = share_plan(lens, c, n_split, split_len)
+    pieces = sum(p >= 0 for *_, p in segs)
+    return (f"wgmma, G {n_split}, least {split_len} tiles: {len(segs)} "
+            f"shares, {pieces} pieces")
+
+
 def check_mla(name, args) -> float:
-    return attn_err("mla_decode", name, mla_decode(*args, MLA_SCALE),
+    s, h = args[0].shape[:2]
+    c, lens = args[2].shape[1], args[4].tolist()
+    note = mla_plan_note(s, c, h, lens, args[0].dtype)
+    return attn_err("mla_decode", f"{name} [{note}]",
+                    mla_decode(*args, MLA_SCALE),
                     ref.mla_decode_ref(*args, MLA_SCALE))
 
 
+def mla_dependent_read_check() -> None:
+    """The output read by the very next kernel in the stream (a copy, no
+    synchronisation between): the combine pass, a programmatic dependent
+    of the split pass, must not end before the split pass has written
+    ``out``, even where no slot leaves a piece.  Before each call the
+    allocator's block for ``out`` is filled with NaN."""
+    for what, (s, c, h, lens) in (
+            ("all slots at lens 0 (no piece)", MLA_POOL_CASES[
+                "all slots at lens 0"]), ("DeepSeek-V2 pool", MLA_POOL)):
+        args = mla_inputs(s, c, h, lens, torch.bfloat16, seed=5)
+        want = mla_decode(*args, MLA_SCALE)
+        torch.cuda.synchronize()
+        bad = 0
+        for _ in range(20):
+            poison = torch.full_like(want, float("nan"))
+            del poison
+            seen = mla_decode(*args, MLA_SCALE).clone()
+            torch.cuda.synchronize()
+            bad += not torch.equal(seen, want)
+        log(f"  mla_decode read by the next kernel ({what}, "
+            f"{mla_plan_note(s, c, h, lens)}): {20 - bad} of 20 copies bit "
+            f"for bit the synchronised output")
+        if bad:
+            raise AssertionError(f"mla_decode: {bad} of 20 copies taken "
+                                 f"right after the call differ ({what})")
+
+
 def mla_graph_check() -> None:
-    """One call over DeepSeek-V2's pool captured in a CUDA graph and
-    replayed twice, each replay bit for bit the eager call."""
+    """Two eager calls over DeepSeek-V2's pool bit for bit each other; one
+    captured in a CUDA graph and replayed twice, each replay bit for bit
+    the eager call."""
     args = mla_inputs(*MLA_POOL, torch.bfloat16, seed=9)
     eager = mla_decode(*args, MLA_SCALE)
+    again = mla_decode(*args, MLA_SCALE)
     cap = capture_graph(lambda: mla_decode(*args, MLA_SCALE), [])
     same = []
     for _ in range(2):
@@ -1012,24 +1083,56 @@ def mla_graph_check() -> None:
         cap.graph.replay()
         torch.cuda.synchronize()
         same.append(torch.equal(cap.out, eager))
-    log(f"  mla_decode graph replay (DeepSeek-V2 pool, bf16): replays bit "
-        f"for bit the eager call {same}; launches a replay "
+    log(f"  mla_decode eager calls bit for bit: {torch.equal(eager, again)}; "
+        f"graph replay (DeepSeek-V2 pool, bf16): replays bit for bit the "
+        f"eager call {same}; launches a replay "
         f"{dict(zip((fn.__name__ for fn in COUNTED), cap.launches))}")
-    if not all(same):
-        raise AssertionError(f"mla_decode graph replay: {same}")
+    if not all(same) or not torch.equal(eager, again):
+        raise AssertionError(f"mla_decode: replays {same}, eager calls "
+                             f"{torch.equal(eager, again)}")
     del cap
 
 
+def mla_report() -> None:
+    """ptxas's registers, barriers, shared memory and spills of the MLA
+    kernels and each design's dynamic shared memory a CTA."""
+    for line in _build.ptxas_report.get("mla_decode", "").splitlines():
+        if re.search(r"Compiling entry function|registers|spill", line):
+            log(f"  ptxas mla_decode: {line.strip()}")
+    lib = _build.load("mla_decode")
+    log(f"  mla_decode dynamic shared memory a CTA: "
+        f"{ {d: lib.mla_decode_smem(DESIGNS[d]) for d in DESIGNS} } bytes")
+
+
+def sdpa_expanded(q4, k4, v4, mask, backend):
+    """One SDPA call over K and V expanded to H heads as views (no copy)
+    under one backend."""
+    from torch.nn.attention import sdpa_kernel
+    h = q4.shape[1]
+    with sdpa_kernel([backend]):
+        return F.scaled_dot_product_attention(
+            q4, k4.expand(-1, h, -1, -1), v4.expand(-1, h, -1, -1),
+            attn_mask=mask, scale=MLA_SCALE)
+
+
 def mla_decode_timing(path, s, c, h, lens) -> dict:
-    """Kernel, plain and SDPA times (bf16) and the bound of the visible
-    latent rows.  SDPA takes q (S, H, 1, 576) against one shared head, k
-    (S, 1, C, 576) and v (S, 1, C, 512), with a boolean mask and
-    ``enable_gqa``: the same function."""
+    """Times (bf16) of the design ``mla_plan`` picks (the wrapper), of PR
+    25's mma design at the same pool (``launch_design`` at
+    ``split_plan``'s chunks, uncounted), of the plain version and of two
+    SDPA yardsticks, and the bound of the visible latent rows.  SDPA takes
+    q (S, H, 1, 576) against k (S, 1, C, 576) and v (S, 1, C, 512) with a
+    boolean mask: with ``enable_gqa`` (the first yardstick, a slow path),
+    and over k / v expanded to H heads as views under the first of cuDNN
+    and efficient attention that takes them (``library_ms``)."""
+    from torch.nn.attention import SDPBackend
     args = mla_inputs(s, c, h, lens, torch.bfloat16, seed=c)
     sets = copies(args)
 
     def kernel(*x):
         return mla_decode(*x, MLA_SCALE)
+
+    def mma(*x):
+        return launch_design(*x, MLA_SCALE, "mma", *mla_split_plan(s, h, c))
 
     def plain(*x):
         return ref.mla_decode_ref(*x, MLA_SCALE)
@@ -1039,7 +1142,13 @@ def mla_decode_timing(path, s, c, h, lens) -> dict:
                                               scale=MLA_SCALE,
                                               enable_gqa=True)
 
-    ms = time_ms(kernel, sets)
+    want = plain(*sets[0])
+    attn_err("mla_decode", f"the mma design at {path}", mma(*sets[0]),
+             want)
+    ms = time_ms(kernel, sets)                       # in turns: A B B A
+    mma_ms = time_ms(mma, sets)
+    mma_again = time_ms(mma, sets)
+    ms_again = time_ms(kernel, sets)
     issue_ms = host_ms(kernel, sets)
     plain_ms = time_ms(plain, sets)
     n = torch.arange(c, device="cuda")
@@ -1047,34 +1156,58 @@ def mla_decode_timing(path, s, c, h, lens) -> dict:
                  torch.cat(x[2:4], -1)[:, None], x[2][:, None],
                  (n[None, :] <= x[4][:, None])[:, None, None])
                 for x in sets[:max(1, len(sets) // 2)]]
-    library_ms = time_ms(library, lib_sets)
-    lib_err = (library(*lib_sets[0])[:, :, 0].float()
-               - plain(*sets[0]).float()).abs().max().item()
-    if not lib_err <= TOL[torch.bfloat16]:
-        raise AssertionError(f"SDPA yardstick computes another function "
-                             f"({lib_err})")
+    gqa_ms = time_ms(library, lib_sets)
+    errs = {"enable_gqa": (library(*lib_sets[0])[:, :, 0].float()
+                           - want.float()).abs().max().item()}
+    backend, library_ms = None, None
+    for b in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            got = sdpa_expanded(*lib_sets[0], b)
+        except RuntimeError as err:
+            log(f"  SDPA over expanded heads: {b.name} refuses "
+                f"({str(err).splitlines()[0][:120]})")
+            continue
+        backend = b.name
+        errs[backend] = (got[:, :, 0].float() - want.float()).abs().max(
+        ).item()
+        library_ms = time_ms(lambda *x: sdpa_expanded(*x, b), lib_sets)
+        break
+    for what, err in errs.items():
+        if not err <= TOL[torch.bfloat16]:
+            raise AssertionError(f"SDPA yardstick ({what}) computes another "
+                                 f"function ({err})")
     n_vis = sum(min(x + 1, c) for x in lens)
     row = 2 * (512 + 64)                               # one latent row, bf16
     moved = 2 * nbytes(args[0]) + nbytes(args[1], args[4]) + n_vis * row
     ops = 2 * n_vis * h * (576 + 512)
     b_ms, b_by = bound_ms(moved, ops, torch.bfloat16)
-    n_split, split_len = mla_split_plan(s, h, c)
     shape = f"S {s}, C {c}, H {h}, kvr 512, rd 64, lens {lens}"
-    log(f"  mla_decode timing ({path}, bf16, {shape}; {n_split} chunks of "
-        f"{split_len}): kernel {ms:.4f} ms on the device ({issue_ms:.4f} ms "
-        f"to issue), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} flops; the "
-        f"{n_vis} visible latent rows)")
+    mma_plan = "{} chunks of {}".format(*mla_split_plan(s, h, c))
+    log(f"  mla_decode timing ({path}, bf16, {shape}; "
+        f"{mla_plan_note(s, c, h, lens)}): kernel {ms:.4f} / {ms_again:.4f} "
+        f"ms on the device ({issue_ms:.4f} ms to issue), the mma design "
+        f"({mma_plan}) {mma_ms:.4f} / {mma_again:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, SDPA over expanded heads "
+        f"({backend}) {library_ms} ms, SDPA enable_gqa {gqa_ms:.4f} ms "
+        f"(max_abs_err {errs}), bound {b_ms:.4f} ms ({b_by}; {moved} bytes, "
+        f"{ops} flops; the {n_vis} visible latent rows); kernel / mma "
+        f"{(ms + ms_again) / (mma_ms + mma_again):.3f}, bound / kernel "
+        f"{b_ms / ms:.3f}")
     return dict(path=path, shape=shape, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                library_backend=backend, library_gqa_ms=gqa_ms,
+                mma_ms=mma_ms, plan=mla_plan_note(s, c, h, lens))
 
 
 def mla_decode_phase() -> dict:
     """The absorbed-MLA decode kernel over DeepSeek-V2's pool and the
-    smaller pools, against its plain version in bf16 and f32; the slot at
-    lens == C must see every entry; a graph replay; H not a multiple of 16
-    and another latent must raise; then the pool timed in bf16."""
+    smaller and skewed pools, against its plain version in bf16 and f32;
+    the slot at lens == C must see every entry; eager calls and a graph
+    replay bit for bit; H not a multiple of 16 and another latent must
+    raise; then the pool timed in bf16 beside the mma design."""
+    t0 = time.perf_counter()
     log("kernel phase: mla_decode (absorbed MLA decode, DeepSeek-V2)")
+    mla_report()
     errs = {}
     s, c, h, lens = MLA_POOL
     for dtype in (torch.bfloat16, torch.float32):
@@ -1092,11 +1225,11 @@ def mla_decode_phase() -> dict:
         got = mla_decode(*a, MLA_SCALE)[full:full + 1]
         attn_err("mla_decode", f"slot at lens == C against lens C - 1 "
                  f"{dtype}", got, ref.mla_decode_ref(*sub, MLA_SCALE))
-    n_split, split_len = mla_split_plan(s, h, c)
-    log(f"  mla_decode split at DeepSeek-V2's pool: {n_split} chunks of "
-        f"{split_len} positions, {n_split * s * h // 16} blocks of (chunk, "
-        f"16 heads, slot), then the combine's {s * h}")
+    log(f"  mla_decode plan at DeepSeek-V2's pool: {mla_plan_note(*MLA_POOL)}"
+        f" ({mla_plan(torch.bfloat16, s, h, c)[1] * h // 64} CTAs of 64 "
+        f"heads; where G > S the combine's {s * h} (head, slot) items)")
     mla_graph_check()
+    mla_dependent_read_check()
     try:
         mla_decode(*mla_inputs(4, 100, 24, [3] * 4, torch.bfloat16),
                    MLA_SCALE)
@@ -1114,6 +1247,7 @@ def mla_decode_phase() -> dict:
     else:
         raise AssertionError("mla_decode took a 256-wide latent")
     timings = [mla_decode_timing("DeepSeek-V2 serve pool", *MLA_POOL)]
+    log(f"  mla_decode phase: {time.perf_counter() - t0:.1f} s")
     return dict(max_abs_err=errs[torch.bfloat16], timings=timings)
 
 
@@ -2407,6 +2541,28 @@ def moe_routes(params, cfg, tokens, device) -> tuple:
             gap.cpu())
 
 
+def with_decode_routes(fn) -> tuple:
+    """``fn()`` with the moe router's choices at every one-position call
+    (a decode step of a 1-layer model) recorded in ascending order: (its
+    result, [experts (k,) a step]).  These are the decode path's own
+    routes: a near tie can flip there where ``moe_routes``' forward over
+    the whole sequence does not, and a decode step's logits follow them."""
+    orig = moe_mod.router_scores
+    routes = []
+
+    def record(p, x, cfg):
+        out = orig(p, x, cfg)
+        if x.shape[1] == 1:
+            routes.append(out[1][0, 0].sort().values.cpu())
+        return out
+
+    moe_mod.router_scores = record
+    try:
+        return fn(), routes
+    finally:
+        moe_mod.router_scores = orig
+
+
 def prefill_kept(scores: torch.Tensor, cfg) -> torch.Tensor:
     """(T, E) bool: the (position, expert) pairs a prompt's prefill keeps,
     as ``moe._expert_block`` picks them: each expert its ``capacity``
@@ -2426,7 +2582,9 @@ def moe_oracle_phase(cfg, params, req, tol=(5e-2, 1e-3),
     """``req`` (and 8 fed decode steps) through a 1-layer moe model on the
     card in f32 and bf16 against the plain versions on the CPU in f32.
     Routing is discontinuous, so the experts of every position are read
-    from the port's blocks on each side (``moe_routes``): the logits of
+    from the port's blocks on each side (``moe_routes`` for the prefill,
+    the decode path's own router calls for the decode steps,
+    ``with_decode_routes``): the logits of
     the positions that route to the same experts as on the CPU (and that
     those experts keep, or drop, as on the CPU: a flip elsewhere can push
     a prefill token past its expert's capacity) are held to ``tol[1]`` of
@@ -2441,8 +2599,8 @@ def moe_oracle_phase(cfg, params, req, tol=(5e-2, 1e-3),
     cfg32 = cfg.with_(dtype="float32")
     t0 = time.perf_counter()
     cpu_params = tree_map(lambda t: t.float().cpu(), params)
-    want, fed = run_one(cpu_params, cfg32, req.tokens, "cpu",
-                        cache_len=cache_len)
+    (want, fed), want_steps = with_decode_routes(lambda: run_one(
+        cpu_params, cfg32, req.tokens, "cpu", cache_len=cache_len))
     seq = list(req.tokens) + fed
     want_routes, want_scores, gaps = moe_routes(cpu_params, cfg32, seq,
                                                 "cpu")
@@ -2457,10 +2615,12 @@ def moe_oracle_phase(cfg, params, req, tol=(5e-2, 1e-3),
     for name, p, c, rel in (
             ("card f32", tree_map(lambda t: t.float(), params), cfg32, tol[1]),
             ("card bf16", params, cfg, tol[0])):
-        got, _ = run_one(p, c, req.tokens, "cuda", feed=fed,
-                         cache_len=cache_len)
+        (got, _), steps = with_decode_routes(lambda: run_one(
+            p, c, req.tokens, "cuda", feed=fed, cache_len=cache_len))
         routes, scores, _ = moe_routes(p, c, seq, "cuda")
         same = (routes == want_routes).all(dim=-1)
+        for i, (r, w) in enumerate(zip(steps, want_steps)):
+            same[n + i] = bool((r == w).all())    # the decode path's routes
         flipped = torch.nonzero(~same)[:, 0]
         drops = (prefill_kept(scores[:n], c) != want_keep).any(dim=-1) \
             & same[:n]                        # of the positions routed alike

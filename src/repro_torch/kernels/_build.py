@@ -40,9 +40,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_attention": {"flash_attention_launch":
                         [_P] * 4 + [_I] * 9 + [_F, _I, _P]},
     # q_c, q_rope, c_kv, k_rope, lens, out, part, S, C, H, kvr, rd, scale,
-    # is_bf16, n_split, split_len, stream
+    # design, n_split, split_len, stream
+    # ...; dynamic shared memory a block of a design takes
     "mla_decode": {"mla_decode_launch":
-                   [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P]},
+                   [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
+                   "mla_decode_smem": [_I]},
     # x, out, K, B, D, eps, is_bf16, n_split, d_split, stream
     "gram": {"gram_launch": [_P, _P, _I, _I, _I, _F] + [_I] * 3 + [_P]},
     # x, w, a, b, y, xa, M, K, N, r, 6 element strides, flags, bn,

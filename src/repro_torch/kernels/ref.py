@@ -4,7 +4,9 @@ Each wrapper in ``kernels/`` sends a CPU tensor here; on the card
 ``chip_smoke.py`` holds the CUDA kernel against these on the same inputs.
 They mirror the JAX oracles in ``repro/kernels/ref.py``; ``mla_decode_ref``,
 whose kernel replaces no Pallas kernel, mirrors the jnp einsums of
-``repro.models.attention.mla_decode_slots``.  ``cosine_gram_ref``
+``repro.models.attention.mla_decode_slots``; ``mla_decode_pieces_ref``
+and ``selective_scan_chunked_ref`` are twins of a kernel design's
+arithmetic for the tests.  ``cosine_gram_ref``
 also takes a stack (K, B, D) of node batches, and ``lora_matmul_ref`` has
 no scale (every caller of the JAX ``linear`` uses 1).  The attention
 versions differ from the JAX oracles in two deliberate ways, both of
@@ -132,6 +134,77 @@ def mla_decode_ref(q_c: torch.Tensor, q_rope: torch.Tensor,
     return out.to(q_c.dtype)
 
 
+def mla_decode_pieces_ref(q_c: torch.Tensor, q_rope: torch.Tensor,
+                          c_kv: torch.Tensor, k_rope: torch.Tensor,
+                          lens: torch.Tensor, scale: float,
+                          shares: int, least: int = 1) -> torch.Tensor:
+    """``mla_decode_ref`` computed as the wgmma design of
+    ``csrc/mla_decode.cu`` computes it, for the tests: the shares of
+    ``mla_decode.share_plan(lens, C, shares, least)``, each walked tile by tile
+    (``WG_TILE`` positions) with a running max m (raw score units), row
+    sum l and accumulator, the probabilities exp2(s log2(e) scale - m
+    log2(e) scale) rounded to q's dtype for the P . V product (bf16 as the
+    kernel rounds them; f32 inputs keep them) and summed in f32 for l; a
+    slot of one share is divided out at once, the pieces of the others (m
+    in natural units) merged in share order, sixteen at a time into a
+    running max m*, sum and accumulator rescaled to each batch's new max:
+    out = sum acc_i e^(m_i - m*) / max(sum l_i e^(m_i - m*), 1e-30).
+    Sums run in float32 in another order than the tensor cores', so it
+    meets the kernel within rounding, not bit for bit.  A twin; no path calls it."""
+    from repro_torch.kernels.mla_decode import WG_TILE, share_plan
+
+    s_slots, h, kvr = q_c.shape
+    c = c_kv.shape[1]
+    q = torch.cat([q_c, q_rope], -1).float()
+    kv = torch.cat([c_kv, k_rope], -1).float()
+    sl2 = scale * 1.4426950408889634
+    ninf = float("-inf")
+    ln = [int(x) for x in lens.tolist()]
+    out = torch.zeros((s_slots, h, kvr), dtype=torch.float32,
+                      device=q_c.device)
+    pieces = {}
+    for _, s, a, b, piece in share_plan(ln, c, shares, least):
+        n_vis = 0 if ln[s] < 0 else min(ln[s] + 1, c)
+        m = torch.full((h,), ninf, device=q_c.device)
+        l = torch.zeros((h,), device=q_c.device)
+        acc = torch.zeros((h, kvr), device=q_c.device)
+        for t in range(a, b):
+            rows = kv[s, t * WG_TILE:(t + 1) * WG_TILE]
+            sc = q[s] @ rows.T
+            pos = torch.arange(t * WG_TILE, t * WG_TILE + rows.shape[0],
+                               device=q_c.device)
+            sc = sc.masked_fill((pos >= n_vis)[None], ninf)
+            m_new = torch.maximum(m, sc.amax(-1))
+            base = torch.where(m_new == ninf, 0.0, m_new * sl2)
+            corr = torch.exp2(m * sl2 - base)
+            p = torch.exp2(sc * sl2 - base[:, None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[:, None] + p.to(q_c.dtype).float() @ rows[:, :kvr]
+            m = m_new
+        if piece < 0:
+            out[s] = acc / l.clamp_min(1e-30)[:, None]
+        else:
+            mn = torch.where(m == ninf, m, m * scale)
+            pieces.setdefault(s, []).append((mn, l, acc))
+    for s, ps in pieces.items():                    # the combine, 16 at a time
+        mstar = torch.full((h,), ninf, device=q_c.device)
+        lsum = torch.zeros_like(mstar)
+        acc = torch.zeros_like(out[s])
+        for i0 in range(0, len(ps), 16):
+            batch = ps[i0:i0 + 16]
+            mb = torch.stack([mstar] + [mi for mi, _, _ in batch]).amax(0)
+            keep = torch.where(mstar == ninf, 0.0, torch.exp(mstar - mb))
+            keep = torch.where(mb == ninf, 1.0, keep)
+            lsum, acc = lsum * keep, acc * keep[:, None]
+            for mi, li, ai in batch:
+                w = torch.where(mi == ninf, 0.0, torch.exp(mi - mb))
+                lsum = lsum + w * li
+                acc = acc + w[:, None] * ai
+            mstar = torch.where(mb == ninf, mstar, mb)
+        out[s] = acc / lsum.clamp_min(1e-30)[:, None]
+    return out.to(q_c.dtype)
+
+
 def cosine_gram_ref(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Pairwise cosine similarities in float32, each row divided by
     ``sqrt(max(|x|^2, eps))``.  x: (B, D) -> (B, B), or a stack
@@ -200,5 +273,5 @@ def selective_scan_chunked_ref(da: torch.Tensor, dbx: torch.Tensor,
 
 
 __all__ = ["decode_attention_ref", "flash_attention_ref", "mla_decode_ref",
-           "cosine_gram_ref", "lora_matmul_ref", "selective_scan_ref",
-           "selective_scan_chunked_ref"]
+           "mla_decode_pieces_ref", "cosine_gram_ref", "lora_matmul_ref",
+           "selective_scan_ref", "selective_scan_chunked_ref"]
