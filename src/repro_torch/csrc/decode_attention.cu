@@ -72,6 +72,17 @@
 //     The wrapper's split_plan keeps each chunk at 4 rep positions or
 //     more, so the f32 partials written and read back stay under about
 //     half the K/V the chunk reads: 32 chunks of 64 at the hybrid's pool.
+//   * dh 96 (Phi-3-vision, MHA: rep 1): 4096 / 96 is no whole tile and a
+//     row is 12 16-byte chunks in bf16, which no power-of-two count of
+//     threads splits into whole loads.  So a tile holds 32 positions and a
+//     row is dealt to 8 threads of 12 elements each: 8 at 8 ch (one
+//     16-byte load in bf16, two in f32) and 4 at 64 + 4 ch (one 8-byte
+//     load in bf16, one 16-byte in f32), so every load is aligned and the
+//     8 threads of a row read 128, then 64 contiguous bytes (12
+//     contiguous elements would put every odd chunk off 16 bytes).  A
+//     thread holds 2 rows of a tile and 12 accumulators a query head: 128
+//     registers at rep <= 2 without spills, 4 blocks an SM as at dh 64 and
+//     128.
 //
 // K, V and the pool must be 16-byte aligned (the wrapper checks).
 #include "common.cuh"
@@ -85,13 +96,45 @@ using namespace repro;
 constexpr int kThreads = 128;
 constexpr int kMaxRep = 16;
 
+// positions a tile: 64 at dh 64, 32 at dh 96 and 128, 16 at dh 256
 template <int DH>
-constexpr int kTile = 4096 / DH;                       // 64 positions at dh 64, 32 at dh 128
+constexpr int kTile = DH == 96 ? 32 : 4096 / DH;
 
 // elements of a row one thread holds: one 16-byte load, or at dh 256 in
-// f32 two, so that a row never spans more than one warp
+// f32 two, so that a row never spans more than one warp; 12 at dh 96
 template <typename T, int DH>
-constexpr int kChunk = kVec<T> > DH / 32 ? kVec<T> : DH / 32;
+constexpr int kChunk = DH == 96 ? 12 : kVec<T> > DH / 32 ? kVec<T> : DH / 32;
+
+// elements of a thread's chunk that lie in the row's last 32 (dh 96)
+template <int DH>
+constexpr int kTail = DH == 96 ? 4 : 0;
+
+// the row element that element e of chunk ch holds
+template <typename T, int DH>
+__device__ __forceinline__ int chunk_elem(int ch, int e) {
+  constexpr int VEC = kChunk<T, DH>, VB = kTail<DH>, VA = VEC - VB, CPR = DH / VEC;
+  return e < VA ? ch * VA + e : CPR * VA + ch * VB + (e - VA);
+}
+
+// N elements (8 or 16 bytes) into registers: a chunk's tail piece at dh
+// 96, 8 bytes in bf16 kept in .x and .y
+template <typename T, int N>
+__device__ __forceinline__ uint4 load_piece(const T* p) {
+  if constexpr (N * sizeof(T) == 16) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    static_assert(N * sizeof(T) == 8, "pieces of 8 or 16 bytes");
+    const uint2 h = *reinterpret_cast<const uint2*>(p);
+    return make_uint4(h.x, h.y, 0u, 0u);
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void widen_n(const uint4& raw, float* dst) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < N; ++i) dst[i] = to_f(e[i]);
+}
 
 // the warps' partial accumulators summed in turn through one buffer when
 // all of them together would take more than 32 KB of shared memory
@@ -109,15 +152,20 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int chunk, float scale, int split_len) {
   constexpr int TC = kTile<DH>;
   constexpr int VEC = kChunk<T, DH>;                   // elements per chunk of a row
-  constexpr int LPC = VEC / kVec<T>;                   // 16-byte loads per chunk
+  constexpr int VB = kTail<DH>, VA = VEC - VB;         // ... in the row's tail, before it
+  constexpr int NA = VA / kVec<T>;                     // 16-byte loads of the head
+  constexpr int LPC = NA + (VB > 0);                   // pieces (loads) per chunk
+  constexpr int NT = VB > 0 ? VB : kVec<T>;            // elements of the tail piece
   constexpr int CPR = DH / VEC;                        // chunks per key row
   constexpr int KPS = kThreads / CPR;                  // key rows per sweep of the block
   constexpr int NV = TC / KPS;                         // K (and V) chunks per thread per tile
   constexpr int NW = kThreads / 32;
   constexpr bool SERIAL = kSerialSum<DH, MAXREP>;
-  static_assert(NV * KPS == TC && CPR <= 32 && 32 % CPR == 0 && VEC % 4 == 0 &&
-                    LPC * kVec<T> == VEC,
-                "a tile must split into whole 16-byte chunks per thread");
+  static_assert(NV * KPS == TC && CPR <= 32 && 32 % CPR == 0 && VA % 4 == 0 &&
+                    VB % 4 == 0 && NA * kVec<T> == VA,
+                "a tile must split into whole pieces of 8 or 16 bytes per thread");
+  // where piece u of chunk ch starts in the row
+  auto piece_at = [&](int ch, int u) { return chunk_elem<T, DH>(ch, u * kVec<T>); };
   __shared__ __align__(16) float sq[MAXREP][DH];
   __shared__ float ss[MAXREP][TC];
   __shared__ float sred[SERIAL ? 1 : NW][MAXREP][DH];
@@ -162,13 +210,20 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int x = j * LPC + u;
         kr[x] = vr[x] = make_uint4(0u, 0u, 0u, 0u);     // masked entries stay 0
         if (sok[tile & 1][cc]) {
-          const size_t off = ((static_cast<size_t>(s) * C + c0 + cc) * KV + g) * DH +
-                             ch * VEC + u * kVec<T>;
-          kr[x] = *reinterpret_cast<const uint4*>(k + off);
-          vr[x] = *reinterpret_cast<const uint4*>(v + off);
+          const size_t off =
+              ((static_cast<size_t>(s) * C + c0 + cc) * KV + g) * DH + piece_at(ch, u);
+          kr[x] = u < NA ? load_piece<T, kVec<T>>(k + off) : load_piece<T, NT>(k + off);
+          vr[x] = u < NA ? load_piece<T, kVec<T>>(v + off) : load_piece<T, NT>(v + off);
         }
       }
     }
+  };
+
+  auto widen = [&](const uint4& raw, float* dst, int u) {   // piece u to f32
+    if (u < NA)
+      widen16<T>(raw, dst);
+    else
+      widen_n<T, NT>(raw, dst);
   };
 
   int kp0 = load_pos(0), kp1 = load_pos(1);
@@ -202,7 +257,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NV; ++j)
 #pragma unroll
-        for (int u = 0; u < LPC; ++u) widen16<T>(kr[j * LPC + u], kf[j] + u * kVec<T>);
+        for (int u = 0; u < LPC; ++u) widen(kr[j * LPC + u], kf[j] + u * kVec<T>, u);
 #pragma unroll
       for (int r = 0; r < MAXREP; ++r) {
         if (r >= rep) break;
@@ -210,7 +265,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < VEC; e += 4)
           *reinterpret_cast<float4*>(&qv[e]) =
-              *reinterpret_cast<const float4*>(&sq[r][ch * VEC + e]);
+              *reinterpret_cast<const float4*>(&sq[r][chunk_elem<T, DH>(ch, e)]);
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
           float dot = 0.f;
@@ -248,7 +303,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NV; ++j)
 #pragma unroll
-        for (int u = 0; u < LPC; ++u) widen16<T>(vr[j * LPC + u], vf[j] + u * kVec<T>);
+        for (int u = 0; u < LPC; ++u) widen(vr[j * LPC + u], vf[j] + u * kVec<T>, u);
 #pragma unroll
       for (int r = 0; r < MAXREP; ++r) {
         if (r >= rep) break;
@@ -286,7 +341,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int o = CPR; o < 32; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
           if (lane < CPR) {
-            float& dst = sred[SERIAL ? 0 : warp][r][ch * VEC + e];
+            float& dst = sred[SERIAL ? 0 : warp][r][chunk_elem<T, DH>(ch, e)];
             dst = SERIAL && w > 0 ? dst + x : x;
           }
         }
@@ -426,6 +481,8 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   switch (dh * 2 + (is_bf16 ? 1 : 0)) {
     case 129: REPRO_DECODE_LAUNCH(__nv_bfloat16, 64);
     case 128: REPRO_DECODE_LAUNCH(float, 64);
+    case 193: REPRO_DECODE_LAUNCH(__nv_bfloat16, 96);
+    case 192: REPRO_DECODE_LAUNCH(float, 96);
     case 257: REPRO_DECODE_LAUNCH(__nv_bfloat16, 128);
     case 256: REPRO_DECODE_LAUNCH(float, 128);
     case 513: REPRO_DECODE_LAUNCH(__nv_bfloat16, 256);

@@ -100,6 +100,18 @@
 // tile of 128; its shared memory is 80 KB a key group.  Nothing is
 // padded: K and V are read at their own widths.
 //
+// Phi-3-vision's heads of 96 (its prefill: T up to ~2,000, H = KV 32)
+// take dh 64's and 128's plan: 64-key tiles, Q fragments in registers (6
+// k-steps of 4 registers) beside an O accumulator of 16 x 96.  A 192-byte
+// row is 12 16-byte chunks, which c ^ (r & 7) would carry out of the row,
+// and padding it to 128 elements would cost a third more shared memory
+// and copies; mma.cuh's swz keeps the row at 12 chunks and swizzles its
+// last 4 as a 64-byte row, still free of ldmatrix bank conflicts.
+// kMaxKS<96> is 2 from ptxas's report: at 2 (256 threads, <= 255
+// registers) the kernel takes 178 registers and spills nothing; at 4 (512
+// threads, <= 128) it spills 108 bytes.  48 KB of shared memory a key
+// group.
+//
 // The f32 instantiations keep the FMA body of the first port (the second kernel
 // below).  They exist for chip_smoke.py's f32 checks (TOL 1e-4) and its
 // f32 serve oracle (1e-3 of max |logit|); TF32 tensor cores keep ~3
@@ -137,7 +149,8 @@ template <int DQK>
 constexpr bool kQShared = DQK == 256;
 
 // key groups per block at most: 16 warps of <= 128 registers at dh 64, 8
-// warps at dh 128 and (192, 128) (more registers a thread), 4 at dh 256
+// warps at dh 96, 128 and (192, 128) (more registers a thread), 4 at dh
+// 256
 template <int DQK>
 constexpr int kMaxKS = DQK == 64 ? 4 : DQK == 256 ? 1 : 2;
 
@@ -698,6 +711,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return bf ? launch_mma<DQK, DV>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st) \
               : launch_fma<DQK, DV>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
   FLASH_CASE(64, 64)
+  FLASH_CASE(96, 96)
   FLASH_CASE(128, 128)
   FLASH_CASE(256, 256)
   FLASH_CASE(192, 128)

@@ -65,14 +65,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 16-byte row needs no swizzle: 8 rows already span all 32 banks.  A row
 // of 128 bytes or more may hold any multiple of 8 chunks (MLA's 192- and
 // 576-wide rows): the XOR keeps c within its aligned group of 8.
+//
+// A row of 8 n + 4 chunks, n >= 1 (dh 96: 12 chunks, 192 bytes), is not
+// padded: its first 8 n chunks swizzle as above and its last 4 as a
+// 64-byte row does, c = 8 n + ((c - 8 n) ^ ((r >> 1) & 3)).  Row r starts
+// at bank group 4 r mod 8, so over 8 rows read at one chunk the first
+// groups hit (c ^ r) ^ 4 (r & 1), a permutation of 0..7, and the last 4
+// hit 4 (r & 1) + (c' ^ (r >> 1 & 3)), which tells the 4 even rows apart
+// by the XOR and them from the odd ones by the 4: both are free of bank
+// conflicts.  The other widths compile exactly as before (the branch is
+// resolved at compile time).
 template <int ROW>
 __device__ __forceinline__ int swz(int r, int c) {
   constexpr int CH = ROW / 8;
-  static_assert(ROW % 8 == 0 && ((CH & (CH - 1)) == 0 || CH % 8 == 0),
-                "rows of 2^n 16-byte chunks, or of a multiple of 8");
-  constexpr int MASK = (CH < 8 ? CH : 8) - 1;
-  constexpr int SHIFT = CH >= 8 ? 0 : CH == 4 ? 1 : CH == 2 ? 2 : 3;
-  return (r * CH + (c ^ ((r >> SHIFT) & MASK))) * 8;
+  static_assert(ROW % 8 == 0 &&
+                    ((CH & (CH - 1)) == 0 || CH % 8 == 0 || (CH > 8 && CH % 8 == 4)),
+                "rows of 2^n 16-byte chunks, of a multiple of 8, or of 8 n + 4");
+  if constexpr (CH > 8 && CH % 8 == 4) {
+    constexpr int HEAD = CH - 4;                      // chunks in whole groups of 8
+    return (r * CH + (c < HEAD ? c ^ (r & 7) : HEAD + ((c - HEAD) ^ ((r >> 1) & 3)))) * 8;
+  } else {
+    constexpr int MASK = (CH < 8 ? CH : 8) - 1;
+    constexpr int SHIFT = CH >= 8 ? 0 : CH == 4 ? 1 : CH == 2 ? 2 : 3;
+    return (r * CH + (c ^ ((r >> SHIFT) & MASK))) * 8;
+  }
 }
 
 // Stage ROWS x COLS of a bf16 matrix into a swizzled shared tile, with

@@ -3,7 +3,7 @@
 
 ``decode_attention(q, k, v, q_pos, kv_pos, window=0, chunk=0)`` takes
 q (S, H, dh), k / v (S, C, KV, dh), q_pos (S,) and kv_pos (S, C) int32,
-with dh 64, 128 or 256 and 1..16 query heads per KV head, and returns
+with dh 64, 96, 128 or 256 and 1..16 query heads per KV head, and returns
 (S, H, dh) in q's dtype.  An entry is visible when ``kv_pos <= q_pos``
 and ``q_pos - kv_pos < window`` (0: the pool length), or with ``chunk``
 > 0 when ``kv_pos <= q_pos`` and ``kv_pos >= q_pos - q_pos % chunk``
@@ -34,7 +34,7 @@ from repro_torch.kernels.ref import decode_attention_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
 #: head dims the kernel is built for
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 256)
 #: blocks the split pass aims at: two per SM of the H100's 132
 TARGET_BLOCKS = 264
 #: pool positions a chunk holds at least, per query head of a KV head: a
@@ -45,8 +45,10 @@ MIN_CHUNK_PER_REP = 4
 
 
 def tile_len(dh: int) -> int:
-    """Pool positions per tile of the kernel (TC in the source)."""
-    return 4096 // dh
+    """Pool positions per tile of the kernel (``kTile`` in the source):
+    4096 // dh, and 32 at dh 96, whose 4096 // 96 = 42 would not split
+    into the 16 rows a sweep of the block covers there."""
+    return 32 if dh == 96 else 4096 // dh
 
 
 def split_len_for(c: int, dh: int, want: int) -> tuple:
@@ -91,7 +93,7 @@ def _check(q, k, v, q_pos, kv_pos, window: int = 0, chunk: int = 0) -> None:
                          f"kv_pos ({s_slots}, {c}); got "
                          f"{tuple(q_pos.shape)}, {tuple(kv_pos.shape)}")
     if dh not in HEAD_DIMS or not 1 <= h // n_kv <= 16:
-        raise ValueError(f"decode_attention kernel takes dh 64, 128 or 256 "
+        raise ValueError(f"decode_attention kernel takes dh in {HEAD_DIMS} "
                          f"and 1..16 query heads per KV head; got dh {dh}, "
                          f"rep {h // n_kv}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

@@ -6,9 +6,9 @@ its gradient.
 ``blockwise_attention`` uses -- q (B, T, H, dh), k (B, S, KV, dh), v (B,
 S, KV, dv), query head h reading KV head h // (H // KV) -- and returns
 (B, T, H, dv) in q's dtype.  (dh, dv) is one of ``HEAD_DIM_PAIRS``: dh
-64, 128 or 256 with dv == dh, or DeepSeek-V2's MLA prefill, q.k heads of
-192 (128 nope + 64 rope) and v heads of 128; any other pair raises (K and
-V are never padded to a wider built case).  The mask is causal, aligned
+64, 96 (Phi-3-vision), 128 or 256 with dv == dh, or DeepSeek-V2's MLA
+prefill, q.k heads of 192 (128 nope + 64 rope) and v heads of 128; any
+other pair raises (K and V are never padded to a wider built case).  The mask is causal, aligned
 bottom-right (``k <= q + (S - T)``); with ``window`` > 0 it is
 ``blockwise_attention``'s sliding kind, which also drops a key that lies
 ``window`` or more behind the query (``q + (S - T) - k < window``): the
@@ -41,7 +41,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
 #: head dims the kernel is built for with dv == dh
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 256)
 #: the (q.k, v) head-dim pairs the kernel is built for
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 

@@ -41,6 +41,11 @@ from repro_torch.models.common import (apply_rope, linear, make_linear,
                                        make_rms_norm, rms_norm)
 
 
+#: a decode window no position difference reaches (int32's largest): the
+#: causal decode's, the reference's ``kv_pos <= q_pos`` with no window
+NO_WINDOW = 2 ** 31 - 1
+
+
 def _mask_spec(kind: str, window: int) -> dict:
     """The flash / decode kernels' mask for a kind and its ``window``
     (the reference's one width argument): ``{"window", "chunk"}``, both 0
@@ -120,12 +125,18 @@ def gqa_decode_slots(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     x: (S, 1, d_model); cache: ``k`` / ``v`` (S, C, KV, dh), ``pos``
     (S, C), ``lens`` (S,) int32.  Slot s writes its new K/V at ring index
     ``lens[s] % C`` (sliding, chunked) or ``min(lens[s], C - 1)`` of the
-    linear buffer (causal) and attends at query position ``lens[s]``.  The write
+    linear buffer (causal) and attends at query position ``lens[s]``.
+    The causal mask is the reference's, ``kv_pos <= q_pos`` with no
+    window: a slot decoding past C (a vlm request, whose admission rule
+    counts the text only) overwrites entry C - 1 and still sees entry 0,
+    where the kernel's default window (C) would drop it.  The write
     goes IN PLACE into the cache tensors (the pool is updated where it
     lies instead of copied each step); the returned dict holds the same
     tensors and ``lens + 1``.
     """
     mask = _mask_spec(kind, window)
+    if kind == "causal":
+        mask["window"] = NO_WINDOW
     h, kvh = cfg.n_heads, cfg.n_kv_heads
     b = x.shape[0]
     cache_len = cache["k"].shape[1]

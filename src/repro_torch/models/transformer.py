@@ -1,5 +1,5 @@
-"""The homogeneous transformer, dense, moe, ssm and hybrid families: init,
-the training forward, prefill and slot decode.
+"""The homogeneous transformer, dense, vlm, moe, ssm and hybrid families:
+init, the training forward, prefill and slot decode.
 
 Ports ``Runtime`` (its ``window_override`` field), ``init_params``,
 ``_embed_inputs``, ``forward`` (``_forward_impl``), ``prefill``,
@@ -13,6 +13,13 @@ loop where JAX scans.
   ``Runtime(window_override=)`` (the family's sliding-window variant), or
   chunked under ``cfg.attention_chunk`` (llama4); the decode cache is
   then a ring of the window's or chunk's width.
+- vlm (Phi-3-vision): the dense stack plus ``adapter``, a linear map of
+  the stub vision tower's patch embeddings (``image_embed_dim``) into
+  d_model.  A batch with ``image_embeds`` (B, n_img, image_embed_dim)
+  gets their adapted rows prepended to the text, positions numbered over
+  both; the logits drop the image positions, ``pooled`` keeps them (the
+  reference pools before the strip), and ``prefill``'s cache and ``len``
+  hold image + text.  Without ``image_embeds`` it is the dense model.
 - moe (Llama-4-Scout, DeepSeek-V2): the dense block with the MoE FFN of
   ``models/moe.py`` (capacity routing over the routed experts, plus the
   shared experts) in place of the SwiGLU; ``forward`` returns the
@@ -32,8 +39,8 @@ loop where JAX scans.
   SwiGLU, an attention block pre-norm local (sliding, width
   ``cfg.rglru.local_window``) GQA and SwiGLU, its cache a ring.
 
-The other families (vlm, audio) and the single-position ``decode_step``
-are later slices and raise ``NotImplementedError``.
+The audio family and the single-position ``decode_step`` are later
+slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -83,12 +90,12 @@ def _attn_kind(cfg: ModelConfig, rt: Runtime) -> Tuple[str, int]:
 
 def _check_supported(cfg: ModelConfig, rt: Optional[Runtime]) -> Runtime:
     """Raise on what the port does not run yet; returns the runtime."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+    if (cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid")
             or (cfg.mla is not None and cfg.family != "moe")):
         raise NotImplementedError(
             f"family {cfg.family!r}{' with MLA' if cfg.mla else ''}: the "
-            f"port runs the dense, moe (with or without MLA), ssm and "
-            f"hybrid families; the others come in later slices")
+            f"port runs the dense, vlm, moe (with or without MLA), ssm and "
+            f"hybrid families; audio comes in a later slice")
     return rt or _RT
 
 
@@ -165,6 +172,9 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig, *,
                      for j in range(n_tail)]
     else:
         p["blocks"] = _dense_block(gen, cfg, dtype, L, dev)
+        if cfg.family == "vlm":
+            p["adapter"] = make_linear(gen, cfg.image_embed_dim, d, dtype,
+                                       device=dev)
     return p
 
 
@@ -175,6 +185,9 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
         x = batch["inputs_embeds"].to(_dtype(cfg))
     else:
         x = params["embed"][batch["tokens"].long()]
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        img = linear(batch["image_embeds"].to(x.dtype), params["adapter"])
+        x = torch.cat([img, x], dim=1)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
@@ -273,6 +286,14 @@ def _final(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
 
 
+def _text(x: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The text positions of the stream: a vlm batch's image positions,
+    prepended by ``_embed_inputs``, dropped."""
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        return x[:, batch["image_embeds"].shape[1]:]
+    return x
+
+
 def pooled(params: dict, batch: dict, cfg: ModelConfig, *,
            rt: Optional[Runtime] = None) -> torch.Tensor:
     """``forward``'s ``aux["pooled"]`` without the logits (what the
@@ -289,7 +310,9 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *,
     """Full-sequence forward -> (logits (B, S, V), aux): ``aux["pooled"]``
     (B, d) and the router's f32 scalars ``load_balance`` and ``router_z``,
     each the mean over the MoE layers (0 for the other families).
-    ``batch`` holds ``tokens`` or the adapter path's ``inputs_embeds``."""
+    ``batch`` holds ``tokens`` or the adapter path's ``inputs_embeds``,
+    and for the vlm family optionally ``image_embeds``: the logits are
+    the text positions', the pooled mean takes the image's too."""
     rt = _check_supported(cfg, rt)
     x, positions = _embed_inputs(params, batch, cfg)
     x, _, auxes = _run_stack(params, x, positions, cfg, rt)
@@ -298,8 +321,8 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *,
         lb, rz = (torch.stack(a).mean() for a in zip(*auxes))
     else:
         lb = rz = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _head(params, x, cfg), {"load_balance": lb, "router_z": rz,
-                                   "pooled": mean_pool(x)}
+    return _head(params, _text(x, batch, cfg), cfg), {
+        "load_balance": lb, "router_z": rz, "pooled": mean_pool(x)}
 
 
 # ======================================================================
@@ -339,8 +362,8 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
             cache_len: Optional[int] = None, *,
             rt: Optional[Runtime] = None) -> Tuple[torch.Tensor, dict]:
     """Forward over the prompt, then pack the per-layer caches for decode.
-    Returns full-sequence logits (B, S, V) and the cache: for the dense
-    and moe families the rope'd K/V with room for ``cache_len`` positions
+    Returns full-sequence logits (B, S, V) and the cache: for the dense,
+    vlm and moe families the rope'd K/V with room for ``cache_len`` positions
     (default S + 1024), ``{"k", "v": (L, B, C, KV, dh), "pos": (L, B, C),
     "len": ()}``, empty entries at the position sentinel -- under a
     sliding window or a chunk a ring of its width (``cache_len`` is then
@@ -357,7 +380,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
     rt = _check_supported(cfg, rt)
     x, positions = _embed_inputs(params, batch, cfg)
     x, caches, _ = _run_stack(params, x, positions, cfg, rt, collect=True)
-    logits = _head(params, _final(params, x, cfg), cfg)
+    logits = _head(params, _text(_final(params, x, cfg), batch, cfg), cfg)
 
     b, s = x.shape[:2]
     length = torch.tensor(s, dtype=torch.int32, device=x.device)
@@ -374,7 +397,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
         cache = {name: torch.stack([grow(c[name]) for c in caches])
                  for name in ("c_kv", "k_rope")}
         return logits, dict(cache, len=length)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         cache = _pack_kv([kv["k"] for kv in caches],
                          [kv["v"] for kv in caches], positions,
                          _attn_kind(cfg, rt)[1], target)
@@ -430,7 +453,7 @@ def _empty_block_cache(cfg: ModelConfig, kind: str, n: Optional[int],
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
                *, rt: Optional[Runtime] = None) -> dict:
     """An empty decode cache for ``batch`` sequences (default ``cuda``), as
-    ``prefill`` shapes it: for the dense and moe families a linear buffer
+    ``prefill`` shapes it: for the dense, vlm and moe families a linear buffer
     of ``cache_len`` or, under a sliding window or a chunk, a ring of
     min(cache_len, its width) -- under ``cfg.mla`` zero latents ``c_kv``
     (L, batch, C, kv_lora_rank) and rope keys ``k_rope`` (L, batch, C,

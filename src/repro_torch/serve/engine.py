@@ -1,7 +1,9 @@
 """Continuous-batching decode engine over a slot-stacked cache pool.
 
 The port of ``repro.serve.engine.ServeEngine`` for the dense (with its
-sliding-window variant, ``rt=Runtime(window_override=)``), moe
+sliding-window variant, ``rt=Runtime(window_override=)``), vlm (a
+request's ``extras`` -- ``image_embeds`` (n_img, image_embed_dim) --
+join its prefill batch), moe
 (Llama-4-Scout: MoE FFN, chunked attention; DeepSeek-V2: MoE FFN and
 MLA over a compressed latent pool), ssm and hybrid families:
 
@@ -44,7 +46,7 @@ prompt lengths vary.  ``ServeEngine(..., eager=True)`` runs the same
 block without the graph (the replay's oracle); on the CPU the block
 always runs eagerly (the tests' path).  A capture that fails raises.
 
-For the dense and moe families every decode step launches the
+For the dense, vlm and moe families every decode step launches the
 decode-attention kernel once per layer and every admission the flash
 kernel once per layer (the moe family's experts are ``torch.matmul``
 products, as in the reference, and launch no kernel of the port); under
@@ -134,7 +136,7 @@ def _sample(logits: torch.Tensor, temperature: float,
 
 
 class ServeEngine:
-    """Continuous-batching engine for the dense, moe, ssm and hybrid
+    """Continuous-batching engine for the dense, vlm, moe, ssm and hybrid
     families.
 
     Usage::
@@ -221,10 +223,12 @@ class ServeEngine:
         non-finite PREFILL logits set the flag at once, so the first block
         boundary retries instead of streaming garbage."""
         scfg, st, dev = self.scfg, self.state, self.device
-        tokens = torch.tensor(req.tokens, dtype=torch.int32, device=dev)[None]
-        logits, req_cache = T.prefill(self.params, {"tokens": tokens},
-                                      self.cfg, cache_len=scfg.cache_len,
-                                      rt=self.rt)
+        batch = {"tokens": torch.tensor(req.tokens, dtype=torch.int32,
+                                        device=dev)[None]}
+        for name, arr in req.extras:          # e.g. a vlm's image_embeds
+            batch[name] = torch.as_tensor(arr, device=dev)[None]
+        logits, req_cache = T.prefill(self.params, batch, self.cfg,
+                                      cache_len=scfg.cache_len, rt=self.rt)
         last = logits[:, -1, :]
         u = None
         if scfg.temperature > 0:
@@ -362,13 +366,12 @@ class ServeEngine:
         scfg = self.scfg
         max_new = req.max_new if req.max_new is not None \
             else scfg.max_new_tokens
-        if req.extras:
-            raise NotImplementedError(
-                f"request {req.rid} carries modality extras: the port "
-                f"serves the token families (dense, moe, ssm, hybrid) only")
         # the reference's rule: a recurrent state has no length and a ring
         # overwrites itself, so ssm and a configured sliding window have
-        # no cache-length limit
+        # no cache-length limit.  It counts the text only: a vlm request's
+        # image positions may take its decode past cache_len (writes then
+        # land at C - 1, as in the reference), and an image + text prompt
+        # longer than cache_len fails at the scatter
         if not self.cfg.sliding_window and self.cfg.family != "ssm":
             need = len(req.tokens) + max_new + 1
             if need > scfg.cache_len:

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def init_pool_cache(cfg: ModelConfig, n_slots: int, cache_len: int,
@@ -45,17 +45,30 @@ def _batch_axis(name: str) -> int:
 
 def scatter_slot(pool_cache: dict, req_cache: dict, slot: int) -> dict:
     """Write a prefilled single-request cache (batch axis of size 1) into
-    slot ``slot`` of the pool, in place; returns the pool."""
-    def put(ax):
-        def leaf(dst, src):
-            dst.select(ax, slot).copy_(src.select(ax, 0))
-        return leaf
-
+    slot ``slot`` of the pool, in place; returns the pool.  A request
+    cache with a leaf that does not match the slot's shape raises
+    ``RuntimeError`` and writes nothing, as the reference's
+    ``dynamic_update_slice`` refuses it: a vlm prompt whose image + text
+    outgrows ``cache_len`` (the engine's admission rule counts the text
+    only, as the reference's does), or a ring narrower than prefill's."""
+    pairs = []
     for name, sub in pool_cache.items():
-        if name == "len":
-            sub[slot] = req_cache["len"].reshape(())
-        else:
-            tree_map(put(_batch_axis(name)), sub, req_cache[name])
+        if name != "len":
+            ax = _batch_axis(name)
+            pairs += [(name, d.select(ax, slot), s.select(ax, 0))
+                      for d, s in zip(tree_leaves(sub),
+                                      tree_leaves(req_cache[name]),
+                                      strict=True)]
+    for name, d, s in pairs:
+        if d.shape != s.shape:
+            raise RuntimeError(
+                f"scatter_slot: the pool's slot holds {tuple(d.shape)} "
+                f"({name}), the request's cache {tuple(s.shape)}: a prefill "
+                f"longer than the pool's cache_len (an image + text prompt "
+                f"past it) or a ring of another width does not fit a slot")
+    for _, d, s in pairs:
+        d.copy_(s)
+    pool_cache["len"][slot] = req_cache["len"].reshape(())
     return pool_cache
 
 

@@ -9,6 +9,9 @@ kernels (interpret mode) in one process, from numpy inputs:
   and a plain emulation of the kernel's two passes -- each chunk's (m, l,
   acc), then the merge -- over the same chunk boundaries, f32 tolerance
   1e-5;
+- the XOR swizzle of ``csrc/mma.cuh``'s shared-memory tiles, at every
+  row width the kernels stage (dh 96's 8 n + 4 chunks among them): a
+  bijection whose ldmatrix phases hit 8 distinct bank groups;
 - flash: an emulation of the bf16 tensor-core kernel's numerics (scores
   in f32 from bf16 inputs, online softmax in base 2 over 64-key tiles, P
   rounded to bf16 before P V, the row sum from the unrounded P) against
@@ -47,7 +50,9 @@ POOLS = [(8, 8, 1024, 64, 2),       # fedmm-base
          (4, 4, 520, 128, 8),       # yi-6b grouping, dh 128
          (64, 8, 128, 64, 2),       # slots x heads fill the card
          (1, 1, 40, 64, 1),         # shorter than one tile
-         (2, 1, 65536, 64, 16)]     # a long pool
+         (2, 1, 65536, 64, 16),     # a long pool
+         (8, 32, 2048, 96, 1),      # Phi-3-vision: dh 96, MHA
+         (3, 4, 1000, 96, 1)]       # dh 96, ragged C
 
 
 @pytest.mark.parametrize("s_slots,n_kv,c,dh,rep", POOLS,
@@ -74,6 +79,25 @@ def test_split_plan_fills_the_card_at_fedmm_base():
     n_split, split_len = split_plan(8, 8, 1024, 64, 2)
     assert (n_split, split_len) == (8, 128)
     assert n_split * 8 * 8 >= TARGET_BLOCKS == 264
+
+
+def test_split_plan_at_the_vlm_pool():
+    """Phi-3-vision's pool (S 8, C 2,048, KV 32, rep 1, dh 96): tiles of
+    32 positions (``kTile<96>``: 4096 // 96 = 42 is no whole number of
+    the 16 rows a sweep covers), 256 (KV head, slot) blocks, so 2 chunks
+    of 1,024; the kernel's tile loop over them covers every position
+    once."""
+    assert tile_len(96) == 32 and 4096 // 96 == 42
+    n_split, split_len = split_plan(8, 32, 2048, 96, 1)
+    assert (n_split, split_len) == (2, 1024)
+    assert n_split * 8 * 32 >= TARGET_BLOCKS
+    for c in (2048, 1000, 31, 33):
+        bounds = split_bounds(c, *split_plan(8, 32, c, 96, 1))
+        seen = np.zeros(c, np.int64)
+        for a, b in zip(bounds[:-1], bounds[1:]):     # as the split pass
+            for t in range(-(-(b - a) // 32)):        # ntiles of TC
+                seen[a + 32 * t:min(a + 32 * (t + 1), b)] += 1
+        assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("s_slots,n_kv,c", [(64, 8, 128), (33, 8, 4096),
@@ -134,6 +158,8 @@ DECODE_CASES = {
     "rep 3": (lambda: _pool(17, 3, 512, 2, 3, 64, [0, 511, 129]), 0, (0,)),
     "rep 8": (lambda: _pool(21, 2, 512, 1, 8, 64, [512, 64]), 0, ()),
     "dh 128": (lambda: _pool(25, 3, 256, 2, 2, 128, [256, 31, 0]), 0, (2,)),
+    "dh 96 rep 1": (lambda: _pool(29, 3, 256, 2, 1, 96, [256, 40, 0]), 0,
+                    (2,)),
 }
 _reference_cache = {}
 
@@ -216,7 +242,41 @@ def test_one_chunk_case_leaves_every_other_chunk_empty():
 
 
 # ----------------------------------------------------------------------
-# (c) the bf16 flash kernel's numerics, emulated
+# (c) the shared-memory swizzle of mma.cuh, emulated
+def _swz(row, r, c):
+    """``swz<ROW>`` of csrc/mma.cuh: the element offset of 16-byte chunk c
+    of row r in a swizzled bf16 tile of ``row`` elements a row."""
+    ch = row // 8
+    if ch > 8 and ch % 8 == 4:                      # 8 n + 4 chunks (dh 96)
+        head = ch - 4
+        c = c ^ (r & 7) if c < head else head + ((c - head) ^ ((r >> 1) & 3))
+        return (r * ch + c) * 8
+    mask = min(ch, 8) - 1
+    shift = 0 if ch >= 8 else {4: 1, 2: 2}.get(ch, 3)
+    return (r * ch + (c ^ ((r >> shift) & mask))) * 8
+
+
+@pytest.mark.parametrize("row", [16, 32, 64, 96, 128, 192, 256, 576])
+def test_swizzle_is_a_bijection_free_of_bank_conflicts(row):
+    """Each chunk of a 64-row tile lands once, in its own row, and the 8
+    rows one ldmatrix phase reads at one logical chunk (rows 8 j .. 8 j +
+    7, as the flash kernel's K and V reads take them) hit 8 distinct
+    16-byte bank groups: the 8 n + 4 layout of dh 96 as much as the
+    others.  A 16-byte row needs no swizzle (its 8 rows span the banks)."""
+    ch, rows = row // 8, 64
+    offs = [[_swz(row, r, c) for c in range(ch)] for r in range(rows)]
+    flat = sorted(o for line in offs for o in line)
+    assert flat == list(range(0, rows * row, 8))
+    assert all(r * row <= o < (r + 1) * row
+               for r, line in enumerate(offs) for o in line)
+    for r0 in range(0, rows, 8):
+        for c in range(ch):
+            groups = {(offs[r][c] * 2 // 16) % 8 for r in range(r0, r0 + 8)}
+            assert len(groups) == 8, (row, r0, c)
+
+
+# ----------------------------------------------------------------------
+# (d) the bf16 flash kernel's numerics, emulated
 def _flash_tensor_core(q, k, v, bk=64):
     """Causal attention (bottom-right) as the bf16 kernel computes it: f32
     scores of bf16 q and k, scaled by dh^-0.5 log2(e) in f32; an online
@@ -260,7 +320,9 @@ def _fold(x):
     (1, 512, 512, 16, 8, 64),      # serve prefill
     (32, 16, 16, 12, 4, 64),       # the federated round
     (1, 100, 300, 8, 2, 128),      # S != T, dh 128
-    (4, 65, 65, 6, 3, 64)])        # ragged T, B 4
+    (4, 65, 65, 6, 3, 64),         # ragged T, B 4
+    (1, 300, 300, 4, 4, 96),       # Phi-3-vision's dh 96, MHA
+    (2, 100, 200, 4, 2, 96)])      # dh 96, S != T
 def test_flash_tensor_core_numerics_fit_the_bf16_check(b, t, s, h, n_kv, dh):
     seed = t + s
     q, k, v = (torch.from_numpy(_rnd(seed + i, shape)).bfloat16()

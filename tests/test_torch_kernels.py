@@ -85,6 +85,12 @@ def test_decode_ref_gqa_grouping(n_kv, rep):
     _decode_case(*_pool(0, 3, 40, n_kv, rep, 32, [40, 17, 1]))
 
 
+def test_decode_ref_dh96():
+    """Phi-3-vision's head dim (MHA, rep 1): a slot at C, a short one and
+    one of a single entry, against Pallas and the oracle."""
+    _decode_case(*_pool(3, 3, 70, 2, 1, 96, [70, 9, 1]))
+
+
 def test_decode_ref_ring_window():
     """Ring-buffer windows: partially filled, full, wrapped once, wrapped
     many times."""
@@ -134,7 +140,8 @@ def _fold(x):
 
 
 @pytest.mark.parametrize("b,t,h,n_kv,dh", [(1, 64, 4, 4, 32),
-                                           (2, 100, 4, 2, 32)])
+                                           (2, 100, 4, 2, 32),
+                                           (1, 100, 4, 2, 96)])
 def test_flash_ref_matches_pallas(b, t, h, n_kv, dh):
     """Causal, Sq == Sk, n_rep in {1, 2}: the plain version against the
     Pallas kernel and the JAX oracle (K/V repeated per head for the

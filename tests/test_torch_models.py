@@ -209,15 +209,15 @@ def test_bf16_prefill_and_decode_close(tiny):
     _close(tl, jl, 3e-2 * float(jnp.abs(jl.astype(jnp.float32)).max()))
 
 
-@pytest.mark.parametrize("arch,over", [
-    ("phi-3-vision-4.2b", {}), ("whisper-large-v3", {})])
+@pytest.mark.parametrize("arch,over", [("whisper-large-v3", {})])
 def test_later_slices_raise(arch, over):
-    """The vlm and audio families are not ported yet: the port refuses
-    them instead of computing something else (sliding windows and the
-    hybrid family are served since slice 11, the moe family and chunked
-    attention since slice 13, MLA since slice 14:
-    ``tests/test_torch_hybrid.py``, ``tests/test_torch_chunked.py`` and
-    ``tests/test_torch_mla.py`` hold them against JAX)."""
+    """The audio family is not ported yet: the port refuses it instead of
+    computing something else (sliding windows and the hybrid family are
+    served since slice 11, the moe family and chunked attention since
+    slice 13, MLA since slice 14, the vlm family since slice 16:
+    ``tests/test_torch_hybrid.py``, ``tests/test_torch_chunked.py``,
+    ``tests/test_torch_mla.py`` and ``tests/test_torch_vlm.py`` hold them
+    against JAX)."""
     from repro_torch.configs import reduced
     cfg = reduced(get_config(arch)).with_(**over)
     with pytest.raises(NotImplementedError):
@@ -255,6 +255,16 @@ def test_mla_configs_build_like_jax(arch, over):
     refused before slice 14, now gives the reference's parameter and
     cache trees: ``make_mla``'s leaves in every block, and the latent
     cache ``c_kv`` / ``k_rope`` with no ``pos`` leaf."""
+    _builds_like_jax(arch, over)
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("phi-3-vision-4.2b", {}),
+    ("phi-3-vision-4.2b", dict(d_model=192, n_heads=2, n_kv_heads=2,
+                               head_dim=96))])
+def test_vlm_configs_build_like_jax(arch, over):
+    """The vlm family, refused before slice 16, gives the reference's
+    trees: the dense blocks and ``adapter``, and the dense cache."""
     _builds_like_jax(arch, over)
 
 

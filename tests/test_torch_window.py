@@ -12,7 +12,8 @@ inputs (f32, tolerance 1e-4 relative to max(1, |value|)):
   ``decode_attention_pallas(interpret=True, window=)``, and the CUDA
   kernel's two passes, emulated over the chunks ``split_plan`` gives at
   rep 16 (its rule for small chunks);
-- the wrappers' checks: dh 64, 128 and 256 pass, others raise, and a
+- the wrappers' checks: dh 64, 96 (since slice 16), 128 and 256 pass,
+  others (80, 512) raise, and a
   negative window raises.
 """
 import math
@@ -168,8 +169,8 @@ def test_decode_two_passes_dh256_rep16_match_pallas():
 
 # ----------------------------------------------------------------------
 # the wrappers' checks
-@pytest.mark.parametrize("dh,ok", [(64, True), (128, True), (256, True),
-                                   (96, False), (512, False)])
+@pytest.mark.parametrize("dh,ok", [(64, True), (96, True), (128, True),
+                                   (256, True), (80, False), (512, False)])
 def test_kernel_checks_take_dh_64_128_256(dh, ok):
     q = torch.zeros((1, 4, 2, dh))
     k = torch.zeros((1, 4, 1, dh))
