@@ -71,7 +71,18 @@ non-zero and prints no result):
    1, lens 0..2,048) and pools at rep 2, 4 and 16 and S 64, a slot at
    position C + 31 under the model's causal mask (no window), a window
    over a ring; bf16 and f32, each prefill and the pool replayed from a
-   CUDA graph, dh 80 refused by both wrappers.  Each
+   CUDA graph, dh 80 refused by both wrappers.  Whisper's full mask
+   (since slice 17): flash under ``causal=False`` at its encoder (B 1, T
+   = S 1,500, H = KV 20, dh 64) and its prefill cross attention (T 224,
+   S 1,500), T 1 and a ragged T 65 against S 1,500 and 300, B 4 at rep
+   2, fewer keys than rows, dh 128, a gradient, the encoder replayed
+   from a CUDA graph, a window or a chunk with the full mask refused;
+   decode at its cross pool (S 8, C 1,500, KV 20, rep 1, every frame
+   visible through ``cross_positions``' constant table, also held
+   against the full-mask flash plain version at T 1) and its causal
+   pool (C 448, ``NO_WINDOW``), the cross pool replayed from a graph;
+   both flash shapes timed beside SDPA with no mask, both pools beside
+   SDPA with a boolean mask.  Each
    is timed, in bf16 at each path's
    shapes (the scan in f32, as the prefill gives it), beside its
    plain version, its bound and a PyTorch yardstick the port never
@@ -181,7 +192,19 @@ non-zero and prints no result):
    at the cache edge (576 image + 1,440 text positions, 64 decode steps
    to position 2,079 of a pool of 2,048, admitted because the rule
    counts the text) against the CPU in f32: logits, and greedy tokens
-   where the CPU's margin allows;
+   where the CPU's margin allows.  Then the audio family, after the
+   same freeing: ``ServeEngine`` on whisper-large-v3 at full width and
+   depth (32 encoder + 32 decoder layers, d_model 1,280, 20 heads of dh
+   64, MHA, d_ff 5,120, vocab 51,872; bf16, random weights from seed 0)
+   serves 8 requests, each 1,500 frame embeddings (width 1,280, drawn
+   with numpy: the mel and conv front end is a stub) and 4-224 prompt
+   tokens, x 128 through 8 slots x 448, M = 8: exactly 96 flash
+   launches per admission (32 encoder layers under the full mask, 32
+   causal and 32 cross decoder layers) and 64 decode launches per
+   decode step (32 causal, 32 cross), the eager stream token-identical,
+   a profiled run of 4 admissions; at 2 + 2 layers and full width a
+   224-token prompt over the full 1,500 frames and 64 decode steps
+   against the CPU in f32;
 9. federation: ``SequentialFederation`` on fedmm-small at full width
    (12 layers, bf16, geodora, precision aggregation, the default 4 nodes
    x 10 local steps, batch 32 x 16 tokens, rank 8) runs 2 rounds; each
@@ -328,7 +351,7 @@ from repro_torch.graphs import capture as capture_graph  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
-    NO_WINDOW, gqa_forward, mla_forward)
+    NO_WINDOW, cross_positions, gqa_forward, mla_forward)
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import _capacity, router_scores  # noqa: E402
@@ -803,10 +826,13 @@ def flash_phase() -> dict:
     return dict(max_abs_err=errs[torch.bfloat16], timings=timings)
 
 
-def window_mask(t: int, s: int, window: int, chunk: int = 0) -> torch.Tensor:
+def window_mask(t: int, s: int, window: int, chunk: int = 0,
+                causal: bool = True) -> torch.Tensor:
     """(T, S) bool: the keys each query row sees under the sliding (or
     chunked) mask, aligned bottom-right as the kernel aligns it (causal
-    when window and chunk are 0)."""
+    when window and chunk are 0; every key under ``causal`` False)."""
+    if not causal:
+        return torch.ones((t, s), dtype=torch.bool, device="cuda")
     qi = torch.arange(t, device="cuda")[:, None] + (s - t)
     ki = torch.arange(s, device="cuda")[None, :]
     ok = ki <= qi
@@ -816,29 +842,32 @@ def window_mask(t: int, s: int, window: int, chunk: int = 0) -> torch.Tensor:
 
 
 def flash_timing(path, b, t, h, n_kv, dh, window=0, chunk=0, dv=None,
-                 plain_fn=None, plain_iters=None) -> dict:
+                 plain_fn=None, plain_iters=None, s=None,
+                 causal=True) -> dict:
     """Kernel, plain and SDPA times (bf16) and the bound of the visible
-    (query, key) pairs.  SDPA runs ``is_causal`` for the causal mask and a
-    boolean (T, S) mask for a window or a chunk; v's head dim is ``dv``
-    (default dh).  ``plain_fn`` replaces the plain version where its f32
-    scores would not fit at once (``grouped_ref``)."""
-    dv = dv or dh
+    (query, key) pairs.  SDPA runs ``is_causal`` for the causal mask (T
+    == S), no mask for the full one (``causal`` False) and a boolean (T,
+    S) mask for a window or a chunk; v's head dim is ``dv`` (default dh),
+    the keys ``s`` (default T; another S only under the full mask).  ``plain_fn`` replaces the plain version
+    where its f32 scores would not fit at once (``grouped_ref``)."""
+    dv, s = dv or dh, s or t
     g = torch.Generator(device="cuda").manual_seed(t)
     q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
-        torch.bfloat16) for shape in ((b, t, h, dh), (b, t, n_kv, dh),
-                                      (b, t, n_kv, dv)))
+        torch.bfloat16) for shape in ((b, t, h, dh), (b, s, n_kv, dh),
+                                      (b, s, n_kv, dv)))
     sets = copies((q, k, v))
+    mask_kw = dict(window=window, chunk=chunk) if causal else \
+        dict(causal=False)
 
     def kernel(*x):
-        return flash_attention(*x, window=window, chunk=chunk)
+        return flash_attention(*x, **mask_kw)
 
     def plain(*x):
-        return (plain_fn or ref.flash_attention_ref)(*x, window=window,
-                                                     chunk=chunk)
+        return (plain_fn or ref.flash_attention_ref)(*x, **mask_kw)
 
-    mask = window_mask(t, t, window, chunk)
+    mask = window_mask(t, s, window, chunk, causal)
     masked = bool(window or chunk)
-    sdpa = dict(attn_mask=mask) if masked else dict(is_causal=True)
+    sdpa = dict(attn_mask=mask) if masked else dict(is_causal=causal)
 
     def library(*x):
         return F.scaled_dot_product_attention(*x, enable_gqa=True, **sdpa)
@@ -859,12 +888,15 @@ def flash_timing(path, b, t, h, n_kv, dh, window=0, chunk=0, dv=None,
     b_ms, b_by = bound_ms(nbytes(q, k, v) + nbytes(q) * dv // dh, ops,
                           torch.bfloat16)
     shape = (f"B {b}, T {t}, H {h}, KV {n_kv}, dh {dh}"
+             + (f", S {s}" if s != t else "")
+             + ("" if causal else ", full mask")
              + (f", dv {dv}" if dv != dh else "")
              + (f", window {window}" if window else "")
              + (f", chunk {chunk}" if chunk else ""))
     log(f"  flash_attention timing ({path}, bf16, {shape}): kernel "
         f"{ms:.4f} ms on the device ({issue_ms:.4f} ms to issue), plain "
-        f"{plain_ms:.4f} ms, SDPA{' (bool mask)' if masked else ''} "
+        f"{plain_ms:.4f} ms, SDPA"
+        f"{' (bool mask)' if masked else '' if causal else ' (no mask)'} "
         f"{library_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {ops} flops)")
     return dict(path=path, shape=shape, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
@@ -1146,6 +1178,114 @@ def vlm_decode_phase() -> list:
     else:
         raise AssertionError("decode_attention took dh 80")
     return [decode_timing("Phi-3-vision pool", s, c, lens, n_kv, rep, dh)]
+
+
+# ----------------------------------------------------------------------
+# kernel phases under the full mask and at the cross pool: Whisper
+#: Whisper-large-v3's full-mask prefills (MHA, dh 64): name -> (B, T, S, H,
+#: KV, dh); the encoder over one 30 s window of 1,500 frames, and the
+#: decoder's cross attention of the serve phase's longest prompt (224
+#: tokens) over it
+AUDIO_FLASH = {"Whisper encoder": (1, 1500, 1500, 20, 20, 64),
+               "Whisper prefill cross attention": (1, 224, 1500, 20, 20, 64)}
+#: smaller full-mask cases: name -> (B, T, S, H, KV, dh)
+AUDIO_FLASH_CASES = {
+    "T 1, S 1,500": (1, 1, 1500, 20, 20, 64),
+    "ragged T 65, S 300": (1, 65, 300, 16, 16, 64),
+    "B 4, T 200, S 300, rep 2": (4, 200, 300, 16, 8, 64),
+    "T 300, S 100 (fewer keys than rows)": (1, 300, 100, 8, 8, 64),
+    "dh 128, T 100, S 300, rep 4": (1, 100, 300, 16, 4, 128),
+}
+
+
+def audio_flash_phase() -> list:
+    """Flash under the full mask (``causal=False``): Whisper's encoder and
+    prefill cross attention and the smaller cases, against the plain
+    version in bf16 and f32; a gradient check; the encoder replayed from a
+    CUDA graph; a window or a chunk with the full mask refused; then both
+    prefills timed in bf16 beside SDPA with no mask."""
+    log("kernel phase: flash_attention under the full mask (Whisper)")
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, (b, t, sk, h, n_kv, dh) in {**AUDIO_FLASH,
+                                              **AUDIO_FLASH_CASES}.items():
+            a = flash_inputs(t, h, n_kv, dh, dtype, seed=t + sk + 12, b=b,
+                             s=sk)
+            attn_err("flash", f"full mask, {what} (B {b}, T {t}, S {sk}, H "
+                     f"{h}, KV {n_kv}, dh {dh}) {dtype}",
+                     flash_attention(*a, causal=False),
+                     ref.flash_attention_ref(*a, causal=False))
+        check_vjp(f"flash_attention full-mask gradient (B 1, T 100, S 260, H "
+                  f"8, KV 8) {dtype}",
+                  lambda *x: flash_attention(*x, causal=False),
+                  lambda *x: ref.flash_attention_ref(*x, causal=False),
+                  flash_inputs(100, 8, 8, 64, dtype, seed=261, s=260),
+                  (0, 1, 2), TOL[dtype])
+    a = flash_inputs(1500, 20, 20, 64, torch.bfloat16, seed=13, s=1500)
+    graph_check("flash_attention", "Whisper encoder, full mask, bf16",
+                lambda: flash_attention(*a, causal=False))
+    for mask in (dict(window=64), dict(chunk=64)):
+        try:
+            flash_attention(*a, causal=False, **mask)
+        except ValueError as err:
+            log(f"  the full mask with {mask} raises: {err}")
+        else:
+            raise AssertionError(f"flash_attention took causal=False with "
+                                 f"{mask}")
+    return [flash_timing(what, b, t, h, n_kv, dh, s=sk, causal=False)
+            for what, (b, t, sk, h, n_kv, dh) in AUDIO_FLASH.items()]
+
+
+#: Whisper's serve pools (S, C, KV, rep, dh, lens): the cross K / V of 1,500
+#: frames a slot (every frame visible through the constant position
+#: table), and the decoder's causal pool of 448 positions
+AUDIO_CROSS_POOL = (8, 1500, 20, 1, 64, [1500] * 8)
+AUDIO_SELF_POOL = (8, 448, 20, 1, 64, [448, 1, 0, 100, 229, 300, 447, 353])
+
+
+def audio_decode_phase() -> list:
+    """Decode at Whisper's cross pool: the positions ``decode_inputs``
+    builds for full slots are ``cross_positions``' constant table (q_pos
+    E - 1, kv_pos[s, c] = c), checked equal; the kernel against the plain
+    version and against the full-mask flash plain version at T 1 (every
+    frame visible) in bf16 and f32; the decoder's causal pool under the
+    model's mask (``NO_WINDOW``); the cross pool replayed from a CUDA
+    graph; then both pools timed in bf16 beside SDPA."""
+    log("kernel phase: decode_attention at Whisper's cross and self pools")
+    s, c, n_kv, rep, dh, lens = AUDIO_CROSS_POOL
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, q_pos, pos = decode_inputs(s, c, n_kv, rep, dh, lens, dtype,
+                                            seed=14)
+        want_q, want_kv = cross_positions(s, c, "cuda")
+        if not (torch.equal(q_pos, want_q) and torch.equal(pos, want_kv)):
+            raise AssertionError("the cross pool's positions are not "
+                                 "cross_positions' table")
+        got = decode_attention(q, k, v, want_q, want_kv)
+        attn_err("decode", f"Whisper cross pool (S {s}, C {c}, KV {n_kv}, "
+                 f"rep {rep}) {dtype}", got,
+                 ref.decode_attention_ref(q, k, v, want_q, want_kv))
+        attn_err("decode", f"Whisper cross pool against the full-mask "
+                 f"flash plain version at T 1 {dtype}", got,
+                 ref.flash_attention_ref(q[:, None], k, v,
+                                         causal=False)[:, 0])
+        s2, c2, kv2, rep2, dh2, lens2 = AUDIO_SELF_POOL
+        check_decode(f"Whisper causal pool (S {s2}, C {c2}, KV {kv2}) "
+                     f"{dtype}", decode_inputs(s2, c2, kv2, rep2, dh2, lens2,
+                                               dtype, seed=15),
+                     window=NO_WINDOW,
+                     zero_slots=[i for i, n in enumerate(lens2) if not n])
+    n_split, split_len = split_plan(s, n_kv, c, dh, rep)
+    log(f"  Whisper cross pool: split into {n_split} chunks of {split_len} "
+        f"positions, {n_split * s * n_kv} blocks of (chunk, KV head, slot), "
+        f"tiles of {tile_len(dh)} positions")
+    q, k, v, _, _ = decode_inputs(s, c, n_kv, rep, dh, lens, torch.bfloat16,
+                                  seed=16)
+    q_pos, kv_pos = cross_positions(s, c, "cuda")
+    graph_check("decode_attention", "Whisper cross pool, bf16",
+                lambda: decode_attention(q, k, v, q_pos, kv_pos))
+    return [decode_timing("Whisper cross decode", s, c, lens, n_kv, rep, dh),
+            decode_timing("Whisper causal decode", *AUDIO_SELF_POOL[:2],
+                          AUDIO_SELF_POOL[5], *AUDIO_SELF_POOL[2:5],
+                          window=NO_WINDOW)]
 
 
 # ----------------------------------------------------------------------
@@ -1945,6 +2085,18 @@ def layer_kinds(cfg) -> tuple:
     return n_att, cfg.n_layers - n_att
 
 
+def attn_launches(cfg) -> tuple:
+    """(flash launches an admission, decode-kernel launches a decode
+    step): one each per attention layer, but for the audio family, whose
+    admission runs the encoder's layers (full mask) and each decoder
+    layer's causal and cross attention, and whose step runs each decoder
+    layer's causal and cross decode."""
+    if cfg.family == "audio":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    n_att = layer_kinds(cfg)[0]
+    return n_att, n_att
+
+
 def decode_kernel(cfg) -> str:
     """The kernel a decode step's attention launches: ``mla_decode`` under
     MLA (DeepSeek-V2), else ``decode_attention``."""
@@ -1953,18 +2105,20 @@ def decode_kernel(cfg) -> str:
 
 def serve_launches(cfg, eng) -> dict:
     """What ``eng``'s runs so far launched by the design: per admission
-    the flash kernel once per attention layer and the scan once per
-    recurrent layer (ssm, RG-LRU), and per decode step the decode kernel
-    (``mla_decode`` under MLA) once per attention layer -- the replayed
-    blocks' steps and each capture's warm-up block."""
-    n_att, n_rec = layer_kinds(cfg)
+    the flash kernel once per attention layer (``attn_launches``) and the
+    scan once per recurrent layer (ssm, RG-LRU), and per decode step the
+    decode kernel (``mla_decode`` under MLA) once per attention layer
+    (twice per decoder layer for audio) -- the replayed blocks' steps and
+    each capture's warm-up block."""
+    n_rec = layer_kinds(cfg)[1]
+    per_admit, per_step = attn_launches(cfg)
     admits = eng.stats["admit_dispatches"]
     steps = eng.scfg.block_steps * (eng.stats["block_dispatches"]
                                     + eng.graph_stats["captures"])
     want = dict.fromkeys(WRAPPERS, 0)
-    want.update(flash_attention=n_att * admits,
+    want.update(flash_attention=per_admit * admits,
                 selective_scan=n_rec * admits)
-    want[decode_kernel(cfg)] = n_att * steps
+    want[decode_kernel(cfg)] = per_step * steps
     return want
 
 
@@ -2003,7 +2157,7 @@ def serve_phase(cfg, params, scfg=SERVE_CFG, reqs=None, rt=None) -> dict:
     per_replay = {name: graph.launches_by_name()[fn.__name__]
                   for name, fn in WRAPPERS.items()}
     want_replay = dict.fromkeys(WRAPPERS, 0)
-    want_replay[decode_kernel(cfg)] = layer_kinds(cfg)[0] * scfg.block_steps
+    want_replay[decode_kernel(cfg)] = attn_launches(cfg)[1] * scfg.block_steps
     if per_replay != want_replay:
         raise AssertionError(f"the decode block's graph records "
                              f"{per_replay}, want {want_replay}")
@@ -2024,7 +2178,7 @@ def serve_phase(cfg, params, scfg=SERVE_CFG, reqs=None, rt=None) -> dict:
     steps = st["block_dispatches"] * scfg.block_steps
     want = serve_launches(cfg, eng)
     # the capture's warm-up is not counted
-    want[decode_kernel(cfg)] = layer_kinds(cfg)[0] * steps
+    want[decode_kernel(cfg)] = attn_launches(cfg)[1] * steps
     if launches != want or st["admit_dispatches"] != len(reqs):
         raise AssertionError(f"kernel launches {launches}, want {want} "
                              f"({st['admit_dispatches']} admissions, "
@@ -2395,10 +2549,14 @@ def oracle_phase(cfg, params, req, tol=(5e-2, 1e-3), cache_len=1024,
     the CPU's top-2 margin exceeds twice the tolerance (below it the
     tolerance allows a flip; such steps are counted)."""
     n_img = sum(len(arr) for _, arr in req.extras)
+    where = (f", {n_img} encoder frames" if cfg.family == "audio" else
+             f" after {n_img} image positions")
     log(f"oracle phase: {cfg.arch_id} ({cfg.n_layers} layers"
+        + (f", {cfg.n_encoder_layers} encoder layers"
+           if cfg.family == "audio" else "")
         + (f", window_override {rt.window_override}" if rt else "")
         + f"), request {req.rid} ({len(req.tokens)} prompt tokens"
-        + (f" after {n_img} image positions" if n_img else "")
+        + (where if n_img else "")
         + f", {steps} decode steps) on the card vs the plain versions on "
         f"the CPU (f32)")
     cpu_params = tree_map(lambda t: t.float().cpu(), params)
@@ -2974,6 +3132,66 @@ def vlm_phases() -> dict:
     gc.collect()
     served["phase_s"] = time.perf_counter() - t0
     log(f"VLM phases: {served['phase_s']:.1f} s")
+    return served
+
+
+# ----------------------------------------------------------------------
+# audio phases: Whisper-large-v3 at full width and depth
+AUDIO_CFG = ServeConfig(n_slots=8, cache_len=448, block_steps=8,
+                        max_new_tokens=128)
+
+
+def audio_requests(cfg, n: int, lo: int, hi: int, max_new: int,
+                   seed: int) -> list:
+    """``long_requests``' text, each with ``encoder_seq_len`` frame
+    embeddings of width ``encoder_embed_dim`` drawn with numpy from
+    ``seed`` (one 30 s window; the mel and conv front end is a stub in the
+    reference too)."""
+    shape = (cfg.encoder_seq_len, cfg.encoder_embed_dim)
+    reqs = long_requests(cfg, n, lo, hi, max_new, seed)
+    frames = [np.random.default_rng(seed + 1000 + i).standard_normal(
+        shape, dtype=np.float32) for i in range(n)]
+    return [dataclasses.replace(r, extras=(("enc_embeds", f),))
+            for r, f in zip(reqs, frames)]
+
+
+def audio_phases() -> dict:
+    """Whisper-large-v3 at full width and depth (32 encoder + 32 decoder
+    layers, 20 heads of dh 64, MHA; bf16, random weights from seed 0): the
+    serve phase (8 requests, each 1,500 frames + 4-224 prompt tokens x
+    128, through 8 slots x 448), its eager oracle and a profiled run of 4
+    admissions; then at 2 + 2 layers and full width the CPU oracle over
+    the full 1,500 frames (a 224-token prompt, 64 decode steps), greedy
+    tokens held too."""
+    t0 = time.perf_counter()
+    free_device("the audio phases")
+    cfg = get_config("whisper-large-v3")
+    params = build_params(cfg, f"audio ({cfg.n_encoder_layers} encoder + "
+                          f"{cfg.n_layers} decoder layers)")
+    scfg = AUDIO_CFG
+    kv = cfg.n_kv_heads * cfg.head_dim * 2                  # bf16, one of K / V
+    own = cfg.n_layers * scfg.n_slots * scfg.cache_len * (2 * kv + 4)
+    cross = cfg.n_layers * scfg.n_slots * cfg.encoder_seq_len * 2 * kv
+    log(f"  the pool: {scfg.n_slots} slots x {scfg.cache_len} positions x "
+        f"{cfg.n_layers} layers, {own / 1e6:.1f} MB of K / V / pos, and "
+        f"{cross / 1e9:.3f} GB of cross K / V ({cfg.encoder_seq_len} frames "
+        f"a slot); each request's frames: {cfg.encoder_seq_len} x "
+        f"{cfg.encoder_embed_dim} through the adapter")
+    reqs = audio_requests(cfg, 8, 4, 224, 128, seed=40)
+    served = serve_phase(cfg, params, scfg, reqs)
+    served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
+    trace_phase(cfg, params, scfg, reqs[:4])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = cfg.with_(n_layers=2, n_encoder_layers=2)
+    params = build_params(small, "audio (2 encoder + 2 decoder layers)")
+    req = audio_requests(cfg, 1, 224, 224, 64, seed=41)[0]
+    oracle_phase(small, params, req, cache_len=scfg.cache_len, steps=64)
+    del params
+    gc.collect()
+    served["phase_s"] = time.perf_counter() - t0
+    log(f"audio phases: {served['phase_s']:.1f} s")
     return served
 
 
@@ -4003,6 +4221,10 @@ def main() -> int:
     rows["flash_attention"]["timings"] += mla_flash_phase()
     rows["flash_attention"]["timings"] += vlm_flash_phase()
     rows["decode_attention"]["timings"] += vlm_decode_phase()
+    t_audio_kernels = time.perf_counter()
+    rows["flash_attention"]["timings"] += audio_flash_phase()
+    rows["decode_attention"]["timings"] += audio_decode_phase()
+    log(f"audio kernel phases: {time.perf_counter() - t_audio_kernels:.1f} s")
     stamp("kernel phases")
 
     cfg = get_config("fedmm-base")
@@ -4029,6 +4251,8 @@ def main() -> int:
     stamp("MLA phases")
     vlm = vlm_phases()
     stamp("VLM phases")
+    audio = audio_phases()
+    stamp("audio phases")
 
     fed, rounds = federation_phase()
     federation_trace_phase(fed)
@@ -4119,6 +4343,10 @@ def main() -> int:
                    "blocks)": vlm["launches"][k],
                    "vlm serve graph oracle (eager blocks)":
                        vlm["oracle"]["launches"][k],
+                   "audio serve, Whisper-large-v3 32 + 32 layers with 1,500 "
+                   "frames (replayed blocks)": audio["launches"][k],
+                   "audio serve graph oracle (eager blocks)":
+                       audio["oracle"]["launches"][k],
                    "federation": rounds["launches"][k],
                    "federation at rank 64 (2 layers)":
                        rank64["launches"][k],
@@ -4169,7 +4397,9 @@ def main() -> int:
                       (f"moe serve with MLA (DeepSeek-V2-236B, "
                        f"{DEEPSEEK_LAYERS} of 60 layers)", deepseek),
                       ("vlm serve (Phi-3-vision-4.2B, 32 of 32 layers, "
-                       "576 image positions a request)", vlm)):
+                       "576 image positions a request)", vlm),
+                      ("audio serve (Whisper-large-v3, 32 + 32 of 32 + 32 "
+                       "layers, 1,500 frames a request)", audio)):
         log(f"{what}: {run['tokens'] / run['wall_s']} tokens/s replayed "
             f"(eager blocks: {run['tokens'] / run['oracle']['wall_s']}), "
             f"wall {run['wall_s']} s, capture {run['capture_s']} s, "
@@ -4179,7 +4409,8 @@ def main() -> int:
             f"a replayed decode step {run['step_ms']} ms")
     log(f"hybrid and windowed dense phases: {new_s:.1f} s; moe phases "
         f"{scout['phase_s']:.1f} s; MLA phases {deepseek['phase_s']:.1f} s; "
-        f"VLM phases {vlm['phase_s']:.1f} s")
+        f"VLM phases {vlm['phase_s']:.1f} s; audio phases "
+        f"{audio['phase_s']:.1f} s")
     log(f"federation: round wall {rounds['walls']} s; at rank 64 (2 "
         f"layers) {rank64['walls']} s")
     log(f"engine: replayed round wall {engine['walls']} s; block of 2 "

@@ -1,5 +1,5 @@
-// Causal, sliding-window or chunked full-sequence (prefill and training)
-// attention with an online softmax, forward only.
+// Causal, full, sliding-window or chunked full-sequence (prefill and
+// training) attention with an online softmax, forward only.
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_pallas
 // (`_flash_kernel`; its jnp twin blockwise_attention is what the JAX
@@ -22,8 +22,17 @@
 // rows (first_key).  A row with no visible key gets 0.  Key tiles above
 // the diagonal of a block's last row, and tiles wholly before the first
 // visible key of its first row, are never loaded; a warp skips the loaded
-// tiles that lie outside its own rows' range.  The Pallas kernel's full
-// (non-causal) mask serves the encoder family and is ported with it.
+// tiles that lie outside its own rows' range.
+//
+// causal == 0 is the Pallas kernel's full mask (the audio family's
+// encoder and its decoder's cross attention, T != S allowed): every key
+// 0..S-1 is visible to every row, a key past S never.  The kernels take it
+// as the causal mask with the rows shifted past the last key (shift = S
+// instead of S - T): the diagonal then lies beyond every tile, so no tile
+// is skipped, no row masks a key of its own and the first key is 0 (the
+// wrapper refuses a window or a chunk with it).  Only the key-past-S test
+// of the ragged last tile stays.  Every row does equal work, so the
+// causal pairing of segments below is harmless there.
 //
 // The causal pairing of segments below balances a triangle of work, not
 // the staircase a chunked mask leaves: under a chunk a block still loads
@@ -185,7 +194,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps * kMaxKS<DQK>)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, int Tq,
                  int S, int H, int KV, int RQ, int HB, int KS, int window,
-                 int chunk, float scale_log2) {
+                 int chunk, int causal, float scale_log2) {
   constexpr int BK = kBK<DQK>;                        // keys per tile
   constexpr int NJ = BK / 8;                          // 8-key column tiles of S
   constexpr int NKC = BK / 16;                        // 16-key k-steps of P V
@@ -215,7 +224,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t0 = segment(rw % wph) * 16;              // this warp's first row
   const int b = blockIdx.z;
   const int g = blockIdx.y * HB / (H / KV);
-  const int shift = S - Tq;                           // bottom-right causal alignment
+  // bottom-right causal alignment; under the full mask the rows lie past
+  // every key (see the note at the top)
+  const int shift = causal ? S - Tq : S;
   // keys past kend are masked for every row of the block, and keys before
   // kbeg by the window or chunk of every row; past wend or before wbeg
   // for every row of this warp (wend 0 when the warp holds no row)
@@ -456,7 +467,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DQK, int DV>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Tq,
-               int S, int H, int KV, int window, int chunk, float scale,
+               int S, int H, int KV, int window, int chunk, int causal, float scale,
                cudaStream_t stream) {
   static int n_sm = 0;                                // set on the first launch
   if (n_sm == 0) {
@@ -493,7 +504,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   flash_mma_kernel<DQK, DV><<<grid, 32 * hb * (rq / 16) * ks, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, S, H, KV, rq, hb, ks,
-      window, chunk, scale * 1.4426950408889634f);
+      window, chunk, causal, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -517,7 +528,7 @@ template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int Tq, int S,
-                 int H, int KV, int window, int chunk, float scale) {
+                 int H, int KV, int window, int chunk, int causal, float scale) {
   using T = float;
   constexpr int DH = DQK;                             // Q and K rows
   constexpr int CPT = DV / 16;                        // output columns per thread
@@ -535,7 +546,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (H / KV);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int shift = S - Tq;                           // bottom-right causal alignment
+  const int shift = causal ? S - Tq : S;              // as in the bf16 kernel
 
 #pragma unroll
   for (int j0 = 0; j0 < NV; j0 += NB) {
@@ -672,7 +683,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DQK, int DV>
 int launch_fma(const void* q, const void* k, const void* v, void* out, int B, int Tq,
-               int S, int H, int KV, int window, int chunk, float scale,
+               int S, int H, int KV, int window, int chunk, int causal, float scale,
                cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DQK, DV>();
   static bool attr_set = false;
@@ -687,29 +698,33 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, int B, in
   flash_fma_kernel<DQK, DV><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Tq, S, H, KV, window, chunk,
-      scale);
+      causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns a cudaError_t: 0 when the launch was accepted.  window and chunk
-// 0 is the causal mask; window > 0 the sliding one, chunk > 0 the chunked
-// one (not both).  dh is q's and k's head dim, dv v's and out's; a pair the
+// Returns a cudaError_t: 0 when the launch was accepted.  causal != 0 with
+// window and chunk 0 is the causal mask; window > 0 the sliding one, chunk
+// > 0 the chunked one (not both); causal == 0 the full mask (no window or
+// chunk).  dh is q's and k's head dim, dv v's and out's; a pair the
 // kernels are not built for is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int Tq, int S, int H, int KV,
-                                      int dh, int dv, int window, int chunk, float scale,
-                                      int is_bf16, void* stream) {
+                                      int dh, int dv, int window, int chunk, int causal,
+                                      float scale, int is_bf16, void* stream) {
   if (B < 1 || Tq < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535 ||
-      window < 0 || chunk < 0 || (window > 0 && chunk > 0))
+      window < 0 || chunk < 0 || (window > 0 && chunk > 0) ||
+      (!causal && (window > 0 || chunk > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = is_bf16 != 0;
 #define FLASH_CASE(DQK, DV)                                                              \
   if (dh == DQK && dv == DV)                                                             \
-    return bf ? launch_mma<DQK, DV>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st) \
-              : launch_fma<DQK, DV>(q, k, v, out, B, Tq, S, H, KV, window, chunk, scale, st);
+    return bf ? launch_mma<DQK, DV>(q, k, v, out, B, Tq, S, H, KV, window, chunk, causal, \
+                                    scale, st)                                          \
+              : launch_fma<DQK, DV>(q, k, v, out, B, Tq, S, H, KV, window, chunk, causal, \
+                                    scale, st);
   FLASH_CASE(64, 64)
   FLASH_CASE(96, 96)
   FLASH_CASE(128, 128)

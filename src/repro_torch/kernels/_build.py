@@ -35,10 +35,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     # scale, is_bf16, n_split, split_len, stream
     "decode_attention": {"decode_attention_launch":
                          [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3 + [_P]},
-    # q, k, v, out, B, T, S, H, KV, dh, dv, window, chunk, scale, is_bf16,
-    # stream
+    # q, k, v, out, B, T, S, H, KV, dh, dv, window, chunk, causal, scale,
+    # is_bf16, stream
     "flash_attention": {"flash_attention_launch":
-                        [_P] * 4 + [_I] * 9 + [_F, _I, _P]},
+                        [_P] * 4 + [_I] * 10 + [_F, _I, _P]},
     # q_c, q_rope, c_kv, k_rope, lens, out, part, S, C, H, kvr, rd, scale,
     # design, n_split, split_len, stream
     # ...; dynamic shared memory a block of a design takes

@@ -2,7 +2,8 @@
 ``csrc/flash_attention.cu`` (the port of ``flash_attention_pallas``), with
 its gradient.
 
-``flash_attention(q, k, v, window=0, chunk=0)`` takes the layout
+``flash_attention(q, k, v, causal=True, window=0, chunk=0)`` takes the
+layout
 ``blockwise_attention`` uses -- q (B, T, H, dh), k (B, S, KV, dh), v (B,
 S, KV, dv), query head h reading KV head h // (H // KV) -- and returns
 (B, T, H, dv) in q's dtype.  (dh, dv) is one of ``HEAD_DIM_PAIRS``: dh
@@ -17,8 +18,11 @@ attention.  With ``chunk`` > 0 it is the chunked kind (llama4's local
 attention, the MoE family's Llama-4-Scout): a key is visible when it is
 causal and lies in the query's chunk of positions, ``k >= qa - qa %
 chunk`` with ``qa = q + (S - T)``; ``window`` and ``chunk`` exclude each
-other.  Scores are scaled by dh^-0.5.  The full (non-causal) mask of the
-Pallas kernel serves the encoder family and comes with it.
+other.  With ``causal=False`` it is the Pallas kernel's full mask: every
+key 0..S-1 visible to every row, T != S allowed (the audio family's
+encoder self-attention and its decoder's cross attention over the
+encoder output); a window or a chunk with it raises.  Scores are scaled
+by dh^-0.5.
 
 It is a ``torch.autograd.Function``, for the federated round's local
 steps.  The Pallas kernel has no backward, so the backward is plain
@@ -46,7 +50,8 @@ HEAD_DIMS = (64, 96, 128, 256)
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 
 
-def _check(q, k, v, window: int, chunk: int = 0) -> None:
+def _check(q, k, v, window: int, chunk: int = 0,
+           causal: bool = True) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: want q (B, T, H, dh), k (B, S, "
                          f"KV, dh) and v (B, S, KV, dv); got "
@@ -67,6 +72,10 @@ def _check(q, k, v, window: int, chunk: int = 0) -> None:
     if window and chunk:
         raise ValueError(f"flash_attention: window {window} and chunk "
                          f"{chunk} exclude each other")
+    if not causal and (window or chunk):
+        raise ValueError(f"flash_attention: causal=False (the full mask) "
+                         f"takes no window or chunk; got window {window}, "
+                         f"chunk {chunk}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share one dtype of "
                         f"{_DTYPES}; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -81,20 +90,21 @@ def _check(q, k, v, window: int, chunk: int = 0) -> None:
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             window: int, chunk: int) -> torch.Tensor:
+             causal: bool, window: int, chunk: int) -> torch.Tensor:
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, window=window, chunk=chunk)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   chunk=chunk)
     if q.device.type != "cuda" or q.device.index not in (None, 0):
         raise ValueError(f"flash_attention: no kernel for {q.device} (the "
                          f"kernels launch on cuda:0)")
-    _check(q, k, v, window, chunk)
+    _check(q, k, v, window, chunk, causal)
     b, t, h, dh = q.shape
     s, n_kv, dv = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty((b, t, h, dv))
     lib = _build.load("flash_attention")
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, s, h,
-        n_kv, dh, dv, window, chunk, float(dh ** -0.5),
+        n_kv, dh, dv, window, chunk, int(causal), float(dh ** -0.5),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attention", err)
@@ -104,25 +114,26 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, window, chunk):
+    def forward(ctx, q, k, v, causal, window, chunk):
         ctx.save_for_backward(q, k, v)
-        ctx.window, ctx.chunk = window, chunk
-        return _forward(q, k, v, window, chunk)
+        ctx.mask = dict(causal=causal, window=window, chunk=chunk)
+        return _forward(q, k, v, causal, window, chunk)
 
     @staticmethod
     def backward(ctx, dout):
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = flash_attention_ref(*leaves, window=ctx.window,
-                                      chunk=ctx.chunk)
-        return (*torch.autograd.grad(out, leaves, dout), None, None)
+            out = flash_attention_ref(*leaves, **ctx.mask)
+        return (*torch.autograd.grad(out, leaves, dout), None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0, chunk: int = 0) -> torch.Tensor:
-    """Causal (``window`` and ``chunk`` 0), sliding-window or chunked
-    online-softmax attention, differentiable; see the module docstring."""
-    return _FlashAttention.apply(q, k, v, window, chunk)
+                    causal: bool = True, window: int = 0,
+                    chunk: int = 0) -> torch.Tensor:
+    """Causal (``window`` and ``chunk`` 0), sliding-window, chunked or,
+    under ``causal=False``, full online-softmax attention,
+    differentiable; see the module docstring."""
+    return _FlashAttention.apply(q, k, v, bool(causal), window, chunk)
 
 
 flash_attention.launches = 0

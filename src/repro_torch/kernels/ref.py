@@ -23,9 +23,12 @@ which the CUDA kernels share:
   or with ``window`` > 0 the oracle's sliding kind aligned the same way,
   ``k <= q + (S - T)`` and ``q + (S - T) - k < window``, or with
   ``chunk`` > 0 its chunked kind (llama4's local attention), ``k <= q +
-  (S - T)`` and ``(q + (S - T)) // chunk == k // chunk``.
+  (S - T)`` and ``(q + (S - T)) // chunk == k // chunk``; or with
+  ``causal=False`` the Pallas kernel's and the oracle's full mask, every
+  key 0..S-1 visible to every row (no padded key: the oracle pads none,
+  and the Pallas kernel masks its padding by ``sk_valid``).
 
-``window`` and ``chunk`` exclude each other.  Both attention versions
+``window`` and ``chunk`` exclude each other and the full mask.  Both attention versions
 read absolute positions for the chunked rule: ``q + (S - T)`` and the
 key index for flash, ``q_pos`` and ``kv_pos`` for decode.
 
@@ -56,10 +59,13 @@ def _chunk_start(pos: torch.Tensor, chunk: int) -> torch.Tensor:
     return pos - pos % chunk
 
 
-def _check_mask(window: int, chunk: int) -> None:
+def _check_mask(window: int, chunk: int, causal: bool = True) -> None:
     if window and chunk:
         raise ValueError(f"window {window} and chunk {chunk}: the sliding "
                          f"and chunked masks exclude each other")
+    if not causal and (window or chunk):
+        raise ValueError(f"window {window} and chunk {chunk} with "
+                         f"causal=False: the full mask takes neither")
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,13 +94,15 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, window: int = 0, chunk: int = 0) -> torch.Tensor:
-    """Causal (``window`` and ``chunk`` 0), sliding-window or chunked
+                        *, causal: bool = True, window: int = 0,
+                        chunk: int = 0) -> torch.Tensor:
+    """Causal (``window`` and ``chunk`` 0), sliding-window, chunked or,
+    under ``causal=False``, full (every key to every row, T != S allowed)
     full-sequence attention.  q: (B, T, H, dh); k: (B, S, KV, dh) and v
     (B, S, KV, dv) with H = KV * rep; dv may differ from dh (MLA's q.k
     heads of 192 and v heads of 128), and the scores are scaled by
     dh^-0.5 all the same.  Returns (B, T, H, dv)."""
-    _check_mask(window, chunk)
+    _check_mask(window, chunk, causal)
     b, t, h, dh = q.shape
     s, n_kv = k.shape[1], k.shape[2]
     rep = h // n_kv
@@ -103,7 +111,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qi = torch.arange(t, device=q.device)[:, None]
     ki = torch.arange(s, device=q.device)[None, :]
     qa = qi + (s - t)                          # the query's position
-    ok = ki <= qa
+    ok = ki <= qa if causal else torch.ones(
+        (t, s), dtype=torch.bool, device=q.device)
     if window:
         ok = ok & (qa - ki < window)
     if chunk:

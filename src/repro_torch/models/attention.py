@@ -8,8 +8,14 @@ with its window (the dense family's sliding-window variant and the
 hybrid family's local attention) and the ``chunked`` kind with its chunk
 (llama4's local attention: a key is seen when it is causal and lies in
 the query's chunk of ``window`` positions); under the last two the
-decode cache is a ring.  The ``full`` kind and cross attention are later
-slices and raise ``NotImplementedError``.
+decode cache is a ring.  The ``full`` kind (the audio family's encoder)
+runs the flash kernel's full mask.  Cross attention (the audio
+decoder's, over the encoder output): ``gqa_forward(x_cross=)`` projects
+K / V from ``x_cross`` and attends under the full mask without RoPE,
+``precompute_cross_kv`` gives the cache's cross K / V, and
+``gqa_cross_decode`` attends one query a slot over them through the
+decode kernel, every entry visible by a constant position table
+(``cross_positions``).
 
 Also DeepSeek-V2's multi-head latent attention [arXiv:2405.04434]:
 ``make_mla``, ``_mla_q``, ``_mla_ckv``, ``mla_forward``,
@@ -29,7 +35,7 @@ to ``decode_step`` and comes with it.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,20 +53,20 @@ NO_WINDOW = 2 ** 31 - 1
 
 
 def _mask_spec(kind: str, window: int) -> dict:
-    """The flash / decode kernels' mask for a kind and its ``window``
-    (the reference's one width argument): ``{"window", "chunk"}``, both 0
-    for causal, ``window`` (> 0) as the window for sliding or as the
-    chunk for chunked.  The full mask raises."""
-    if kind == "causal":
-        return {"window": 0, "chunk": 0}
+    """The flash kernel's mask for a kind and its ``window`` (the
+    reference's one width argument): ``{"causal", "window", "chunk"}``,
+    window and chunk 0 for causal and full (``causal`` False), ``window``
+    (> 0) as the window for sliding or as the chunk for chunked.  Any
+    other kind raises."""
+    if kind in ("causal", "full"):
+        return {"causal": kind == "causal", "window": 0, "chunk": 0}
     if kind == "sliding" and window > 0:
-        return {"window": window, "chunk": 0}
+        return {"causal": True, "window": window, "chunk": 0}
     if kind == "chunked" and window > 0:
-        return {"window": 0, "chunk": window}
+        return {"causal": True, "window": 0, "chunk": window}
     raise NotImplementedError(
         f"attention kind {kind!r} (window {window}): the port serves the "
-        f"causal, sliding and chunked masks; the full mask comes in a "
-        f"later slice")
+        f"causal, full, sliding and chunked masks")
 
 
 def make_gqa(gen: torch.Generator, cfg: ModelConfig, dtype, *, batch=(),
@@ -80,11 +86,13 @@ def make_gqa(gen: torch.Generator, cfg: ModelConfig, dtype, *, batch=(),
     return p
 
 
-def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, h: int, kvh: int):
+def _qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor, cfg: ModelConfig,
+         h: int, kvh: int):
     b, t = x.shape[:2]
+    s = x_kv.shape[1]
     q = linear(x, p["wq"]).reshape(b, t, h, cfg.head_dim)
-    k = linear(x, p["wk"]).reshape(b, t, kvh, cfg.head_dim)
-    v = linear(x, p["wv"]).reshape(b, t, kvh, cfg.head_dim)
+    k = linear(x_kv, p["wk"]).reshape(b, s, kvh, cfg.head_dim)
+    v = linear(x_kv, p["wv"]).reshape(b, s, kvh, cfg.head_dim)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
@@ -94,19 +102,24 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, h: int, kvh: int):
 def gqa_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 kind: str = "causal", window: int = 0,
                 positions: Optional[torch.Tensor] = None,
+                x_cross: Optional[torch.Tensor] = None, rope: bool = True,
                 return_kv: bool = False):
     """Full-sequence (prefill or training) attention.  x: (B, T, d_model),
     differentiable (the flash wrapper is an autograd Function).  The
     masks follow sequence order (the flash kernel masks by index), so
-    ``positions`` only feeds RoPE and must run 0..T-1 as in prefill."""
-    mask = _mask_spec(kind, window)
+    ``positions`` only feeds RoPE and must run 0..T-1 as in prefill.
+    With ``x_cross`` (B, S, d_model) K and V come from it and the mask
+    is the full one whatever ``kind`` says, S != T allowed (cross
+    attention); RoPE applies only when ``rope`` and no ``x_cross``, as in
+    the reference."""
+    mask = _mask_spec("full" if x_cross is not None else kind, window)
     h, kvh = cfg.n_heads, cfg.n_kv_heads
     b, t = x.shape[:2]
-    q, k, v = _qkv(p, x, cfg, h, kvh)
+    q, k, v = _qkv(p, x, x if x_cross is None else x_cross, cfg, h, kvh)
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
                                  device=x.device)[None].expand(b, t)
-    if cfg.rope_theta > 0:
+    if rope and cfg.rope_theta > 0 and x_cross is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -134,7 +147,11 @@ def gqa_decode_slots(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     lies instead of copied each step); the returned dict holds the same
     tensors and ``lens + 1``.
     """
+    if kind == "full":
+        raise NotImplementedError("gqa_decode_slots: the full mask decodes "
+                                  "through gqa_cross_decode")
     mask = _mask_spec(kind, window)
+    del mask["causal"]
     if kind == "causal":
         mask["window"] = NO_WINDOW
     h, kvh = cfg.n_heads, cfg.n_kv_heads
@@ -142,7 +159,7 @@ def gqa_decode_slots(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     cache_len = cache["k"].shape[1]
     lens = cache["lens"]                                  # (S,) int32
     positions = lens[:, None]                             # (S, 1)
-    q, k, v = _qkv(p, x, cfg, h, kvh)
+    q, k, v = _qkv(p, x, x, cfg, h, kvh)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -158,6 +175,63 @@ def gqa_decode_slots(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
                  "lens": lens + 1}
     o = linear(out.reshape(b, 1, h * cfg.head_dim), p["wo"])
     return o, new_cache
+
+
+_CROSS_POSITIONS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def cross_positions(s_slots: int, n_frames: int,
+                    device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode kernel's positions for cross attention over a pool of
+    ``n_frames`` encoder frames a slot: (q_pos (S,) all E - 1, kv_pos
+    (S, E) with kv_pos[s, c] = c), so that ``kv_pos <= q_pos`` and
+    ``q_pos - kv_pos < E`` hold for every frame and no entry is masked.
+    Built once per (S, E, device) and reused, so a captured graph reads
+    fixed addresses."""
+    dev = torch.device(device)
+    key = (s_slots, n_frames, dev)
+    if key not in _CROSS_POSITIONS:
+        kv_pos = torch.arange(n_frames, dtype=torch.int32, device=dev)
+        _CROSS_POSITIONS[key] = (
+            torch.full((s_slots,), n_frames - 1, dtype=torch.int32,
+                       device=dev),
+            kv_pos[None].expand(s_slots, n_frames).contiguous())
+    return _CROSS_POSITIONS[key]
+
+
+def gqa_cross_decode(p: dict, x: torch.Tensor, cross_cache: dict,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention in decode, one query a slot over the slot's encoder
+    K / V: x (S, 1, d_model); ``cross_cache`` ``k`` / ``v`` (S, E, KV,
+    dh), precomputed at admission.  Every frame is visible to every
+    slot: the decode kernel runs with ``cross_positions``' constant
+    table and its default window (E), so no frame is masked and none is
+    padded (the reference's blockwise oracle pads E to its block and
+    lets the zero keys in; the Pallas kernel and the oracle do not).
+    Returns (S, 1, d_model)."""
+    h = cfg.n_heads
+    b = x.shape[0]
+    q = linear(x, p["wq"]).reshape(b, 1, h, cfg.head_dim)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
+    k, v = cross_cache["k"], cross_cache["v"]
+    q_pos, kv_pos = cross_positions(b, k.shape[1], x.device)
+    out = decode_attention(q[:, 0].contiguous(), k, v, q_pos, kv_pos)
+    return linear(out.reshape(b, 1, h * cfg.head_dim), p["wo"])
+
+
+def precompute_cross_kv(p: dict, x_enc: torch.Tensor,
+                        cfg: ModelConfig) -> dict:
+    """The cross attention's K / V of the encoder output x_enc (B, E,
+    d_model): ``{"k", "v": (B, E, KV, dh)}``, ``k_norm`` applied to K
+    when the block has it."""
+    kvh = cfg.n_kv_heads
+    b, s = x_enc.shape[:2]
+    k = linear(x_enc, p["wk"]).reshape(b, s, kvh, cfg.head_dim)
+    v = linear(x_enc, p["wv"]).reshape(b, s, kvh, cfg.head_dim)
+    if "k_norm" in p:
+        k = rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
+    return {"k": k, "v": v}
 
 
 # ======================================================================
@@ -305,5 +379,6 @@ def mla_decode_slots(p: dict, x: torch.Tensor, cache: dict,
     return linear(out.reshape(b, 1, h * m.v_head_dim), p["wo"]), new_cache
 
 
-__all__ = ["make_gqa", "gqa_forward", "gqa_decode_slots", "make_mla",
+__all__ = ["make_gqa", "gqa_forward", "gqa_decode_slots", "cross_positions",
+           "gqa_cross_decode", "precompute_cross_kv", "make_mla",
            "mla_forward", "init_mla_cache", "mla_decode_slots"]

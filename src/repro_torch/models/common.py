@@ -1,6 +1,9 @@
 """Shared building blocks: norms, RoPE, linear (with the GeoLoRA /
 GeoDoRA side-cars), SwiGLU MLP, the loss and the pool.
 
+Also the audio family's sinusoidal positions (``sinusoidal_positions``,
+and ``sinusoid_rows`` at given positions for the decode step).
+
 Parameters are plain nested dicts of tensors, as in ``repro.models.common``:
 every linear is ``{"w": (d_in, d_out)[, "lora_A": (d_in, r), "lora_B":
 (r, d_out)[, "dora_m": (d_out,)]]}``.  A linear with side-cars runs the
@@ -170,6 +173,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoid_rows(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings of ``positions`` (any shape,
+    integer) -> (*positions.shape, d_model) float32: row p is the
+    reference table's row p (``sin`` at the even columns, ``cos`` at the
+    odd), computed where it is needed, so a decode step at position p
+    reads no table and no position runs past one."""
+    dev = positions.device           # no host copy: a CUDA graph captures it
+    div = torch.exp(-torch.full((), 10000.0, device=dev).log()
+                    * torch.arange(0, d_model, 2, dtype=torch.float32,
+                                   device=dev) / d_model)
+    ang = positions.float()[..., None] * div
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+        *positions.shape, d_model)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """The reference's (seq_len, d_model) float32 table."""
+    return sinusoid_rows(torch.arange(seq_len, device=device), d_model)
+
+
 # ----------------------------------------------------------------------
 def make_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype, *,
                 batch=(), device=None) -> dict:
@@ -203,5 +227,6 @@ def mean_pool(x: torch.Tensor) -> torch.Tensor:
 
 __all__ = ["truncated_normal_init", "make_linear", "add_lora", "add_dora",
            "DORA_TERMS", "dora_w_terms", "dora_column_norm", "linear", "rms_norm", "make_rms_norm",
-           "rope_frequencies", "apply_rope", "make_swiglu", "swiglu",
+           "rope_frequencies", "apply_rope", "sinusoid_rows",
+           "sinusoidal_positions", "make_swiglu", "swiglu",
            "cross_entropy_loss", "mean_pool"]

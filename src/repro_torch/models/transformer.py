@@ -1,5 +1,5 @@
-"""The homogeneous transformer, dense, vlm, moe, ssm and hybrid families:
-init, the training forward, prefill and slot decode.
+"""The homogeneous transformer, dense, vlm, moe, ssm, hybrid and audio
+families: init, the training forward, prefill and slot decode.
 
 Ports ``Runtime`` (its ``window_override`` field), ``init_params``,
 ``_embed_inputs``, ``forward`` (``_forward_impl``), ``prefill``,
@@ -38,9 +38,26 @@ loop where JAX scans.
   leftover layers unstacked; a recurrent block is pre-norm RG-LRU and
   SwiGLU, an attention block pre-norm local (sliding, width
   ``cfg.rglru.local_window``) GQA and SwiGLU, its cache a ring.
+- audio (Whisper): an encoder-decoder.  The encoder (``enc_blocks``,
+  dense blocks, ``n_encoder_layers`` of them) takes a batch's
+  ``enc_embeds`` (B, E, encoder_embed_dim) -- the stub conv front end's
+  frames -- through ``enc_adapter``, adds the sinusoidal positions and
+  runs pre-norm attention under the full mask without RoPE and a
+  SwiGLU, then ``enc_norm``.  The decoder (``blocks``: ``ln1``,
+  ``self_attn``, ``ln2``, ``cross_attn``, ``ln3``, ``mlp``) embeds the
+  tokens plus the sinusoid and runs causal self-attention without RoPE,
+  cross attention over the encoder output (its K / V computed once a
+  layer, for the attention and the cache alike) and a SwiGLU.  Its
+  cache adds ``cross_k`` / ``cross_v`` (L, B, E, KV, dh) to the causal
+  K / V; ``len`` counts the text.  A decode step adds the sinusoid's row
+  at each slot's position (computed on the device, no table) and
+  attends over the cross K / V through the decode kernel with every
+  frame visible.  As in the reference, the decode step's self-attention
+  ropes q and k when ``cfg.rope_theta`` > 0, where the prefill does not
+  (Whisper's is 0).
 
-The audio family and the single-position ``decode_step`` are later
-slices and raise ``NotImplementedError``.
+MLA outside the moe family and the single-position ``decode_step`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -57,6 +74,7 @@ from repro_torch.models import rglru
 from repro_torch.models import ssm
 from repro_torch.models.common import (linear, make_linear, make_rms_norm,
                                        make_swiglu, mean_pool, rms_norm,
+                                       sinusoid_rows, sinusoidal_positions,
                                        swiglu, truncated_normal_init)
 
 _SENTINEL = (2 ** 31 - 1) // 2       # position of an empty cache entry
@@ -90,12 +108,12 @@ def _attn_kind(cfg: ModelConfig, rt: Runtime) -> Tuple[str, int]:
 
 def _check_supported(cfg: ModelConfig, rt: Optional[Runtime]) -> Runtime:
     """Raise on what the port does not run yet; returns the runtime."""
-    if (cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid")
+    if (cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
             or (cfg.mla is not None and cfg.family != "moe")):
         raise NotImplementedError(
             f"family {cfg.family!r}{' with MLA' if cfg.mla else ''}: the "
-            f"port runs the dense, vlm, moe (with or without MLA), ssm and "
-            f"hybrid families; audio comes in a later slice")
+            f"port runs the dense, vlm, moe (with or without MLA), ssm, "
+            f"hybrid and audio families, MLA in the moe family only")
     return rt or _RT
 
 
@@ -128,6 +146,18 @@ def _dense_block(gen, cfg: ModelConfig, dtype, batch, dev) -> dict:
     else:
         p["mlp"] = make_swiglu(gen, d, cfg.d_ff, dtype, **kw)
     return p
+
+
+def _dec_block(gen, cfg: ModelConfig, dtype, batch, dev) -> dict:
+    """The audio decoder's block: pre-norm causal self-attention, cross
+    attention over the encoder output and a SwiGLU."""
+    d, kw = cfg.d_model, dict(batch=batch, device=dev)
+    return {"ln1": make_rms_norm(d, dtype, **kw),
+            "self_attn": attn.make_gqa(gen, cfg, dtype, **kw),
+            "ln2": make_rms_norm(d, dtype, **kw),
+            "cross_attn": attn.make_gqa(gen, cfg, dtype, **kw),
+            "ln3": make_rms_norm(d, dtype, **kw),
+            "mlp": make_swiglu(gen, d, cfg.d_ff, dtype, **kw)}
 
 
 def _rec_block(gen, cfg: ModelConfig, dtype, batch, dev) -> dict:
@@ -170,6 +200,13 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig, *,
                        for i, kind in enumerate(pat)}
         p["tail"] = [block[pat[j % len(pat)]](gen, cfg, dtype, (), dev)
                      for j in range(n_tail)]
+    elif cfg.family == "audio":
+        p["enc_blocks"] = _dense_block(gen, cfg, dtype,
+                                       (cfg.n_encoder_layers,), dev)
+        p["blocks"] = _dec_block(gen, cfg, dtype, L, dev)
+        p["enc_adapter"] = make_linear(gen, cfg.encoder_embed_dim, d, dtype,
+                                       device=dev)
+        p["enc_norm"] = make_rms_norm(d, dtype, device=dev)
     else:
         p["blocks"] = _dense_block(gen, cfg, dtype, L, dev)
         if cfg.family == "vlm":
@@ -275,6 +312,67 @@ def _run_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
     return x, caches, auxes
 
 
+def _encoder_forward(params: dict, batch: dict,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """The audio encoder over ``batch["enc_embeds"]`` (B, E,
+    encoder_embed_dim): the adapter on the frames cast to the model
+    dtype, plus the sinusoid, the full-mask stack without RoPE, then
+    ``enc_norm``.  Returns (B, E, d_model)."""
+    x = linear(batch["enc_embeds"].to(_dtype(cfg)), params["enc_adapter"])
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 x.device).to(x.dtype)[None]
+    for bp in _layers(params["enc_blocks"], cfg.n_encoder_layers):
+        h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+        x = x + attn.gqa_forward(bp["attn"], h, cfg, kind="full", rope=False)
+        h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+        x = x + swiglu(bp["mlp"], h)
+    return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
+
+
+def _audio_stack(params: dict, batch: dict, cfg: ModelConfig,
+                 collect: bool):
+    """The audio model over a batch: the encoder, then the decoder over
+    the tokens plus the sinusoid.  Returns the decoder's stream, its
+    positions and, when ``collect``, each layer's cache entry: the causal
+    K / V and the cross attention's K / V (computed once a layer, for
+    the attention and the cache)."""
+    enc = _encoder_forward(params, batch, cfg)
+    x = params["embed"][batch["tokens"].long()]
+    b, s = x.shape[:2]
+    x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)[None]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    caches = []
+    for bp in _layers(params["blocks"], cfg.n_layers):
+        h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+        h = attn.gqa_forward(bp["self_attn"], h, cfg, kind="causal",
+                             positions=positions, rope=False,
+                             return_kv=collect)
+        h, kv = h if collect else (h, None)
+        x = x + h
+        h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+        h, cross = attn.gqa_forward(bp["cross_attn"], h, cfg, x_cross=enc,
+                                    positions=positions, return_kv=True)
+        x = x + h
+        h = rms_norm(x, bp["ln3"]["scale"], cfg.norm_eps)
+        x = x + swiglu(bp["mlp"], h)
+        if collect:
+            caches.append(dict(kv, cross_k=cross["k"], cross_v=cross["v"]))
+    return x, positions, caches
+
+
+def _stream(params: dict, batch: dict, cfg: ModelConfig, rt: Runtime,
+            collect: bool = False):
+    """The model's residual stream before the final norm, its positions,
+    the per-layer cache entries (when ``collect``) and the router's aux
+    values (``_run_stack``'s)."""
+    if cfg.family == "audio":
+        return _audio_stack(params, batch, cfg, collect) + ([],)
+    x, positions = _embed_inputs(params, batch, cfg)
+    x, caches, auxes = _run_stack(params, x, positions, cfg, rt, collect)
+    return x, positions, caches, auxes
+
+
 def _head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits of the final-normed stream."""
     if cfg.tie_embeddings:
@@ -300,8 +398,7 @@ def pooled(params: dict, batch: dict, cfg: ModelConfig, *,
     federation reads): the mean over tokens of the final-normed stream,
     (B, d_model) in the model dtype."""
     rt = _check_supported(cfg, rt)
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, _, _ = _run_stack(params, x, positions, cfg, rt)
+    x, _, _, _ = _stream(params, batch, cfg, rt)
     return mean_pool(_final(params, x, cfg))
 
 
@@ -312,10 +409,11 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *,
     each the mean over the MoE layers (0 for the other families).
     ``batch`` holds ``tokens`` or the adapter path's ``inputs_embeds``,
     and for the vlm family optionally ``image_embeds``: the logits are
-    the text positions', the pooled mean takes the image's too."""
+    the text positions', the pooled mean takes the image's too; for the
+    audio family ``tokens`` and ``enc_embeds`` (B, E,
+    encoder_embed_dim)."""
     rt = _check_supported(cfg, rt)
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, _, auxes = _run_stack(params, x, positions, cfg, rt)
+    x, _, _, auxes = _stream(params, batch, cfg, rt)
     x = _final(params, x, cfg)
     if auxes:
         lb, rz = (torch.stack(a).mean() for a in zip(*auxes))
@@ -376,10 +474,12 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
     family ``{"groups": {"b{i}": ...}, "tail": [...], "len": ()}``, each
     recurrent block's ``{"h": (B, w) f32, "conv": (B, K - 1, w)}`` and each
     attention block's ring of width ``cfg.rglru.local_window``, stacked
-    over the groups (leading axis) under ``groups``."""
+    over the groups (leading axis) under ``groups``; for the audio family
+    the causal K / V as for dense (a linear buffer) plus the encoder's
+    ``cross_k`` / ``cross_v`` (L, B, E, KV, dh), ``len`` the text's
+    length."""
     rt = _check_supported(cfg, rt)
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, caches, _ = _run_stack(params, x, positions, cfg, rt, collect=True)
+    x, positions, caches, _ = _stream(params, batch, cfg, rt, collect=True)
     logits = _head(params, _text(_final(params, x, cfg), batch, cfg), cfg)
 
     b, s = x.shape[:2]
@@ -397,10 +497,14 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
         cache = {name: torch.stack([grow(c[name]) for c in caches])
                  for name in ("c_kv", "k_rope")}
         return logits, dict(cache, len=length)
-    if cfg.family in ("dense", "vlm", "moe"):
+    if cfg.family in ("dense", "vlm", "moe", "audio"):
+        window = 0 if cfg.family == "audio" else _attn_kind(cfg, rt)[1]
         cache = _pack_kv([kv["k"] for kv in caches],
-                         [kv["v"] for kv in caches], positions,
-                         _attn_kind(cfg, rt)[1], target)
+                         [kv["v"] for kv in caches], positions, window,
+                         target)
+        if cfg.family == "audio":
+            for name in ("cross_k", "cross_v"):
+                cache[name] = torch.stack([c[name] for c in caches])
         return logits, dict(cache, len=length)
     pat, w = cfg.rglru.block_pattern, cfg.rglru.local_window
     by_block = {}
@@ -459,7 +563,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
     (L, batch, C, kv_lora_rank) and rope keys ``k_rope`` (L, batch, C,
     rope_head_dim), C as the reference reckons it --; for the ssm family
     zero states; for the hybrid family zero RG-LRU states and rings of
-    min(cache_len, local_window)."""
+    min(cache_len, local_window); for the audio family the dense cache plus
+    zero ``cross_k`` / ``cross_v`` (L, batch, encoder_seq_len, KV, dh)."""
     rt = _check_supported(cfg, rt)
     dev = resolve_device(device)
     if cfg.family == "ssm":
@@ -484,6 +589,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
                  for k in ("c_kv", "k_rope")}
         else:
             c = _empty_kv(cfg, (cfg.n_layers, batch), eff_len, dev)
+        if cfg.family == "audio":
+            shape = (cfg.n_layers, batch, cfg.encoder_seq_len,
+                     cfg.n_kv_heads, cfg.head_dim)
+            for name in ("cross_k", "cross_v"):
+                c[name] = torch.zeros(shape, dtype=_dtype(cfg), device=dev)
     c["len"] = torch.zeros((), dtype=torch.int32, device=dev)
     return c
 
@@ -509,12 +619,14 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
     the JAX package.  A recurrent
     update is not idempotent: a masked slot's ssm or RG-LRU ``h`` and
     ``conv`` keep their bits (JAX's ``keep``), so a slot that resumes
-    continues exactly.  The cache's K/V/pos, or h/conv, tensors are
-    updated in place; the returned cache holds them and the new ``len``.
-    Returns logits (S, 1, V)."""
+    continues exactly (the audio family holds none).  The cache's
+    K/V/pos, or h/conv, tensors are updated in place; the returned cache
+    holds them and the new ``len``.  Returns logits (S, 1, V)."""
     rt = _check_supported(cfg, rt)
     x = params["embed"][batch["tokens"].long()]
     lens = cache["len"]
+    if cfg.family == "audio":
+        x = x + sinusoid_rows(lens, cfg.d_model).to(x.dtype)[:, None]
 
     def att_step(x, bp, lc, kind, window):
         lc = dict(lc, lens=lens)
@@ -528,7 +640,20 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
         h, _ = _ffn(bp, rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps), cfg)
         return x + h
 
-    if cfg.family == "hybrid":
+    if cfg.family == "audio":
+        for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+            lc = {n: cache[n][i] for n in ("k", "v", "pos")}
+            h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+            h, _ = attn.gqa_decode_slots(bp["self_attn"], h,
+                                         dict(lc, lens=lens), cfg)
+            x = x + h
+            h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+            x = x + attn.gqa_cross_decode(
+                bp["cross_attn"], h, {"k": cache["cross_k"][i],
+                                      "v": cache["cross_v"][i]}, cfg)
+            h = rms_norm(x, bp["ln3"]["scale"], cfg.norm_eps)
+            x = x + swiglu(bp["mlp"], h)
+    elif cfg.family == "hybrid":
         for kind, bp, where in _hybrid_stack(params, cfg):
             st = _block_cache(cache, where)
             if kind != "recurrent":

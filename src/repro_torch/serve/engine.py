@@ -5,7 +5,11 @@ sliding-window variant, ``rt=Runtime(window_override=)``), vlm (a
 request's ``extras`` -- ``image_embeds`` (n_img, image_embed_dim) --
 join its prefill batch), moe
 (Llama-4-Scout: MoE FFN, chunked attention; DeepSeek-V2: MoE FFN and
-MLA over a compressed latent pool), ssm and hybrid families:
+MLA over a compressed latent pool), ssm, hybrid and audio (Whisper: a
+request's ``enc_embeds`` (encoder_seq_len, encoder_embed_dim) extras run
+the encoder at admission; the slot holds the causal K / V and the
+encoder's cross K / V, a request with another frame count fails at the
+scatter) families:
 
   - the S request slots live in ONE device-resident cache pool
     (``serve.pool``) with per-slot positions, ``active`` / ``stopped``
@@ -57,7 +61,12 @@ the ssm family every admission launches the selective-scan
 kernel once per layer, and a decode step's O(1) state update is plain
 PyTorch; for the hybrid family every admission launches the flash kernel
 once per attention block and the scan once per recurrent block, and every
-decode step the decode kernel once per attention block.  Greedy decoding is the parity target with the JAX engine;
+decode step the decode kernel once per attention block; for the audio
+family every admission launches the flash kernel three times a decoder
+layer's worth -- once per encoder layer (full mask), once per decoder
+layer causal and once per decoder layer across (full mask) -- and every
+decode step the decode kernel twice per decoder layer (causal, then
+cross with every frame visible).  Greedy decoding is the parity target with the JAX engine;
 ``temperature > 0`` samples from ``torch.Generator``s seeded from
 ``ServeConfig.seed`` (JAX's PRNG draws other numbers).
 
@@ -136,8 +145,8 @@ def _sample(logits: torch.Tensor, temperature: float,
 
 
 class ServeEngine:
-    """Continuous-batching engine for the dense, vlm, moe, ssm and hybrid
-    families.
+    """Continuous-batching engine for the dense, vlm, moe, ssm, hybrid and
+    audio families.
 
     Usage::
 
@@ -609,8 +618,10 @@ def naive_generate(params, cfg: ModelConfig, requests: List[Request],
     prompts in a batch must share one length); every decoded token pays
     one step plus one blocking host readback (argmax and stop check on
     the host), and a batch runs until EVERY member finishes.  Each step is
-    ``decode_step_slots`` with every slot at the same position.  Greedy
-    only; runs on the device the params lie on."""
+    ``decode_step_slots`` with every slot at the same position.  The
+    members' ``extras`` (one shape a name across the batch) are stacked
+    into the prefill batch, as the engine puts each request's into its
+    own.  Greedy only; runs on the device the params lie on."""
     stats = stats if stats is not None else {}
     for k in ("decode_dispatches", "host_syncs", "decode_tokens",
               "prefill_dispatches"):
@@ -623,9 +634,13 @@ def naive_generate(params, cfg: ModelConfig, requests: List[Request],
         group = order[i:i + scfg.n_slots]
         plens = {len(r.tokens) for r in group}
         assert len(plens) == 1, "naive baseline needs equal prompt lengths"
-        tokens = torch.tensor([r.tokens for r in group], dtype=torch.int32,
-                              device=dev)
-        logits, cache = T.prefill(params, {"tokens": tokens}, cfg,
+        batch = {"tokens": torch.tensor([r.tokens for r in group],
+                                        dtype=torch.int32, device=dev)}
+        for name, _ in group[0].extras:
+            batch[name] = torch.stack([
+                torch.as_tensor(dict(r.extras)[name], device=dev)
+                for r in group])
+        logits, cache = T.prefill(params, batch, cfg,
                                   cache_len=scfg.cache_len, rt=rt)
         cache["len"] = cache["len"].expand(len(group)).contiguous()
         stats["prefill_dispatches"] += 1

@@ -9,7 +9,8 @@ MLA's latent ``c_kv`` and rope key ``k_rope`` (DeepSeek-V2: (L, S, C,
 kvr) and (L, S, C, rd), no ``pos`` leaf), ssm h/conv, the hybrid family's
 ``groups`` -- are (L, S, ...), so their slot axis is axis 1; the hybrid
 family's ``tail`` blocks are unstacked (S, ...), slot axis 0
-(``_batch_axis``).  ``scatter_slot``, ``gather_slot`` and the serve
+(``_batch_axis``); the audio family's ``cross_k`` / ``cross_v`` (L, S,
+E, KV, dh) ride axis 1 like the causal K / V.  ``scatter_slot``, ``gather_slot`` and the serve
 snapshots walk whatever leaves the cache holds, so the MLA pool rides
 them as it is.  The port writes the slot in
 place (the JAX package returns a new pool and donates the old one's
@@ -50,7 +51,10 @@ def scatter_slot(pool_cache: dict, req_cache: dict, slot: int) -> dict:
     ``RuntimeError`` and writes nothing, as the reference's
     ``dynamic_update_slice`` refuses it: a vlm prompt whose image + text
     outgrows ``cache_len`` (the engine's admission rule counts the text
-    only, as the reference's does), or a ring narrower than prefill's."""
+    only, as the reference's does), a ring narrower than prefill's, or an
+    audio request whose frame count is not the pool's ``encoder_seq_len``
+    (the reference's ``dynamic_update_slice`` writes such a request into
+    part of the slot instead)."""
     pairs = []
     for name, sub in pool_cache.items():
         if name != "len":
@@ -65,7 +69,8 @@ def scatter_slot(pool_cache: dict, req_cache: dict, slot: int) -> dict:
                 f"scatter_slot: the pool's slot holds {tuple(d.shape)} "
                 f"({name}), the request's cache {tuple(s.shape)}: a prefill "
                 f"longer than the pool's cache_len (an image + text prompt "
-                f"past it) or a ring of another width does not fit a slot")
+                f"past it), a ring of another width or another number of "
+                f"encoder frames does not fit a slot")
     for _, d, s in pairs:
         d.copy_(s)
     pool_cache["len"][slot] = req_cache["len"].reshape(())

@@ -15,7 +15,8 @@ kernels (interpret mode) in one process, from numpy inputs:
 - flash: an emulation of the bf16 tensor-core kernel's numerics (scores
   in f32 from bf16 inputs, online softmax in base 2 over 64-key tiles, P
   rounded to bf16 before P V, the row sum from the unrounded P) against
-  the plain version at the bf16 tolerance chip_smoke.py uses (3e-2).
+  the plain version at the bf16 tolerance chip_smoke.py uses (3e-2),
+  under the causal and the full mask.
 """
 import math
 
@@ -277,8 +278,9 @@ def test_swizzle_is_a_bijection_free_of_bank_conflicts(row):
 
 # ----------------------------------------------------------------------
 # (d) the bf16 flash kernel's numerics, emulated
-def _flash_tensor_core(q, k, v, bk=64):
-    """Causal attention (bottom-right) as the bf16 kernel computes it: f32
+def _flash_tensor_core(q, k, v, bk=64, causal=True):
+    """Causal attention (bottom-right; every key visible under ``causal``
+    False, the kernel's full mask) as the bf16 kernel computes it: f32
     scores of bf16 q and k, scaled by dh^-0.5 log2(e) in f32; an online
     softmax in base 2 over tiles of ``bk`` keys; P rounded to bf16 before
     it meets V, the row sum l from the unrounded P; out / max(l, 1e-30)
@@ -297,7 +299,8 @@ def _flash_tensor_core(q, k, v, bk=64):
         x = torch.einsum("btgrd,bsgd->bgrts", qf, kf[:, k0:k0 + bk]) \
             * scale_log2
         ki = torch.arange(k0, min(k0 + bk, s))[None, :]
-        x = x.masked_fill(~(ki <= qi + (s - t)), -math.inf)
+        if causal:
+            x = x.masked_fill(~(ki <= qi + (s - t)), -math.inf)
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         base = torch.where(m_new == -math.inf, 0.0, m_new)
         corr = torch.exp2(m - base)
@@ -336,4 +339,29 @@ def test_flash_tensor_core_numerics_fit_the_bf16_check(b, t, s, h, n_kv, dh):
     oracle = np.asarray(jref.flash_attention_ref(
         *(jnp.asarray(_fold(x), jnp.bfloat16)
           for x in (q.float().numpy(), kr, vr))), np.float32)
+    np.testing.assert_allclose(_fold(got.numpy()), oracle, atol=3e-2)
+
+
+@pytest.mark.parametrize("b,t,s,h,n_kv,dh", [
+    (1, 375, 375, 5, 5, 64),       # Whisper's encoder cut 4x, MHA
+    (1, 56, 375, 5, 5, 64),        # its cross attention, T != S
+    (2, 1, 375, 4, 2, 64),         # one row, rep 2
+    (1, 65, 300, 4, 4, 96),        # ragged, dh 96
+    (1, 100, 40, 4, 2, 128)])      # fewer keys than rows, dh 128
+def test_flash_tensor_core_numerics_fit_the_bf16_check_full_mask(
+        b, t, s, h, n_kv, dh):
+    """The emulation under the full mask against the plain version and
+    the JAX oracle at ``causal=False`` (3e-2 in bf16)."""
+    seed = 2 * t + s
+    q, k, v = (torch.from_numpy(_rnd(seed + i, shape)).bfloat16()
+               for i, shape in enumerate(((b, t, h, dh), (b, s, n_kv, dh),
+                                          (b, s, n_kv, dh))))
+    got = _flash_tensor_core(q, k, v, causal=False).float()
+    plain = tref.flash_attention_ref(q, k, v, causal=False).float()
+    assert (got - plain).abs().max().item() <= 3e-2
+    rep = h // n_kv
+    kr, vr = (np.repeat(x.float().numpy(), rep, 2) for x in (k, v))
+    oracle = np.asarray(jref.flash_attention_ref(
+        *(jnp.asarray(_fold(x), jnp.bfloat16)
+          for x in (q.float().numpy(), kr, vr)), causal=False), np.float32)
     np.testing.assert_allclose(_fold(got.numpy()), oracle, atol=3e-2)

@@ -292,5 +292,7 @@ def test_window_and_chunk_exclude_each_other():
             call()
     with pytest.raises(ValueError, match="chunk"):
         fa._check(q, kv, kv, 0, -1)
+    assert tattn._mask_spec("full", 0) == {"causal": False, "window": 0,
+                                           "chunk": 0}
     with pytest.raises(NotImplementedError, match="full"):
-        tattn._mask_spec("full", 0)
+        tattn._mask_spec("bidirectional", 0)

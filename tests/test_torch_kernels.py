@@ -171,6 +171,49 @@ def test_flash_ref_bottom_right_causal():
     _close(_fold(got), oracle, TOL["float32"])
 
 
+@pytest.mark.parametrize("b,t,s,h,n_kv,dh", [(1, 64, 64, 4, 4, 32),
+                                             (2, 100, 100, 4, 2, 32),
+                                             (1, 24, 70, 4, 4, 64),
+                                             (2, 1, 90, 4, 2, 64),
+                                             (1, 40, 33, 6, 3, 64)])
+def test_flash_ref_full_mask_matches_pallas(b, t, s, h, n_kv, dh):
+    """The full mask (``causal=False``, the audio family's encoder and
+    cross attention): T == S and T != S (more or fewer keys than rows),
+    rep 1, 2 and 3; the plain version against the Pallas kernel, whose
+    padded keys ``sk_valid`` masks, and the JAX oracle (K / V repeated
+    per head); the wrapper's CPU route is the plain version."""
+    rep = h // n_kv
+    q, k, v = _rnd(b + t, (b, t, h, dh)), _rnd(s, (b, s, n_kv, dh)), \
+        _rnd(s + 1, (b, s, n_kv, dh))
+    tq, tk, tv = _torch(q, k, v)
+    got = tref.flash_attention_ref(tq, tk, tv, causal=False)
+    assert torch.equal(flash_attention(tq, tk, tv, causal=False), got)
+    got_f = _fold(got.numpy())
+    pallas = flash_attention_pallas(_fold(q), _fold(k), _fold(v),
+                                    causal=False, n_rep=rep, bq=16, bkv=32,
+                                    interpret=True)
+    _close(got_f, pallas, TOL["float32"])
+    oracle = jref.flash_attention_ref(_fold(q), _fold(np.repeat(k, rep, 2)),
+                                      _fold(np.repeat(v, rep, 2)),
+                                      causal=False)
+    _close(got_f, oracle, TOL["float32"])
+    if t > 1:                       # a row sees the keys past its own
+        causal = tref.flash_attention_ref(tq, tk, tv).numpy()
+        assert np.abs(causal - got.numpy()).max() > 1e-2
+
+
+def test_flash_full_mask_refuses_a_window_or_a_chunk():
+    """The full mask takes neither: the wrapper and the plain version
+    raise instead of computing another mask."""
+    q = torch.zeros((1, 4, 2, 64))
+    kv = q[:, :, :1]
+    for mask in (dict(window=3), dict(chunk=4)):
+        with pytest.raises(ValueError, match="causal=False"):
+            flash_attention(q, kv, kv, causal=False, **mask)
+        with pytest.raises(ValueError, match="causal=False"):
+            tref.flash_attention_ref(q, kv, kv, causal=False, **mask)
+
+
 def test_flash_ref_bf16():
     q, k, v = (_rnd(s, (1, 64, 4, 32)) for s in (12, 13, 14))
     got = tref.flash_attention_ref(*_torch(q, k, v, dtype=torch.bfloat16))

@@ -209,15 +209,17 @@ def test_bf16_prefill_and_decode_close(tiny):
     _close(tl, jl, 3e-2 * float(jnp.abs(jl.astype(jnp.float32)).max()))
 
 
-@pytest.mark.parametrize("arch,over", [("whisper-large-v3", {})])
+@pytest.mark.parametrize("arch,over", [("deepseek-v2-236b",
+                                         {"family": "dense"})])
 def test_later_slices_raise(arch, over):
-    """The audio family is not ported yet: the port refuses it instead of
-    computing something else (sliding windows and the hybrid family are
-    served since slice 11, the moe family and chunked attention since
-    slice 13, MLA since slice 14, the vlm family since slice 16:
+    """MLA outside the moe family is not ported: the port refuses it
+    instead of computing something else (sliding windows and the hybrid
+    family are served since slice 11, the moe family and chunked
+    attention since slice 13, MLA in the moe family since slice 14, the
+    vlm family since slice 16, the audio family since slice 17:
     ``tests/test_torch_hybrid.py``, ``tests/test_torch_chunked.py``,
-    ``tests/test_torch_mla.py`` and ``tests/test_torch_vlm.py`` hold them
-    against JAX)."""
+    ``tests/test_torch_mla.py``, ``tests/test_torch_vlm.py`` and
+    ``tests/test_torch_audio.py`` hold them against JAX)."""
     from repro_torch.configs import reduced
     cfg = reduced(get_config(arch)).with_(**over)
     with pytest.raises(NotImplementedError):

@@ -14,7 +14,8 @@ weights (JAX init -> numpy -> ``bridge``) and greedy decoding:
   ``cache_len`` below the chunk fails at the first admission's scatter,
   in both packages;
 - a reduced DeepSeek-V2 engine (MLA, served since slice 14) admits and
-  steps; the ``full`` mask still raises ``NotImplementedError``.
+  steps; the ``full`` mask runs in ``gqa_forward`` (since the audio
+  slice) and still raises ``NotImplementedError`` in the slot decode.
 """
 import dataclasses
 
@@ -27,6 +28,7 @@ import jax  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced as jreduced  # noqa: E402
+from repro.models import attention as JA  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.serve import FaultPlan as JFaultPlan  # noqa: E402
 from repro.serve import Request as JRequest  # noqa: E402
@@ -200,9 +202,24 @@ def test_reduced_deepseek_engine_admits_and_steps():
 
 
 def test_full_mask_still_raises():
+    """Since the audio slice ``gqa_forward`` runs the full mask (held
+    against the reference's on Scout's attention, RoPE and all); the
+    slot decode still raises on it (the audio decoder's cross decode is
+    ``gqa_cross_decode``)."""
     scout = reduced(get_config(ARCH))
     attn0 = jax.tree_util.tree_map(
         lambda w: w[0], TT.init_params(0, scout, device="cpu")["blocks"]["attn"])
-    x = torch.from_numpy(np.zeros((1, 4, scout.d_model), np.float32))
+    x = np.random.default_rng(3).standard_normal(
+        (1, 4, scout.d_model)).astype(np.float32)
+    got = tattn.gqa_forward(attn0, torch.from_numpy(x), scout, kind="full")
+    want = JA.gqa_forward(jax.tree_util.tree_map(lambda w: w.numpy(), attn0),
+                          x, jreduced(jget_config(ARCH)), kind="full")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    kv = torch.zeros((1, 8, scout.n_kv_heads, scout.head_dim))
+    cache = {"k": kv, "v": kv.clone(),
+             "pos": torch.zeros((1, 8), dtype=torch.int32),
+             "lens": torch.zeros((1,), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="full"):
-        tattn.gqa_forward(attn0, x, scout, kind="full")
+        tattn.gqa_decode_slots(attn0, torch.from_numpy(x[:, :1]), cache,
+                               scout, kind="full")
