@@ -285,7 +285,35 @@ non-zero and prints no result):
    and K 8 x M 512 (the async round's), output, dx and dB; flash at T
    128, H 12, KV 4 and B 16, 32 and 64 with its gradient; ``gram`` on
    (4, 16, 768).  They time K 4 x M 1024, K 8 x M 512, flash at (B 32,
-   T 128) and ``gram`` on (4, 16, 768).
+   T 128) and ``gram`` on (4, 16, 768);
+16. the launch steps (since slice 18; ``repro_torch.launch.steps``).
+   The legacy loop -- ``make_prefill_step`` (a cache of prompt + image +
+   128), then single-position ``make_decode_step`` calls with the greedy
+   token on the device and one readback at the end -- runs inside each
+   serve phase on its params: fedmm-base 8 prompts of 512 x 64 steps
+   (after the chaos phases; then at 2 layers against the CPU in f32, as
+   ``oracle_phase``), DeepSeek-V2 8 x 1,024 x 16 steps through
+   ``mla_decode``, and Falcon-Mamba, RecurrentGemma, Scout, Phi-3-vision
+   (576 image positions) and Whisper (1,500 frames) 4 x 64 x 8 steps.
+   Each must launch the flash kernel once per attention layer and the
+   scan once per recurrent layer in the prefill and the decode kernel
+   (``mla_decode`` under MLA) once per attention layer a step
+   (``attn_launches``), end at the right ``len`` and give the greedy
+   tokens of ``naive_generate`` (the slot path at equal positions, the
+   same cache length) on the same requests; a step's ms by the host
+   clock and CUDA events and tokens/s are printed.  After the audio
+   phases: ``make_fed_train_step`` (the FedSGD round on the engine) on
+   fedmm-small at full size, GeoDoRA rank 8, K 4, a batch of 32 x 128,
+   anchors (4, 32, 128), 2 steps with exact launches (186 lora_matmul,
+   24 flash, 2 gram a step), finite losses and states, the shipped
+   leaves equal on the node rows before the row-0 pick, the side-cars
+   moved; its second step at 2 layers against the CPU in f32 (bf16 and
+   f32, ``ENGINE_TOL``); and ``make_lm_train_step`` on fedmm-small at
+   8 x 128 with ``Runtime(remat=False)`` and ``True``: 12 and 24 flash
+   launches for the gradients (the forward recomputed), gradients,
+   parameters and CE bit for bit equal, the peak memory of each.  The
+   summary prints each serve phase's replayed step beside
+   ``decode_roofline`` of the model as run (the H100's 3.35e12 B/s).
 
 Peak device memory (allocated and reserved) is printed after each
 federation phase and after each capture, with what the capture added to
@@ -293,7 +321,8 @@ the reserved memory.  Launch counters are set to 0 just before each path
 (serve, its eager oracle, chaos, ssm serve and its oracle, the hybrid,
 windowed, moe and MLA serves and their oracles, the hybrid freeze runs,
 federation, engine, each participation round and block, each
-checkpointed run, each driver run) and read
+checkpointed run, each driver run, each legacy loop's prefill and its
+steps, each FedSGD step, each LM step's gradients) and read
 just after; the kernel checks' own launches never count.  A graph
 replay adds the launches its capture recorded; a capture's warm-up
 launches for real (the chaos phase counts them, the serve phase
@@ -306,6 +335,7 @@ CUDA it exits 1.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -326,6 +356,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import lora as lora_mod  # noqa: E402
+from repro_torch.core.engine import RoundEngine  # noqa: E402
 from repro_torch.core.federation import (LOCAL_KEYS,  # noqa: E402
                                          Federation, FederationConfig,
                                          SequentialFederation)
@@ -348,22 +380,27 @@ from repro_torch.kernels.selective_scan import (  # noqa: E402
     LANES, fold_steps, scan_plan, selective_scan)
 from repro_torch.graphs import COUNTED  # noqa: E402
 from repro_torch.graphs import capture as capture_graph  # noqa: E402
+from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     NO_WINDOW, cross_positions, gqa_forward, mla_forward)
-from repro_torch.models.common import rms_norm  # noqa: E402
+from repro_torch.models.common import (cross_entropy_loss,  # noqa: E402
+                                       rms_norm)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import _capacity, router_scores  # noqa: E402
+from repro_torch.optim.adamw import AdamW  # noqa: E402
+from repro_torch.roofline.analysis import HW, decode_roofline  # noqa: E402
 from repro_torch.serve import (FaultPlan, ServeConfig,  # noqa: E402
                                ServeEngine, SimulatedCrash, init_pool_cache,
                                poisson_requests, scatter_slot, seeded_plan,
                                state_counts)
+from repro_torch.serve.engine import naive_generate  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 SENTINEL = (2 ** 31 - 1) // 2
-HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
-PEAK_OPS = {torch.bfloat16: 989e12,           # bf16 tensor cores, dense
+HBM_BYTES_PER_S = HW["hbm_bw"]                # H100 SXM, the datasheet's
+PEAK_OPS = {torch.bfloat16: HW["peak_flops_bf16"],  # tensor cores, dense
             torch.float32: 67e12}             # f32 outside the tensor cores
 TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 #: the attention kernels' bf16 outputs are also held element by element,
@@ -2215,7 +2252,7 @@ def serve_phase(cfg, params, scfg=SERVE_CFG, reqs=None, rt=None) -> dict:
     return dict(launches=launches, wall_s=wall, tokens=n_tok, stats=dict(st),
                 first=reqs[0], reqs=reqs, records=recs, peak_gib=peak,
                 capture_s=capture_s, replays=gst["replays"], scfg=scfg,
-                rt=rt, ttft=ttft, step_ms=step_ms)
+                rt=rt, ttft=ttft, step_ms=step_ms, cfg=cfg)
 
 
 def serve_graph_oracle_phase(cfg, params, served) -> dict:
@@ -2614,6 +2651,8 @@ def ssm_phases() -> dict:
     served = serve_phase(cfg, params)
     served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
     trace_phase(cfg, params)
+    served["legacy"] = legacy_phase(cfg, params, long_requests(
+        cfg, 4, 64, 64, 9, seed=52), 8)
     del params
     small = cfg.with_(n_layers=2)
     params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
@@ -2717,6 +2756,8 @@ def hybrid_phases() -> dict:
     served = serve_phase(cfg, params, HYBRID_CFG, reqs)
     served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
     trace_phase(cfg, params, HYBRID_CFG, reqs)
+    served["legacy"] = legacy_phase(cfg, params, long_requests(
+        cfg, 4, 64, 64, 9, seed=53), 8)
     del params
     gc.collect()
     small = cfg.with_(n_layers=5)
@@ -2995,6 +3036,8 @@ def scout_phases() -> dict:
     served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
     trace_phase(cfg, params, SCOUT_CFG, reqs)
     expert_share_phase(cfg, params, reqs)
+    served["legacy"] = legacy_phase(cfg, params, long_requests(
+        cfg, 4, 64, 64, 9, seed=54), 8)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3053,6 +3096,8 @@ def deepseek_phases() -> dict:
     served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
     # 4 admissions: each runs ~55,000 kernels that the profiler records
     trace_phase(cfg, params, DEEPSEEK_CFG, reqs[:4])
+    served["legacy"] = legacy_phase(cfg, params, long_requests(
+        cfg, 8, 1024, 1024, 17, seed=51), 16)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3113,6 +3158,8 @@ def vlm_phases() -> dict:
     served = serve_phase(cfg, params, scfg, reqs)
     served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
     trace_phase(cfg, params, scfg, reqs[:4])
+    served["legacy"] = legacy_phase(cfg, params, vlm_requests(
+        cfg, 4, 64, 64, 9, seed=55), 8)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3181,6 +3228,8 @@ def audio_phases() -> dict:
     served = serve_phase(cfg, params, scfg, reqs)
     served["oracle"] = serve_graph_oracle_phase(cfg, params, served)
     trace_phase(cfg, params, scfg, reqs[:4])
+    served["legacy"] = legacy_phase(cfg, params, audio_requests(
+        cfg, 4, 64, 64, 9, seed=56), 8)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3193,6 +3242,438 @@ def audio_phases() -> dict:
     served["phase_s"] = time.perf_counter() - t0
     log(f"audio phases: {served['phase_s']:.1f} s")
     return served
+
+
+# ----------------------------------------------------------------------
+# launch steps: the legacy decode loop, the FedSGD and LM train steps
+def legacy_batch(reqs) -> dict:
+    """Equal-length requests as one prefill batch on the card, their
+    ``extras`` stacked (as ``naive_generate`` stacks them)."""
+    batch = {"tokens": torch.tensor([r.tokens for r in reqs],
+                                    dtype=torch.int32, device="cuda")}
+    for name, _ in reqs[0].extras:
+        batch[name] = torch.stack([torch.as_tensor(dict(r.extras)[name],
+                                                   device="cuda")
+                                   for r in reqs])
+    return batch
+
+
+def legacy_loop(cfg, params, batch, steps: int, rt=None, feed=None,
+                keep: bool = False) -> dict:
+    """``make_prefill_step``, then ``steps`` calls of ``make_decode_step``
+    with the greedy token taken on the device and one readback at the end
+    (``examples/serve_decode.py --legacy``'s loop), or step i fed ``feed[:,
+    i]`` (B, steps) instead.  Returns the tokens (B, steps + 1; the greedy
+    ones) on the host, the cache, the kernels launched by the prefill and
+    by the steps, under ``keep`` the logits of the prompt's last position
+    and of every step (f32, on the host), and the steps' ms by the host
+    clock and by CUDA events (on the card)."""
+    rt = rt or T.Runtime()
+    prefill = steps_mod.make_prefill_step(cfg, rt)
+    decode = steps_mod.make_decode_step(cfg, rt)
+    sync = batch["tokens"].is_cuda
+    if sync:
+        torch.cuda.synchronize()
+    reset_counts()
+    logits, cache = prefill(params, batch)
+    pre = read_counts()
+    kept = [logits[:, -1].float().cpu()] if keep else None
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    toks = [tok]
+    if sync:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if feed is not None:
+            tok = feed[:, i:i + 1].to(tok.device)
+        lg, cache = decode(params, cache, {"tokens": tok})
+        if kept is not None:
+            kept.append(lg[:, -1].float().cpu())
+        tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+    if sync:
+        end.record()
+    out = torch.cat(toks, 1).cpu()                 # the one readback
+    host_s = time.perf_counter() - t0
+    return dict(tokens=out, cache=cache, prefill=pre, decode=read_counts(),
+                logits=kept, host_ms=1e3 * host_s / steps,
+                device_ms=start.elapsed_time(end) / steps if sync else None,
+                tokens_per_s=out.shape[0] * steps / host_s)
+
+
+def legacy_phase(cfg, params, reqs, steps: int, rt=None) -> dict:
+    """The legacy loop on ``reqs`` (equal prompt lengths, their extras in
+    the batch) through ``make_prefill_step`` (cache of prompt + image +
+    128) and ``steps`` single-position ``decode_step``s: exactly one flash
+    launch per attention layer (``attn_launches``) and one scan per
+    recurrent layer in the prefill, the decode kernel (``mla_decode``
+    under MLA) once per attention layer a step and nothing else, ``len``
+    at the end; then the greedy tokens identical to ``naive_generate``'s
+    (the slot path, every slot at one position) on the same requests and
+    cache length."""
+    t0 = time.perf_counter()
+    batch = legacy_batch(reqs)
+    n, s = batch["tokens"].shape
+    n_img = batch["image_embeds"].shape[1] if "image_embeds" in batch else 0
+    c = steps_mod._prefill_cache_len(batch, cfg)
+    log(f"legacy loop: {cfg.arch_id} ({cfg.n_layers} layers), {n} prompts of "
+        f"{s} tokens" + (f" after {n_img} image positions" if n_img else "")
+        + f", make_prefill_step (cache {c}) then {steps} make_decode_step "
+        f"calls, the greedy token on the device, one readback")
+    run = legacy_loop(cfg, params, batch, steps, rt)
+    per_admit, per_step = attn_launches(cfg)
+    want_pre = dict.fromkeys(WRAPPERS, 0)
+    want_pre.update(flash_attention=per_admit,
+                    selective_scan=layer_kinds(cfg)[1])
+    want_dec = dict.fromkeys(WRAPPERS, 0)
+    want_dec[decode_kernel(cfg)] = per_step * steps
+    if run["prefill"] != want_pre or run["decode"] != want_dec:
+        raise AssertionError(f"legacy loop launches: prefill "
+                             f"{run['prefill']}, want {want_pre}; steps "
+                             f"{run['decode']}, want {want_dec}")
+    length = int(run.pop("cache")["len"])
+    if length != n_img + s + steps:
+        raise AssertionError(f"legacy loop: len {length}, want "
+                             f"{n_img + s + steps}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    recs = naive_generate(params, cfg, reqs, ServeConfig(
+        n_slots=n, cache_len=c, max_new_tokens=steps + 1), rt=rt)
+    naive_s = time.perf_counter() - t1
+    bad = [r.rid for j, r in enumerate(reqs)
+           if recs[r.rid].tokens != run["tokens"][j].tolist()]
+    if bad:
+        raise AssertionError(f"legacy loop: requests {bad} differ from "
+                             f"naive_generate's tokens")
+    run["launches"] = sum_counts(run["prefill"], run["decode"])
+    run["phase_s"] = time.perf_counter() - t0
+    log(f"  a step {run['host_ms']:.3f} ms by the host clock, "
+        f"{run['device_ms']:.3f} ms by CUDA events; {run['tokens_per_s']:.1f}"
+        f" tokens/s ({n} x {steps}); prefill launches {run['prefill']}, "
+        f"{steps} steps {run['decode']}; len {length}; tokens identical to "
+        f"naive_generate's ({naive_s:.2f} s, a readback a step); phase "
+        f"{run['phase_s']:.1f} s")
+    return run
+
+
+def legacy_oracle_phase(cfg, reqs, steps: int = 8,
+                        tol=(5e-2, 1e-3)) -> None:
+    """The legacy loop at 2 layers and full width on two of ``reqs``: on
+    the card in bf16 and f32, fed the tokens the plain versions' run on
+    the CPU in f32 picked, the prompt's last logits and every step's
+    within ``tol`` of max |logit|, and the card's greedy token the CPU's
+    wherever the CPU's top-2 margin exceeds twice the tolerance."""
+    t0 = time.perf_counter()
+    small = cfg.with_(n_layers=2)
+    params = build_params(small, "legacy loop (2 layers)")
+    batch = legacy_batch(reqs[:2])
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cfg32 = small.with_(dtype="float32")
+    want = legacy_loop(cfg32, tree_map(lambda t: t.float().cpu(), params),
+                       cpu_batch, steps, keep=True)
+    feed = want["tokens"][:, :steps]          # what the CPU's steps read
+    for name, p, c, rel in (
+            ("card bf16", params, small, tol[0]),
+            ("card f32", tree_map(lambda t: t.float(), params), cfg32,
+             tol[1])):
+        got = legacy_loop(c, p, batch, steps, feed=feed, keep=True)
+        near = 0
+        for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+            scale = w.abs().max().item()
+            err = (g - w).abs().max().item()
+            if not err <= rel * scale:
+                raise AssertionError(f"legacy oracle {name} position {i}: "
+                                     f"{err} (max |logit| {scale})")
+            top = w.topk(2, dim=-1).values
+            sure = (top[:, 0] - top[:, 1]) > 2 * rel * scale
+            near += int((~sure).sum())
+            if not torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure]):
+                raise AssertionError(f"legacy oracle {name} position {i}: "
+                                     f"greedy tokens differ")
+        log(f"  legacy oracle {name}: the prompts' last logits and {steps} "
+            f"steps within {rel} of max |logit| of the CPU f32 run, greedy "
+            f"tokens the CPU's ({near} of {2 * (steps + 1)} within twice the "
+            f"tolerance of a tie, not held)")
+    del params
+    gc.collect()
+    log(f"  legacy oracle phase: {time.perf_counter() - t0:.1f} s")
+
+
+def fed_inputs(cfg, k: int, b: int, s: int, a: int, la: int, seed: int,
+               device) -> dict:
+    """A FedSGD round's batch from ``seed``: ``b`` rows of ``s`` tokens
+    and labels (node i's rows i b / k to (i + 1) b / k) and per-node
+    anchors (k, a, la)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def ints(shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=g,
+                             dtype=torch.int32, device=device)
+    return {"tokens": ints((b, s)), "labels": ints((b, s)),
+            "anchors": ints((k, a, la))}
+
+
+def fed_model(cfg, seed: int = 0) -> tuple:
+    """(trainable, frozen): random weights on the card with GeoDoRA
+    side-cars of rank 8 on every attention linear."""
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                           cfg, device="cuda")
+    params = lora_mod.attach_lora(
+        torch.Generator(device="cuda").manual_seed(seed + 1), params,
+        lora_mod.LoRASpec(rank=8, dora=True))
+    return lora_mod.partition(params, lora_mod.trainable_mask(params))
+
+
+@contextlib.contextmanager
+def engine_rounds(into: dict):
+    """Keep the node rows the engine's round returns (before the step
+    picks row 0) in ``into["trains"]`` while inside."""
+    orig = RoundEngine._round
+
+    def spy(self, *args):
+        out = orig(self, *args)
+        into["trains"] = out[0][0]
+        return out
+    RoundEngine._round = spy
+    try:
+        yield
+    finally:
+        RoundEngine._round = orig
+
+
+def fed_launches(cfg) -> dict:
+    """A FedSGD step's launches by the design: the task and the anchor
+    pass each run every GeoDoRA linear forward and its dx (but layer 0's
+    wq / wk / wv, which read the frozen embedding) through lora_matmul
+    and each layer's attention through flash (forward; the backward is
+    plain); gram once in the loss (all K nodes' anchors) and once at the
+    server."""
+    n_lin = 4 * cfg.n_layers
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(lora_matmul=2 * (2 * n_lin - 3),
+                flash_attention=2 * cfg.n_layers, gram=2)
+    return want
+
+
+def fed_step_phase(steps: int = 2) -> dict:
+    """``make_fed_train_step`` on fedmm-small at full size (12 layers,
+    d_model 768, bf16, GeoDoRA rank 8), K 4 nodes, a global batch of 32 x
+    128 and anchors (4, 32, 128): ``steps`` FedSGD rounds, each with
+    exact launches (``fed_launches``), finite task / geo and states,
+    every shipped leaf equal on the four node rows before the row-0
+    pick, and the side-cars moved."""
+    t0 = time.perf_counter()
+    cfg = get_config("fedmm-small")
+    k, b, s, a, la = 4, 32, 128, 32, 128
+    trainable, frozen = fed_model(cfg)
+    opt = AdamW(lr=1e-3)
+    ostate, gbar = opt.init(trainable), torch.eye(a, device="cuda")
+    step = steps_mod.make_fed_train_step(cfg, T.Runtime(), opt, k_nodes=k)
+    want = fed_launches(cfg)
+    log(f"FedSGD step: make_fed_train_step on {cfg.arch_id} ({cfg.n_layers}"
+        f" layers, d_model {cfg.d_model}, {cfg.dtype}), GeoDoRA rank 8, K "
+        f"{k} nodes, batch {b} x {s}, anchors ({k}, {a}, {la}); {steps} "
+        f"steps")
+    rows, secs, total = {}, [], dict.fromkeys(WRAPPERS, 0)
+    torch.cuda.reset_peak_memory_stats()
+    with engine_rounds(rows):
+        for i in range(steps):
+            batch = fed_inputs(cfg, k, b, s, a, la, 60 + i, "cuda")
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            new, ostate, gbar, m = step(trainable, frozen, ostate, batch,
+                                        gbar)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            got = read_counts()
+            total = sum_counts(total, got)
+            if got != want:
+                raise AssertionError(f"FedSGD step {i}: launches {got}, "
+                                     f"want {want}")
+            leaves = tree_leaves(new) + tree_leaves(ostate) + [gbar]
+            if not (torch.isfinite(m["task"]) and torch.isfinite(m["geo"])
+                    and all(torch.isfinite(x).all() for x in leaves)):
+                raise AssertionError(f"FedSGD step {i}: non-finite {m}")
+            spread = [x for x in tree_leaves(rows["trains"])
+                      if not torch.equal(x, x[:1].expand_as(x))]
+            if spread:
+                raise AssertionError(f"FedSGD step {i}: {len(spread)} "
+                                     f"shipped leaves differ across nodes")
+            if all(torch.equal(x, y) for x, y in zip(tree_leaves(new),
+                                                     tree_leaves(trainable))):
+                raise AssertionError(f"FedSGD step {i}: no side-car moved")
+            log(f"  step {i}: task {m['task'].item():.4f}, geo "
+                f"{m['geo'].item():.5f}, {secs[-1]:.3f} s; launches {got}")
+            trainable = new
+    mem = memory("the FedSGD steps")
+    phase_s = time.perf_counter() - t0
+    log(f"  FedSGD: {secs} s a step; every shipped leaf equal on the "
+        f"{k} rows before the pick; phase {phase_s:.1f} s")
+    return dict(launches=total, step_s=secs, memory=mem, phase_s=phase_s)
+
+
+def _rel_norm(a, b) -> float:
+    """Worst leaf of ||a - b|| / ||b|| over two trees (b on the host)."""
+    return max((x.float().cpu() - y.float()).norm().item()
+               / max(y.float().norm().item(), 1e-30)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def fed_step_oracle_phase() -> dict:
+    """``make_fed_train_step`` at 2 layers and full width (K 4, a batch of
+    8 x 64, anchors (4, 32, 32)): the plain versions on the CPU in f32
+    take the first step from the card's weights, then the second step
+    runs from that state on the CPU and on the card in bf16 and f32
+    (AdamW's first step from zero moments turns a gradient near 0 into
+    +-1: the parity caveat); task, geo and the consensus Gram within
+    ``ENGINE_TOL``'s records limit, trainables and moments within its
+    norm-wise limit."""
+    t0 = time.perf_counter()
+    cfg = get_config("fedmm-small").with_(n_layers=2)
+    cfg32 = cfg.with_(dtype="float32")
+    k, b, s, a, la = 4, 8, 64, 32, 32
+    trainable, frozen = fed_model(cfg)
+    opt = AdamW(lr=1e-3)
+    rt = T.Runtime()
+
+    def cpu(tree):
+        return tree_map(lambda t: None if t is None else t.float().cpu(),
+                        tree)
+    b1, b2 = (fed_inputs(cfg, k, b, s, a, la, 70 + i, "cpu")
+              for i in range(2))
+    cpu_step = steps_mod.make_fed_train_step(cfg32, rt, opt, k_nodes=k)
+    tr1, os1, g1, _ = cpu_step(cpu(trainable), cpu(frozen),
+                               opt.init(cpu(trainable)), b1, torch.eye(a))
+    want = cpu_step(tr1, cpu(frozen), os1, b2, g1)
+    errs = {}
+    for dtype, c in ((torch.bfloat16, cfg), (torch.float32, cfg32)):
+        def dev(tree, dt=dtype):
+            return tree_map(lambda t: None if t is None
+                            else t.to("cuda", dt), tree)
+        ostate = {"m": dev(os1["m"], torch.float32),
+                  "v": dev(os1["v"], torch.float32),
+                  "step": os1["step"].cuda()}
+        got = steps_mod.make_fed_train_step(c, rt, opt, k_nodes=k)(
+            dev(tr1), dev(frozen), ostate,
+            {n: v.cuda() for n, v in b2.items()}, g1.cuda())
+        err = {"task": abs(got[3]["task"].item() - want[3]["task"].item()),
+               "geo": abs(got[3]["geo"].item() - want[3]["geo"].item()),
+               "gbar": (got[2].cpu() - want[2]).abs().max().item(),
+               "trainables (norm)": _rel_norm(got[0], want[0]),
+               "m (norm)": _rel_norm(got[1]["m"], want[1]["m"]),
+               "v (norm)": _rel_norm(got[1]["v"], want[1]["v"])}
+        tol_rec, tol_state = ENGINE_TOL[dtype]
+        log(f"FedSGD oracle ({dtype}, 2 layers, the second step): card vs "
+            f"the CPU f32 run: " + ", ".join(f"{n} {v:.3g}"
+                                            for n, v in err.items())
+            + f" (tol: records {tol_rec}, states (norm) {tol_state})")
+        bad = {n: v for n, v in err.items()
+               if not v <= (tol_state if "norm" in n else tol_rec)}
+        if bad or int(got[1]["step"]) != 2:
+            raise AssertionError(f"FedSGD oracle {dtype}: {bad}")
+        errs[str(dtype)] = err
+    del trainable, frozen
+    gc.collect()
+    log(f"  FedSGD oracle phase: {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def lm_step_phase(steps: int = 2) -> dict:
+    """``make_lm_train_step`` on fedmm-small at full size, every parameter
+    trained, batches of 8 x 128: under ``Runtime(remat=False)`` and
+    ``remat=True``, the first batch's gradients alone (flash launched once
+    a layer, twice under remat: the forward recomputed in the backward)
+    and then ``steps`` steps; gradients, parameters and CE bit for bit
+    equal between the two, the peak memory of each printed."""
+    t0 = time.perf_counter()
+    cfg = get_config("fedmm-small")
+    params = build_params(cfg, "LM step")
+    opt = AdamW(lr=1e-3)
+    batches = [{k: v for k, v in fed_inputs(cfg, 1, 8, 128, 1, 1, 80 + i,
+                                            "cuda").items()
+                if k != "anchors"} for i in range(steps)]
+    runs = {}
+    for remat in (False, True):
+        rt = T.Runtime(remat=remat)
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        logits, aux = T.forward(live, batches[0], cfg, rt=rt)
+        loss = cross_entropy_loss(logits, batches[0]["labels"]) \
+            + 0.01 * (aux["load_balance"] + aux["router_z"])
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        torch.cuda.synchronize()
+        launches = read_counts()
+        grad_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        del live, logits, aux, loss
+        want = dict.fromkeys(WRAPPERS, 0)
+        want["flash_attention"] = cfg.n_layers * (2 if remat else 1)
+        if launches != want:
+            raise AssertionError(f"LM step gradients (remat {remat}): "
+                                 f"launches {launches}, want {want}")
+        step = steps_mod.make_lm_train_step(cfg, rt, opt)
+        p, ostate, ces, secs = params, opt.init(params), [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for bt in batches:
+            t = time.perf_counter()
+            p, ostate, ce = step(p, ostate, bt)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            ces.append(ce)
+        step_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        runs[remat] = dict(grads=grads, params=tree_leaves(p), ce=ces,
+                           grad_peak_gib=grad_peak, step_peak_gib=step_peak,
+                           step_s=secs, launches=launches)
+        log(f"  LM step, remat {remat}: the gradients' activation peak "
+            f"{grad_peak:.3f} GiB above the weights, launches {launches}; "
+            f"{steps} steps {secs} s, CE {[c.item() for c in ces]}, the "
+            f"steps' peak {step_peak:.3f} GiB above the weights and AdamW's "
+            f"state")
+        del p, ostate
+    off, on = runs[False], runs[True]
+    for what in ("grads", "params", "ce"):
+        if not all(torch.equal(x, y) for x, y in zip(off[what], on[what])):
+            raise AssertionError(f"LM step: {what} differ with remat")
+    phase_s = time.perf_counter() - t0
+    log(f"LM step: gradients, parameters and CE bit for bit equal with and "
+        f"without remat; phase {phase_s:.1f} s")
+    del params, runs
+    gc.collect()
+    return dict(launches=sum_counts(off["launches"], on["launches"]),
+                remat_off=dict((k, off[k]) for k in ("grad_peak_gib",
+                                                     "step_peak_gib",
+                                                     "step_s")),
+                remat_on=dict((k, on[k]) for k in ("grad_peak_gib",
+                                                   "step_peak_gib",
+                                                   "step_s")),
+                phase_s=phase_s)
+
+
+def roofline_line(what: str, run: dict) -> None:
+    """A serve phase's replayed decode step beside ``decode_roofline`` of
+    the model as it ran (its layers; under ``window_override`` that
+    window; its pool's slots and positions, a chunked ring the chunk's
+    width): the predicted step and the measured step's share of it."""
+    cfg, scfg, rt = run["cfg"], run["scfg"], run["rt"]
+    if rt is not None and rt.window_override:
+        cfg = cfg.with_(sliding_window=rt.window_override)
+    c = scfg.cache_len
+    if cfg.attention_chunk:
+        c = min(c, cfg.attention_chunk)
+    pred = decode_roofline(cfg, n_slots=scfg.n_slots, cache_len=c)
+    pred_ms = 1e3 * pred["pred_step_s"]
+    log(f"roofline, {what}: decode_roofline {pred_ms:.4f} ms a step "
+        f"({pred['step_bytes']} bytes at {HW['hbm_bw']:.3g} B/s; "
+        f"{scfg.n_slots} slots x {c}), measured {run['step_ms']:.4f} ms: "
+        f"{pred_ms / run['step_ms']:.3f} of the bound's rate")
 
 
 # ----------------------------------------------------------------------
@@ -4235,8 +4716,13 @@ def main() -> int:
     trace_phase(cfg, params)
     oracle_phase(cfg, params, served["first"])
     chaos = {t: chaos_phase(cfg, params, temperature=t) for t in (0.0, 0.7)}
+    t_legacy = time.perf_counter()
+    legacy_reqs = long_requests(cfg, 8, 512, 512, 65, seed=50)
+    legacy = legacy_phase(cfg, params, legacy_reqs, 64)
     del params
-    stamp("fedmm-base serve, oracle and chaos phases")
+    legacy_oracle_phase(cfg, legacy_reqs)
+    legacy_s = time.perf_counter() - t_legacy
+    stamp("fedmm-base serve, oracle, chaos and legacy loop phases")
 
     ssm_served = ssm_phases()
     stamp("ssm phases")
@@ -4253,6 +4739,12 @@ def main() -> int:
     stamp("VLM phases")
     audio = audio_phases()
     stamp("audio phases")
+    t_steps = time.perf_counter()
+    fed_step = fed_step_phase()
+    fed_step["oracle"] = fed_step_oracle_phase()
+    lm_step = lm_step_phase()
+    steps_s = time.perf_counter() - t_steps
+    stamp("launch step phases (FedSGD and LM steps)")
 
     fed, rounds = federation_phase()
     federation_trace_phase(fed)
@@ -4376,7 +4868,26 @@ def main() -> int:
                    "LM driver (4 rounds, blocks of 2)":
                        driver["full"]["launches"][k],
                    "LM driver uniform C 2 (4 rounds, blocks of 2)":
-                       driver["uniform"]["launches"][k]} for k in rows}
+                       driver["uniform"]["launches"][k],
+                   "legacy loop, fedmm-base (8 x 512, 64 decode_steps)":
+                       legacy["launches"][k],
+                   "legacy loop, Falcon-Mamba (4 x 64, 8 decode_steps)":
+                       ssm_served["legacy"]["launches"][k],
+                   "legacy loop, RecurrentGemma (4 x 64, 8 decode_steps)":
+                       hybrid["legacy"]["launches"][k],
+                   f"legacy loop, Llama-4-Scout {SCOUT_LAYERS} layers (4 x "
+                   f"64, 8 decode_steps)": scout["legacy"]["launches"][k],
+                   f"legacy loop, DeepSeek-V2 {DEEPSEEK_LAYERS} layers (8 x "
+                   f"1,024, 16 decode_steps)":
+                       deepseek["legacy"]["launches"][k],
+                   "legacy loop, Phi-3-vision (4 x 576 + 64, 8 "
+                   "decode_steps)": vlm["legacy"]["launches"][k],
+                   "legacy loop, Whisper (4 x 1,500 frames + 64, 8 "
+                   "decode_steps)": audio["legacy"]["launches"][k],
+                   "FedSGD make_fed_train_step (2 steps)":
+                       fed_step["launches"][k],
+                   "LM step gradients (remat off and on)":
+                       lm_step["launches"][k]} for k in rows}
     # the top-level times are the first timed shape's; ``timings`` holds
     # every timed shape with its path
     kernels = [dict(name=k, route="cuda",
@@ -4407,6 +4918,36 @@ def main() -> int:
             f"time to first token min / median / max {run['ttft'][0]} / "
             f"{run['ttft'][len(run['ttft']) // 2]} / {run['ttft'][-1]} s, "
             f"a replayed decode step {run['step_ms']} ms")
+    for what, run in (("fedmm-base", served), ("Falcon-Mamba-7B", ssm_served),
+                      ("RecurrentGemma-9B", hybrid),
+                      ("windowed fedmm-base (window 8,192)", windowed),
+                      (f"Llama-4-Scout {SCOUT_LAYERS} of 48 layers", scout),
+                      (f"DeepSeek-V2 {DEEPSEEK_LAYERS} of 60 layers",
+                       deepseek),
+                      ("Phi-3-vision-4.2B", vlm),
+                      ("Whisper-large-v3", audio)):
+        roofline_line(what, run)
+    for what, run in (("fedmm-base", legacy), ("Falcon-Mamba-7B",
+                                               ssm_served["legacy"]),
+                      ("RecurrentGemma-9B", hybrid["legacy"]),
+                      (f"Llama-4-Scout {SCOUT_LAYERS} layers",
+                       scout["legacy"]),
+                      (f"DeepSeek-V2 {DEEPSEEK_LAYERS} layers",
+                       deepseek["legacy"]),
+                      ("Phi-3-vision-4.2B", vlm["legacy"]),
+                      ("Whisper-large-v3", audio["legacy"])):
+        log(f"legacy loop {what}: a decode_step {run['host_ms']:.3f} ms by "
+            f"the host clock, {run['device_ms']:.3f} ms by CUDA events, "
+            f"{run['tokens_per_s']:.1f} tokens/s; phase {run['phase_s']:.1f}"
+            f" s")
+    log(f"FedSGD step: {fed_step['step_s']} s a step; LM step: remat off "
+        f"{lm_step['remat_off']}, on {lm_step['remat_on']}")
+    others = sum(r["legacy"]["phase_s"] for r in (ssm_served, hybrid, scout,
+                                                   deepseek, vlm, audio))
+    log(f"launch-step phases: fedmm-base legacy loop with its oracle "
+        f"{legacy_s:.1f} s, the other families' legacy loops "
+        f"{others:.1f} s, FedSGD + LM steps {steps_s:.1f} s; together "
+        f"{legacy_s + others + steps_s:.1f} s")
     log(f"hybrid and windowed dense phases: {new_s:.1f} s; moe phases "
         f"{scout['phase_s']:.1f} s; MLA phases {deepseek['phase_s']:.1f} s; "
         f"VLM phases {vlm['phase_s']:.1f} s; audio phases "

@@ -719,13 +719,17 @@ def _cat_nodes(trees: list):
 LOCAL_KEYS = ("adapter", "adapter2")
 
 
+#: the parameter subtrees whose leaves stack layers (or hybrid groups) first
+STACKS = ("blocks", "enc_blocks", "groups")
+
+
 def layer_major(shared: dict) -> dict:
-    """Node-stacked trainables with the stacked blocks' layer axis first and
-    the node axis second, so the stack's per-layer views carry the node
-    axis."""
-    return dict(shared, blocks=tree_map(
-        lambda t: None if t is None else t.transpose(0, 1),
-        shared["blocks"]))
+    """Node-stacked trainables with each stacked subtree's layer (or group)
+    axis first and the node axis second, so the stack's per-layer views
+    carry the node axis."""
+    return {k: (tree_map(lambda t: None if t is None else t.transpose(0, 1),
+                         v) if k in STACKS else v)
+            for k, v in shared.items()}
 
 
 def with_dora_terms(frozen: dict) -> dict:

@@ -2,13 +2,14 @@
 (which carries a gradient), slot decode through the decode kernel (GQA)
 or the absorbed-MLA decode kernel (MLA).
 
-Ports ``make_gqa``, ``_qkv``, ``gqa_forward`` and ``gqa_decode_slots`` from
-``repro.models.attention`` for the ``causal`` kind, the ``sliding`` kind
-with its window (the dense family's sliding-window variant and the
-hybrid family's local attention) and the ``chunked`` kind with its chunk
-(llama4's local attention: a key is seen when it is causal and lies in
-the query's chunk of ``window`` positions); under the last two the
-decode cache is a ring.  The ``full`` kind (the audio family's encoder)
+Ports ``make_gqa``, ``_qkv``, ``gqa_forward``, ``init_kv_cache``,
+``gqa_decode`` and ``gqa_decode_slots`` from ``repro.models.attention``
+for the ``causal`` kind, the ``sliding`` kind with its window (the dense
+family's sliding-window variant and the hybrid family's local
+attention) and the ``chunked`` kind with its chunk (llama4's local
+attention: a key is seen when it is causal and lies in the query's
+chunk of ``window`` positions); under the last two the decode cache is
+a ring.  The ``full`` kind (the audio family's encoder)
 runs the flash kernel's full mask.  Cross attention (the audio
 decoder's, over the encoder output): ``gqa_forward(x_cross=)`` projects
 K / V from ``x_cross`` and attends under the full mask without RoPE,
@@ -19,10 +20,10 @@ decode kernel, every entry visible by a constant position table
 
 Also DeepSeek-V2's multi-head latent attention [arXiv:2405.04434]:
 ``make_mla``, ``_mla_q``, ``_mla_ckv``, ``mla_forward``,
-``init_mla_cache`` and ``mla_decode_slots``, with the reference's trees
-and arithmetic.  The prefill up-projects K and V from the latent
-``c_kv`` with ``w_ukv`` (one ``torch.matmul`` over the whole sequence,
-where the reference up-projects block by block inside its scan),
+``init_mla_cache``, ``mla_decode`` and ``mla_decode_slots``, with the
+reference's trees and arithmetic.  The prefill up-projects K and V from
+the latent ``c_kv`` with ``w_ukv`` (one ``torch.matmul`` over the whole
+sequence, where the reference up-projects block by block inside its scan),
 broadcasts the rope key over the heads into K's last ``rope_head_dim``
 values and runs the causal flash kernel at q.k heads of nope + rope and
 v heads of ``v_head_dim`` (192 and 128 at full size); the scores are
@@ -30,8 +31,16 @@ scaled by (nope + rope)^-0.5 as in the reference.  The decode keeps the
 cache compressed -- per position one latent row of ``kv_lora_rank``
 values and one rope key -- and absorbs ``w_uk`` into the query (``q_c``)
 and ``w_uv`` into the output, so the ``mla_decode`` kernel attends over
-the latent rows themselves.  The single-position ``mla_decode`` belongs
-to ``decode_step`` and comes with it.
+the latent rows themselves.
+
+``decode_step``'s single-position decodes, ``gqa_decode`` and
+``mla_decode``, take the reference's cache with one scalar ``len`` for
+the whole batch (an int32 tensor on the device, never read to the host)
+and run the slot functions' arithmetic and kernels with ``lens`` that
+scalar copied to every row.  Where the reference's two paths disagree,
+each follows its own: ``mla_decode`` writes at ``len >= C`` over row C -
+1 (the reference's ``dynamic_update_slice`` clamps its start), where
+``mla_decode_slots`` drops the write (an out-of-bounds scatter).
 """
 from __future__ import annotations
 
@@ -42,7 +51,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.mla_decode import mla_decode
+from repro_torch.kernels import mla_decode as mla_kernel
 from repro_torch.models.common import (apply_rope, linear, make_linear,
                                        make_rms_norm, rms_norm)
 
@@ -175,6 +184,50 @@ def gqa_decode_slots(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
                  "lens": lens + 1}
     o = linear(out.reshape(b, 1, h * cfg.head_dim), p["wo"])
     return o, new_cache
+
+
+#: the position of an empty cache entry: no query position reaches it, so
+#: ``kv_pos <= q_pos`` masks it
+EMPTY_POS = (2 ** 31 - 1) // 2
+
+
+def init_kv_cache(batch: int, cache_len: int, n_kv: int, head_dim: int,
+                  dtype, device=None) -> dict:
+    """An empty single-sequence GQA cache, as the reference's: zero ``k`` /
+    ``v`` (B, C, KV, dh), every ``pos`` (B, C) at ``EMPTY_POS`` and the
+    scalar ``len`` 0 (a ring when the decode's kind has a window)."""
+    shape = (batch, cache_len, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((batch, cache_len), EMPTY_POS,
+                              dtype=torch.int32, device=device),
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _batch_lens(length: torch.Tensor, b: int) -> torch.Tensor:
+    """A single-position cache's scalar ``len`` as the (B,) int32 ``lens``
+    of the slot functions: a contiguous copy on the device (the kernels
+    read ``lens`` as B packed int32, not a stride-0 view), no host read."""
+    return length.to(torch.int32).expand(b).contiguous()
+
+
+def gqa_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig, *,
+               kind: str = "causal",
+               window: int = 0) -> Tuple[torch.Tensor, dict]:
+    """One-token decode at ONE position for the whole batch (the
+    reference's single-sequence cache).  x: (B, 1, d_model); cache: ``k``
+    / ``v`` (B, C, KV, dh), ``pos`` (B, C), ``len`` () int32 on the
+    device.  ``gqa_decode_slots`` with every row at ``len``: the new K/V
+    go to ring index ``len % C`` (sliding, chunked) or ``min(len, C -
+    1)`` of the linear buffer (causal, the reference's clamp), IN PLACE;
+    the causal mask is by position only, so past the buffer's end entry
+    0 stays visible as in the reference.  Returns (out, the cache's
+    tensors with ``len + 1``)."""
+    lc = {n: cache[n] for n in ("k", "v", "pos")}
+    o, _ = gqa_decode_slots(p, x, dict(lc, lens=_batch_lens(cache["len"],
+                                                           x.shape[0])),
+                            cfg, kind=kind, window=window)
+    return o, dict(lc, len=cache["len"] + 1)
 
 
 _CROSS_POSITIONS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -347,6 +400,41 @@ def _write_at(buf: torch.Tensor, lens: torch.Tensor,
     buf[rows, idx] = torch.where(keep, new.to(buf.dtype), buf[rows, idx])
 
 
+def _write_clamped(buf: torch.Tensor, lens: torch.Tensor,
+                   new: torch.Tensor) -> None:
+    """``buf[s, min(lens[s], C - 1)] = new[s]`` in place: the reference's
+    single-position write, whose ``dynamic_update_slice`` clamps its start
+    into the buffer, so at ``len >= C`` row C - 1 is overwritten."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    buf[rows, lens.clamp(max=buf.shape[1] - 1).long()] = new.to(buf.dtype)
+
+
+def _mla_attend(p: dict, x: torch.Tensor, cache: dict, lens: torch.Tensor,
+                cfg: ModelConfig, write) -> torch.Tensor:
+    """The absorbed MLA decode of x (S, 1, d_model) at positions ``lens``
+    (S,): the new latent and rope key written by ``write(buf, lens, new)``
+    into ``c_kv`` / ``k_rope`` in place, ``w_uk`` absorbed into ``q_c``,
+    the ``mla_decode`` kernel over the entries ``c <= lens``, ``w_uv``
+    and ``wo``."""
+    m = cfg.mla
+    b, h = x.shape[0], cfg.n_heads
+    positions = lens[:, None]                             # (S, 1)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_new, kr_new = _mla_ckv(p, x, cfg, positions)
+    write(cache["c_kv"], lens, c_new[:, 0])
+    write(cache["k_rope"], lens, kr_new[:, 0])
+    w_ukv = p["w_ukv"]["w"].reshape(m.kv_lora_rank, h,
+                                    m.nope_head_dim + m.v_head_dim)
+    w_uk = w_ukv[..., :m.nope_head_dim]                   # (kvr, h, nope)
+    w_uv = w_ukv[..., m.nope_head_dim:]                   # (kvr, h, v)
+    q_c = torch.einsum("bthd,chd->bhc", q_nope, w_uk.to(q_nope.dtype))
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    o_c = mla_kernel.mla_decode(q_c.contiguous(), q_rope[:, 0].contiguous(),
+                                cache["c_kv"], cache["k_rope"], lens, scale)
+    out = torch.einsum("bhc,chd->bhd", o_c, w_uv.to(o_c.dtype))
+    return linear(out.reshape(b, 1, h * m.v_head_dim), p["wo"])
+
+
 def mla_decode_slots(p: dict, x: torch.Tensor, cache: dict,
                      cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
     """Absorbed MLA decode with PER-SLOT positions (the serving pool).
@@ -357,28 +445,29 @@ def mla_decode_slots(p: dict, x: torch.Tensor, cache: dict,
     cache tensors, and attends at query position ``lens[s]`` over the
     entries ``c <= lens[s]`` through the ``mla_decode`` kernel; the
     returned dict holds the same tensors and ``lens + 1``."""
-    m = cfg.mla
-    b, h = x.shape[0], cfg.n_heads
     lens = cache["lens"]                                  # (S,) int32
-    positions = lens[:, None]                             # (S, 1)
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)
-    c_new, kr_new = _mla_ckv(p, x, cfg, positions)
-    _write_at(cache["c_kv"], lens, c_new[:, 0])
-    _write_at(cache["k_rope"], lens, kr_new[:, 0])
-    w_ukv = p["w_ukv"]["w"].reshape(m.kv_lora_rank, h,
-                                    m.nope_head_dim + m.v_head_dim)
-    w_uk = w_ukv[..., :m.nope_head_dim]                   # (kvr, h, nope)
-    w_uv = w_ukv[..., m.nope_head_dim:]                   # (kvr, h, v)
-    q_c = torch.einsum("bthd,chd->bhc", q_nope, w_uk.to(q_nope.dtype))
-    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
-    o_c = mla_decode(q_c.contiguous(), q_rope[:, 0].contiguous(),
-                     cache["c_kv"], cache["k_rope"], lens, scale)
-    out = torch.einsum("bhc,chd->bhd", o_c, w_uv.to(o_c.dtype))
-    new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
+    out = _mla_attend(p, x, cache, lens, cfg, _write_at)
+    return out, {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
                  "lens": lens + 1}
-    return linear(out.reshape(b, 1, h * m.v_head_dim), p["wo"]), new_cache
 
 
-__all__ = ["make_gqa", "gqa_forward", "gqa_decode_slots", "cross_positions",
+def mla_decode(p: dict, x: torch.Tensor, cache: dict,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+    """Absorbed MLA decode at ONE position for the whole batch (the
+    reference's single-sequence cache): x (B, 1, d_model); cache ``c_kv``
+    (B, C, kvr), ``k_rope`` (B, C, rd), ``len`` () int32 on the device.
+    As ``mla_decode_slots`` with every row at ``len``, but the write
+    clamps: at ``len >= C`` it overwrites row C - 1 and every row is
+    visible, as the reference's ``dynamic_update_slice`` and mask ``c <=
+    len`` do.  IN PLACE; returns (out, the cache's tensors with ``len +
+    1``)."""
+    lens = _batch_lens(cache["len"], x.shape[0])
+    out = _mla_attend(p, x, cache, lens, cfg, _write_clamped)
+    return out, {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
+                 "len": cache["len"] + 1}
+
+
+__all__ = ["make_gqa", "gqa_forward", "gqa_decode_slots", "EMPTY_POS",
+           "init_kv_cache", "gqa_decode", "cross_positions",
            "gqa_cross_decode", "precompute_cross_kv", "make_mla",
-           "mla_forward", "init_mla_cache", "mla_decode_slots"]
+           "mla_forward", "init_mla_cache", "mla_decode_slots", "mla_decode"]

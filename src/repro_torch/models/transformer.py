@@ -1,12 +1,17 @@
 """The homogeneous transformer, dense, vlm, moe, ssm, hybrid and audio
-families: init, the training forward, prefill and slot decode.
+families: init, the training forward, prefill, the single-position
+decode and slot decode.
 
-Ports ``Runtime`` (its ``window_override`` field), ``init_params``,
-``_embed_inputs``, ``forward`` (``_forward_impl``), ``prefill``,
-``init_cache`` and ``decode_step_slots`` from ``repro.models.transformer``
-with the same parameter and cache trees, so weights and caches carried
-across with ``repro_torch.bridge`` drop in.  The layer stack is a Python
-loop where JAX scans.
+Ports ``Runtime`` (its ``window_override`` and ``remat`` fields),
+``init_params``, ``_embed_inputs``, ``forward`` (``_forward_impl``),
+``prefill``, ``init_cache``, ``decode_step`` and ``decode_step_slots``
+from ``repro.models.transformer`` with the same parameter and cache
+trees, so weights and caches carried across with ``repro_torch.bridge``
+drop in.  The layer stack is a Python loop where JAX scans; under
+``Runtime(remat=True)`` each layer of it is checkpointed
+(``torch.utils.checkpoint``, non-reentrant) where the reference wraps
+its scan body in ``jax.checkpoint``: a layer's activations are
+recomputed in the backward instead of kept, and no value changes.
 
 - dense: pre-norm GQA attention and SwiGLU, the layer axis L stacked
   first.  The mask is causal, or sliding under ``cfg.sliding_window`` or
@@ -56,7 +61,11 @@ loop where JAX scans.
   ropes q and k when ``cfg.rope_theta`` > 0, where the prefill does not
   (Whisper's is 0).
 
-MLA outside the moe family and the single-position ``decode_step`` raise
+``decode_step`` is the reference's single-position decode: one scalar
+``len`` (an int32 tensor on the device) for the whole batch, as
+``prefill`` and ``init_cache`` return it, through ``attention.gqa_decode``
+/ ``mla_decode``; ``decode_step_slots`` is the serving pool's, one
+position a slot.  MLA outside the moe family raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -65,6 +74,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -77,16 +87,18 @@ from repro_torch.models.common import (linear, make_linear, make_rms_norm,
                                        sinusoid_rows, sinusoidal_positions,
                                        swiglu, truncated_normal_init)
 
-_SENTINEL = (2 ** 31 - 1) // 2       # position of an empty cache entry
+_SENTINEL = attn.EMPTY_POS           # position of an empty cache entry
 
 
 @dataclass(frozen=True)
 class Runtime:
     """Execution context threaded through model calls, as in the JAX
     package.  The port reads ``window_override`` (force a sliding window of
-    that width on the dense family); the mesh fields come with the mesh
-    slice."""
+    that width on the dense family) and ``remat`` (checkpoint every layer
+    of the stack: training at longer sequences in less memory, the same
+    values); the mesh fields come with the mesh slice."""
     window_override: int = 0
+    remat: bool = False
 
 
 _RT = Runtime()
@@ -115,6 +127,16 @@ def _check_supported(cfg: ModelConfig, rt: Optional[Runtime]) -> Runtime:
             f"port runs the dense, vlm, moe (with or without MLA), ssm, "
             f"hybrid and audio families, MLA in the moe family only")
     return rt or _RT
+
+
+def _layer(rt: Runtime, fn, *args):
+    """``fn(*args)``: one layer of a stack, checkpointed under
+    ``rt.remat`` when autograd records (the layer's activations are
+    recomputed in the backward; the values are the same)."""
+    if rt.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def _layers(blocks: dict, n: int) -> list:
@@ -172,12 +194,14 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig, *,
                 device=None, rt: Optional[Runtime] = None) -> dict:
     """Random weights with the JAX package's tree.  ``gen`` is a seed or a
     ``torch.Generator`` on ``device`` (default ``cuda``; raises without a
-    GPU)."""
+    GPU).  On ``device="meta"`` (shapes and dtypes, no memory) the
+    generator is a CPU one."""
     _check_supported(cfg, rt)
     dev = resolve_device(device)
+    gen_dev = torch.device("cpu") if dev.type == "meta" else dev
     if isinstance(gen, int):
-        gen = torch.Generator(device=dev).manual_seed(gen)
-    elif gen.device.type != dev.type:
+        gen = torch.Generator(device=gen_dev).manual_seed(gen)
+    elif gen.device.type != gen_dev.type:
         raise ValueError(f"generator on {gen.device}, params on {dev}")
     dtype = _dtype(cfg)
     d, L = cfg.d_model, (cfg.n_layers,)
@@ -267,6 +291,13 @@ def _rec_body(bp: dict, x: torch.Tensor, cfg: ModelConfig):
     return x + swiglu(bp["mlp"], h), state
 
 
+def _ssm_body(bp: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Pre-norm Mamba mixer; returns (x, final state)."""
+    h, c = ssm.mamba_forward(bp["mixer"],
+                             rms_norm(x, bp["ln"]["scale"], cfg.norm_eps), cfg)
+    return x + h, c
+
+
 def _hybrid_stack(params: dict, cfg: ModelConfig) -> list:
     """The hybrid stack in execution order: (kind, block params, where)
     with ``where`` = (``"b{i}"``, group) for a stacked block and
@@ -291,29 +322,34 @@ def _run_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
     if cfg.family == "hybrid":
         for kind, bp, _ in _hybrid_stack(params, cfg):
             if kind == "recurrent":
-                x, c = _rec_body(bp, x, cfg)
+                x, c = _layer(rt, _rec_body, bp, x, cfg)
             else:
-                x, c, _ = _attn_block(bp, x, positions, cfg, "sliding",
-                                      cfg.rglru.local_window, collect)
+                x, c, _ = _layer(rt, _attn_block, bp, x, positions, cfg,
+                                 "sliding", cfg.rglru.local_window, collect)
             caches.append(c)
         return x, caches, auxes
     kind, window = _attn_kind(cfg, rt)
     for bp in _layers(params["blocks"], cfg.n_layers):
         if cfg.family == "ssm":
-            h = rms_norm(x, bp["ln"]["scale"], cfg.norm_eps)
-            h, c = ssm.mamba_forward(bp["mixer"], h, cfg)
-            x = x + h
+            x, c = _layer(rt, _ssm_body, bp, x, cfg)
         else:
-            x, c, aux = _attn_block(bp, x, positions, cfg, kind, window,
-                                    collect)
+            x, c, aux = _layer(rt, _attn_block, bp, x, positions, cfg, kind,
+                               window, collect)
             if aux is not None:
                 auxes.append(aux)
         caches.append(c)
     return x, caches, auxes
 
 
-def _encoder_forward(params: dict, batch: dict,
-                     cfg: ModelConfig) -> torch.Tensor:
+def _enc_layer(bp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+    x = x + attn.gqa_forward(bp["attn"], h, cfg, kind="full", rope=False)
+    h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+    return x + swiglu(bp["mlp"], h)
+
+
+def _encoder_forward(params: dict, batch: dict, cfg: ModelConfig,
+                     rt: Runtime = _RT) -> torch.Tensor:
     """The audio encoder over ``batch["enc_embeds"]`` (B, E,
     encoder_embed_dim): the adapter on the frames cast to the model
     dtype, plus the sinusoid, the full-mask stack without RoPE, then
@@ -322,21 +358,37 @@ def _encoder_forward(params: dict, batch: dict,
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(x.dtype)[None]
     for bp in _layers(params["enc_blocks"], cfg.n_encoder_layers):
-        h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-        x = x + attn.gqa_forward(bp["attn"], h, cfg, kind="full", rope=False)
-        h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
-        x = x + swiglu(bp["mlp"], h)
+        x = _layer(rt, _enc_layer, bp, x, cfg)
     return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
-def _audio_stack(params: dict, batch: dict, cfg: ModelConfig,
+def _dec_layer(bp: dict, x: torch.Tensor, enc: torch.Tensor,
+               positions: torch.Tensor, cfg: ModelConfig, collect: bool):
+    """One audio decoder layer; returns (x, its cache entry or None)."""
+    h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+    h = attn.gqa_forward(bp["self_attn"], h, cfg, kind="causal",
+                         positions=positions, rope=False, return_kv=collect)
+    h, kv = h if collect else (h, None)
+    x = x + h
+    h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+    h, cross = attn.gqa_forward(bp["cross_attn"], h, cfg, x_cross=enc,
+                                positions=positions, return_kv=True)
+    x = x + h
+    h = rms_norm(x, bp["ln3"]["scale"], cfg.norm_eps)
+    x = x + swiglu(bp["mlp"], h)
+    if collect:
+        return x, dict(kv, cross_k=cross["k"], cross_v=cross["v"])
+    return x, None
+
+
+def _audio_stack(params: dict, batch: dict, cfg: ModelConfig, rt: Runtime,
                  collect: bool):
     """The audio model over a batch: the encoder, then the decoder over
     the tokens plus the sinusoid.  Returns the decoder's stream, its
     positions and, when ``collect``, each layer's cache entry: the causal
     K / V and the cross attention's K / V (computed once a layer, for
     the attention and the cache)."""
-    enc = _encoder_forward(params, batch, cfg)
+    enc = _encoder_forward(params, batch, cfg, rt)
     x = params["embed"][batch["tokens"].long()]
     b, s = x.shape[:2]
     x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)[None]
@@ -344,20 +396,9 @@ def _audio_stack(params: dict, batch: dict, cfg: ModelConfig,
                              device=x.device)[None].expand(b, s)
     caches = []
     for bp in _layers(params["blocks"], cfg.n_layers):
-        h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-        h = attn.gqa_forward(bp["self_attn"], h, cfg, kind="causal",
-                             positions=positions, rope=False,
-                             return_kv=collect)
-        h, kv = h if collect else (h, None)
-        x = x + h
-        h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
-        h, cross = attn.gqa_forward(bp["cross_attn"], h, cfg, x_cross=enc,
-                                    positions=positions, return_kv=True)
-        x = x + h
-        h = rms_norm(x, bp["ln3"]["scale"], cfg.norm_eps)
-        x = x + swiglu(bp["mlp"], h)
+        x, c = _layer(rt, _dec_layer, bp, x, enc, positions, cfg, collect)
         if collect:
-            caches.append(dict(kv, cross_k=cross["k"], cross_v=cross["v"]))
+            caches.append(c)
     return x, positions, caches
 
 
@@ -367,7 +408,7 @@ def _stream(params: dict, batch: dict, cfg: ModelConfig, rt: Runtime,
     the per-layer cache entries (when ``collect``) and the router's aux
     values (``_run_stack``'s)."""
     if cfg.family == "audio":
-        return _audio_stack(params, batch, cfg, collect) + ([],)
+        return _audio_stack(params, batch, cfg, rt, collect) + ([],)
     x, positions = _embed_inputs(params, batch, cfg)
     x, caches, auxes = _run_stack(params, x, positions, cfg, rt, collect)
     return x, positions, caches, auxes
@@ -606,37 +647,18 @@ def _block_cache(cache: dict, where: tuple) -> dict:
     return {k: v[j] for k, v in cache["groups"][key].items()}
 
 
-def decode_step_slots(params: dict, cache: dict, batch: dict,
-                      cfg: ModelConfig, *, rt: Optional[Runtime] = None,
-                      step_mask: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, dict]:
-    """One new token per SLOT, each slot at its own position
-    ``cache['len']`` (S,) int32.  batch: ``{'tokens': (S, 1)}``.
-
-    ``step_mask`` (S,) bool freezes masked slots: their position does not
-    advance.  Attention writes at a frozen position are idempotent, so
-    K/V (or MLA's latent and rope key) are written for every slot, as in
-    the JAX package.  A recurrent
-    update is not idempotent: a masked slot's ssm or RG-LRU ``h`` and
-    ``conv`` keep their bits (JAX's ``keep``), so a slot that resumes
-    continues exactly (the audio family holds none).  The cache's
-    K/V/pos, or h/conv, tensors are updated in place; the returned cache
-    holds them and the new ``len``.  Returns logits (S, 1, V)."""
-    rt = _check_supported(cfg, rt)
-    x = params["embed"][batch["tokens"].long()]
-    lens = cache["len"]
-    if cfg.family == "audio":
-        x = x + sinusoid_rows(lens, cfg.d_model).to(x.dtype)[:, None]
-
+def _decode_stack(params: dict, cache: dict, x: torch.Tensor,
+                  cfg: ModelConfig, rt: Runtime, attend,
+                  step_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The decoder stack over one new token a row, x (B, 1, d_model):
+    ``attend(p, h, lc, kind, window)`` is the self-attention over the
+    layer's cache views ``lc`` (it writes its K/V, or MLA's latent and
+    rope key, in place); the ssm and RG-LRU states are written in place
+    by ``_keep`` under ``step_mask``.  Returns the stream before the final
+    norm."""
     def att_step(x, bp, lc, kind, window):
-        lc = dict(lc, lens=lens)
         h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-        if cfg.mla is not None:
-            h, _ = attn.mla_decode_slots(bp["attn"], h, lc, cfg)
-        else:
-            h, _ = attn.gqa_decode_slots(bp["attn"], h, lc, cfg, kind=kind,
-                                         window=window)
-        x = x + h
+        x = x + attend(bp["attn"], h, lc, kind, window)
         h, _ = _ffn(bp, rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps), cfg)
         return x + h
 
@@ -644,9 +666,7 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
         for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
             lc = {n: cache[n][i] for n in ("k", "v", "pos")}
             h = rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-            h, _ = attn.gqa_decode_slots(bp["self_attn"], h,
-                                         dict(lc, lens=lens), cfg)
-            x = x + h
+            x = x + attend(bp["self_attn"], h, lc, "causal", 0)
             h = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
             x = x + attn.gqa_cross_decode(
                 bp["cross_attn"], h, {"k": cache["cross_k"][i],
@@ -682,6 +702,73 @@ def decode_step_slots(params: dict, cache: dict, batch: dict,
                 else ("k", "v", "pos")
             x = att_step(x, bp, {n: cache[n][i] for n in names}, kind,
                          window)
+    return x
+
+
+def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig,
+                *, rt: Optional[Runtime] = None) -> Tuple[torch.Tensor, dict]:
+    """One new token for every sequence at ONE position, the cache's scalar
+    ``len`` (an int32 tensor on the device, as ``prefill`` and
+    ``init_cache`` give it; never read to the host).  batch:
+    ``{'tokens': (B, 1)}``.  Attention goes through
+    ``attention.gqa_decode`` (the decode kernel; the kind and window of
+    ``_attn_kind``, sliding over the hybrid's rings) or, under
+    ``cfg.mla``, ``attention.mla_decode`` (the ``mla_decode`` kernel,
+    whose write at ``len >= C`` clamps to row C - 1 as the reference's
+    does); the ssm family runs ``mamba_decode``, the hybrid RG-LRU blocks
+    ``rglru_decode``, the audio family the sinusoid's row at ``len``,
+    causal self-attention and ``gqa_cross_decode`` over ``cross_k`` /
+    ``cross_v``.  The step writes into the cache's tensors IN PLACE (as
+    ``decode_step_slots`` does): a caller that wants the old cache clones
+    it first.  Returns logits (B, 1, V) and the cache's tensors with
+    ``len + 1``."""
+    rt = _check_supported(cfg, rt)
+    pos = cache["len"]
+    x = params["embed"][batch["tokens"].long()]
+    if cfg.family == "audio":
+        x = x + sinusoid_rows(pos, cfg.d_model).to(x.dtype)
+
+    def attend(p, h, lc, kind, window):
+        lc = dict(lc, len=pos)
+        if cfg.mla is not None:
+            return attn.mla_decode(p, h, lc, cfg)[0]
+        return attn.gqa_decode(p, h, lc, cfg, kind=kind, window=window)[0]
+
+    x = _decode_stack(params, cache, x, cfg, rt, attend, None)
+    logits = _head(params, _final(params, x, cfg), cfg)
+    return logits, dict(cache, len=pos + 1)
+
+
+def decode_step_slots(params: dict, cache: dict, batch: dict,
+                      cfg: ModelConfig, *, rt: Optional[Runtime] = None,
+                      step_mask: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, dict]:
+    """One new token per SLOT, each slot at its own position
+    ``cache['len']`` (S,) int32.  batch: ``{'tokens': (S, 1)}``.
+
+    ``step_mask`` (S,) bool freezes masked slots: their position does not
+    advance.  Attention writes at a frozen position are idempotent, so
+    K/V (or MLA's latent and rope key) are written for every slot, as in
+    the JAX package.  A recurrent
+    update is not idempotent: a masked slot's ssm or RG-LRU ``h`` and
+    ``conv`` keep their bits (JAX's ``keep``), so a slot that resumes
+    continues exactly (the audio family holds none).  The cache's
+    K/V/pos, or h/conv, tensors are updated in place; the returned cache
+    holds them and the new ``len``.  Returns logits (S, 1, V)."""
+    rt = _check_supported(cfg, rt)
+    x = params["embed"][batch["tokens"].long()]
+    lens = cache["len"]
+    if cfg.family == "audio":
+        x = x + sinusoid_rows(lens, cfg.d_model).to(x.dtype)[:, None]
+
+    def attend(p, h, lc, kind, window):
+        lc = dict(lc, lens=lens)
+        if cfg.mla is not None:
+            return attn.mla_decode_slots(p, h, lc, cfg)[0]
+        return attn.gqa_decode_slots(p, h, lc, cfg, kind=kind,
+                                     window=window)[0]
+
+    x = _decode_stack(params, cache, x, cfg, rt, attend, step_mask)
     new_lens = lens + 1 if step_mask is None \
         else torch.where(step_mask, lens + 1, lens)
     logits = _head(params, _final(params, x, cfg), cfg)
@@ -700,4 +787,4 @@ def _keep(old: torch.Tensor, new: torch.Tensor,
 
 
 __all__ = ["Runtime", "init_params", "forward", "pooled", "prefill",
-           "init_cache", "decode_step_slots"]
+           "init_cache", "decode_step", "decode_step_slots"]
