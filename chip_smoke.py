@@ -314,14 +314,31 @@ non-zero and prints no result):
    parameters and CE bit for bit equal, the peak memory of each.  The
    summary prints each serve phase's replayed step beside
    ``decode_roofline`` of the model as run (the H100's 3.35e12 B/s).
+17. the federation on a 1-rank NCCL mesh, after the engine phase and
+   on its cell: ``Federation(mesh=make_local_mesh("cuda"))`` -- a
+   one-rank NCCL group on an in-process ``HashStore`` --
+   captures the round and the 2-round block with the server step's
+   collectives inside the graphs, then replays 2 rounds and one block:
+   each with the unsharded engine's exact launches (1,920 lora_matmul,
+   240 flash, 11 gram a round), one replay and one readback, and records
+   equal to the engine phase's, round by round, bit for bit.  The
+   collectives of a round, counted by wrapping ``torch.distributed`` in
+   this script during the captures, must be two ``all_reduce`` (the Gram
+   sum with the precision sum; the weighted side-car sums) and one
+   ``all_gather`` of the per-node rows, at the bytes the shapes give.
+   Then at ``FED_CHECK_LAYERS`` (4) layers with 8 nodes, ``uniform`` C 4
+   and ``async``: the 2-round block captured, one block run eagerly and
+   the same block replayed, records and state bit for bit, exact
+   launches.  The phase's seconds, the round walls beside the unsharded
+   engine's and the reserved memory the graphs add are printed.
 
 Peak device memory (allocated and reserved) is printed after each
 federation phase and after each capture, with what the capture added to
 the reserved memory.  Launch counters are set to 0 just before each path
 (serve, its eager oracle, chaos, ssm serve and its oracle, the hybrid,
 windowed, moe and MLA serves and their oracles, the hybrid freeze runs,
-federation, engine, each participation round and block, each
-checkpointed run, each driver run, each legacy loop's prefill and its
+federation, engine, each mesh round and block, each participation round
+and block, each checkpointed run, each driver run, each legacy loop's prefill and its
 steps, each FedSGD step, each LM step's gradients) and read
 just after; the kernel checks' own launches never count.  A graph
 replay adds the launches its capture recorded; a capture's warm-up
@@ -3881,7 +3898,7 @@ def engine_phase(rounds: int = 2, block: int = 2):
             raise AssertionError(f"{m}-round graph records {got}, want "
                                  f"{m} x {want}")
     total = dict.fromkeys(want, 0)
-    walls = []
+    walls, records = [], []
     stats = fed.engine.stats
     for r in range(rounds):
         torch.cuda.synchronize()
@@ -3889,6 +3906,7 @@ def engine_phase(rounds: int = 2, block: int = 2):
         reads, replays = stats["readbacks"], stats["replays"]
         t0 = time.perf_counter()
         rec = fed.run_round()
+        records.append(rec)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         got = read_counts()
@@ -3932,7 +3950,7 @@ def engine_phase(rounds: int = 2, block: int = 2):
     log(f"  engine launches per round as required: {want}")
     memory("the engine phase")
     return fed, dict(launches=total, block_launches=got, walls=walls,
-                     block_wall=block_wall)
+                     block_wall=block_wall, records=records + recs)
 
 
 def engine_trace_phase(fed) -> None:
@@ -4061,6 +4079,219 @@ def engine_oracle_phase() -> dict:
         del eng
         gc.collect()                  # the engine and its graphs
     return errs
+
+
+# ----------------------------------------------------------------------
+# the federation on a 1-rank NCCL mesh (``Federation(mesh=)``)
+class Collectives:
+    """While installed, wraps ``torch.distributed``'s ``all_reduce`` and
+    ``all_gather_into_tensor`` (in this script, not in the program) and
+    logs each call's name and bytes.  A replay makes its captured
+    collectives without the host, so the calls of a round are counted in
+    the capture's warm-up and capture."""
+    NAMES = ("all_reduce", "all_gather_into_tensor")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.calls, self._orig = [], {n: getattr(dist, n) for n in
+                                      self.NAMES}
+        for name, orig in self._orig.items():
+            def wrapped(tensor, *a, _orig=orig, _name=name, **kw):
+                arg = a[0] if _name == "all_gather_into_tensor" else tensor
+                self.calls.append((_name, arg.numel() * arg.element_size()))
+                return _orig(tensor, *a, **kw)
+            setattr(dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, orig in self._orig.items():
+            setattr(dist, name, orig)
+
+
+def mesh_captures(fed, m: int, want: dict, plan=None, what: str = "") -> \
+        tuple:
+    """Capture the m-round graph of ``fed`` under ``plan`` with the
+    collectives counted; check its launches (m x ``want``).  Returns the
+    collectives of one round (the warm-up and the capture run 2 m rounds)
+    and the capture's seconds."""
+    with Collectives() as col:
+        secs = captured(f"the {m}-round graph on the mesh{what} (the "
+                        f"collectives inside)",
+                        lambda: fed.capture(m, participation=plan))
+    recorded = fed.engine.captured_launches(m, plan)
+    got = {n: recorded[fn.__name__] for n, fn in WRAPPERS.items()}
+    if got != {k: m * v for k, v in want.items()}:
+        raise AssertionError(f"mesh{what}: {m}-round graph records {got}, "
+                             f"want {m} x {want}")
+    per = len(col.calls) // (2 * m)
+    rounds = [col.calls[i * per:(i + 1) * per] for i in range(2 * m)]
+    if per * 2 * m != len(col.calls) or any(r != rounds[0] for r in rounds):
+        raise AssertionError(f"mesh{what}: the rounds of the capture made "
+                             f"other collectives: {col.calls}")
+    return rounds[0], secs
+
+
+def mesh_phase(engine: dict) -> dict:
+    """``Federation(mesh=make_local_mesh("cuda"))`` -- a 1-rank NCCL group
+    on a ``HashStore`` -- on the engine phase's cell (fedmm-small at full
+    width and depth, geodora, precision, 4 nodes x 10 local steps): the
+    round and the 2-round block captured with the server step's
+    collectives inside, then 2 replayed rounds and one replayed block,
+    each with the unsharded engine's exact launches, one replay and one
+    readback, and records equal to the engine phase's, round by round,
+    bit for bit (the same seed and schedule: on one rank the sharded
+    round is the same arithmetic).  The collectives of a round are
+    counted: two ``all_reduce`` -- the Gram sum with the precision sum,
+    then the weighted side-car sums, which are one node's uplink with 4
+    bytes a scalar sum -- and one ``all_gather``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    t_phase = time.perf_counter()
+    mesh = make_local_mesh("cuda")
+    log(f"mesh phase: world {dist.get_world_size()}, backend "
+        f"{dist.get_backend()}, mesh {mesh}")
+    cfg = get_config("fedmm-small")
+    fcfg = FederationConfig(method="geodora", aggregation="precision",
+                            rounds=2)
+    torch.cuda.reset_peak_memory_stats()
+    fed = Federation(fcfg, cfg, mesh=mesh)
+    want = engine_launches(fed)
+    torch.cuda.empty_cache()          # the engine phase's cached blocks
+    before = torch.cuda.memory_reserved()
+    per_round, caps = None, []
+    for m in (1, 2):
+        calls, secs = mesh_captures(fed, m, want)
+        caps.append(secs)
+        if per_round is not None and calls != per_round:
+            raise AssertionError(f"mesh: the {m}-round graph's rounds make "
+                                 f"{calls}, the round's {per_round}")
+        per_round = calls
+    graphs_gib = (torch.cuda.memory_reserved() - before) / 2 ** 30
+    ba = int(fed.gbar.shape[0])
+    kb = fed.engine.local_sizes[0]
+    shipped = sum(l.numel() // kb for l in _shipped_leaves(fed, 0))
+    want_calls = [("all_reduce", 4 * (ba * ba + 1)),
+                  ("all_reduce", 4 * shipped),
+                  ("all_gather_into_tensor", 4 * fcfg.n_nodes * (4 + ba * ba))]
+    log(f"  collectives of a round: {per_round} (bytes; the uplink: Gram "
+        f"{ba} x {ba} + the precision sum, then {shipped} side-car "
+        f"values; the gather: 4 scalars and the Gram of each of "
+        f"{fcfg.n_nodes} nodes)")
+    if per_round != want_calls:
+        raise AssertionError(f"mesh: a round's collectives {per_round}, "
+                             f"want {want_calls}")
+    stats = fed.engine.stats
+    total, walls, records = dict.fromkeys(want, 0), [], []
+
+    def run(m: int, tag: str):
+        torch.cuda.synchronize()
+        reset_counts()
+        reads, replays = stats["readbacks"], stats["replays"]
+        t0 = time.perf_counter()
+        recs = (fed.run_rounds(m, block_size=m) if m > 1
+                else [fed.run_round()])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        log(f"  mesh {tag}: wall {wall:.3f} s, task "
+            f"{[round(x['task_loss'], 4) for x in recs]}, launches {got}")
+        if got != {k: m * v for k, v in want.items()}:
+            raise AssertionError(f"mesh {tag}: launches {got}, want {m} x "
+                                 f"{want}")
+        if (stats["readbacks"] - reads, stats["replays"] - replays) != (1, 1):
+            raise AssertionError(f"mesh {tag}: {stats} (one replay and one "
+                                 f"readback expected)")
+        for i, x in enumerate(recs):
+            check_record(f"mesh {tag} round {i}", x)
+        records.extend(recs)
+        return got, wall
+
+    for r in range(2):
+        got, wall = run(1, f"round {r} (replayed)")
+        walls.append(wall)
+        total = sum_counts(total, got)
+    block_launches, block_wall = run(2, "block of 2 rounds (one replay)")
+    diffs = [max(abs(x - y) for x, y in zip(
+        (a[k] if isinstance(a[k], list) else [a[k]]),
+        (b[k] if isinstance(b[k], list) else [b[k]])))
+        for a, b in zip(records, engine["records"]) for k in a]
+    log(f"  mesh records vs the unsharded engine's (the same seed, rounds "
+        f"and block): max |diff| {max(diffs)}"
+        f"{' (bit for bit)' if records == engine['records'] else ''}")
+    if records != engine["records"]:
+        raise AssertionError(f"mesh: records differ from the unsharded "
+                             f"engine's by up to {max(diffs)}")
+    leaves = tree_leaves(fed._trains) + [fed.gbar]
+    if not all(bool(torch.isfinite(t).all()) for t in leaves):
+        raise AssertionError("mesh: non-finite trainables or consensus Gram")
+    mem = memory("the mesh phase")
+    log(f"  mesh: replayed round wall {walls} s (the unsharded engine's "
+        f"{engine['walls']} s); block of 2 {block_wall:.3f} s (unsharded "
+        f"{engine['block_wall']:.3f} s); captures {caps} s; the two graphs "
+        f"added {graphs_gib:.3f} GiB of reserved memory")
+    del fed
+    gc.collect()                      # the federation and its graphs
+    part = {}
+    for plan, name in ((UNIFORM, "uniform C 4"), (ASYNC, "async")):
+        part[plan.strategy] = mesh_part_phase(mesh, plan, name)
+    dist.destroy_process_group()
+    out = dict(launches=total, block_launches=block_launches, walls=walls,
+               block_wall=block_wall, capture_s=caps, graphs_gib=graphs_gib,
+               collectives=per_round, memory=mem, part=part,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"mesh phases: {out['phase_s']:.1f} s")
+    return out
+
+
+def mesh_part_phase(mesh, plan, name: str) -> dict:
+    """``plan`` on the 1-rank mesh: 8 nodes (4 buckets of 2) of fedmm-small
+    at ``FED_CHECK_LAYERS`` layers, the 2-round block captured with its
+    collectives, then one block run eagerly and the same block (the same
+    state, draws and uniforms) replayed: exact launches (the sharded
+    sampled round is always the masked path), one replay and one
+    readback, records and state bit for bit the eager block's."""
+    cfg = get_config("fedmm-small").with_(n_layers=FED_CHECK_LAYERS)
+    fed = Federation(FederationConfig(method="geodora",
+                                      aggregation="precision",
+                                      n_nodes=PART_NODES), cfg, mesh=mesh)
+    want = engine_launches(fed)
+    calls, secs = mesh_captures(fed, 2, want, plan, f" ({name})")
+    log(f"  mesh {name}: collectives of a round {calls}")
+    snap = _snapshot(fed, plan)
+    state = fed._state(plan)
+    batches, uniforms, _ = fed._stage_part(2, plan)
+    _, eager = fed.engine.run_block(state, 2, statics=fed._statics,
+                                    batches=batches, plan=plan,
+                                    uniforms=uniforms, eager=True)
+    eager_state = [t.clone() for t in tree_leaves(state)]
+    _restore(fed, plan, snap)
+    stats = fed.engine.stats
+    torch.cuda.synchronize()
+    reset_counts()
+    reads, replays = stats["readbacks"], stats["replays"]
+    t0 = time.perf_counter()
+    recs = fed.run_rounds(2, block_size=2, participation=plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    log(f"  mesh {name} block of 2 (one replay): wall {wall:.3f} s, "
+        f"participation {[r['participation'] for r in recs]}, launches "
+        f"{got}")
+    if got != {k: 2 * v for k, v in want.items()}:
+        raise AssertionError(f"mesh {name}: launches {got}, want 2 x {want}")
+    if (stats["readbacks"] - reads, stats["replays"] - replays) != (1, 1):
+        raise AssertionError(f"mesh {name}: {stats} (one replay and one "
+                             f"readback expected)")
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(fed._state(plan)), eager_state))
+    if [fed._metrics_record(x) for x in eager] != recs or not same_state:
+        raise AssertionError(f"mesh {name}: the replayed block differs from "
+                             f"the eager one (state equal: {same_state})")
+    log(f"  mesh {name}: replay == eager bit for bit (records and state)")
+    del fed
+    gc.collect()
+    return dict(launches=got, wall=wall, capture_s=secs, collectives=calls)
 
 
 # ----------------------------------------------------------------------
@@ -4757,6 +4988,8 @@ def main() -> int:
     engine_trace_phase(efed)
     del efed
     gc.collect()                      # the engine and its graphs
+    mesh = mesh_phase(engine)
+    stamp("mesh phases (a 1-rank NCCL group)")
     engine_oracle_phase()
     stamp("engine phases")
 
@@ -4845,6 +5078,15 @@ def main() -> int:
                    "engine (2 replayed rounds)": engine["launches"][k],
                    "engine (one replayed block of 2 rounds)":
                        engine["block_launches"][k],
+                   "mesh, 1-rank NCCL (2 replayed rounds)":
+                       mesh["launches"][k],
+                   "mesh, 1-rank NCCL (one replayed block of 2 rounds)":
+                       mesh["block_launches"][k],
+                   f"mesh uniform C 4 ({FED_CHECK_LAYERS} layers, one "
+                   f"replayed block of 2)":
+                       mesh["part"]["uniform"]["launches"][k],
+                   f"mesh async ({FED_CHECK_LAYERS} layers, one replayed "
+                   f"block of 2)": mesh["part"]["async"]["launches"][k],
                    "participation uniform C 4 (2 replayed rounds)":
                        part["uniform"]["launches"][k],
                    "participation uniform C 4 (one replayed block of 2)":
@@ -4956,6 +5198,10 @@ def main() -> int:
         f"layers) {rank64['walls']} s")
     log(f"engine: replayed round wall {engine['walls']} s; block of 2 "
         f"rounds {engine['block_wall']} s")
+    log(f"mesh (1-rank NCCL): replayed round wall {mesh['walls']} s; block "
+        f"of 2 rounds {mesh['block_wall']} s; captures {mesh['capture_s']} "
+        f"s; graphs {mesh['graphs_gib']} GiB; collectives a round "
+        f"{mesh['collectives']}; phase {mesh['phase_s']} s")
     for k, v in part.items():
         log(f"participation {k}: replayed round wall {v['walls']} s"
             + (f"; block of 2 rounds {v['block_wall']} s"

@@ -99,16 +99,16 @@ def load_engine_state(fed, state: dict) -> None:
     (the sampler's included: the port's generator starts from the plan
     seed): a parity test feeds the port its draws.  The port's per-bucket
     statics and node views are rebuilt from the new substrate and
-    state."""
+    state.  A federation on a mesh keeps its own rows of the buckets."""
     _load_substrate(fed, state)
     trains = tuple(params_from_numpy(tr, fed.device)
                    for tr in state["trains"])
     if len(trains) != len(fed._trains):
         raise ValueError(f"{len(trains)} reference buckets, "
                          f"{len(fed._trains)} in the port")
-    fed._trains = trains
-    fed._opts = tuple(params_from_numpy(op, fed.device)
-                      for op in state["opts"])
+    fed._trains = fed.engine._local(trains)
+    fed._opts = fed.engine._local(tuple(params_from_numpy(op, fed.device)
+                                        for op in state["opts"]))
     fed._server_m = params_from_numpy(state["server_m"], fed.device)
     if state.get("part") is not None:
         _load_part_state(fed, state["participation"], state["part"])

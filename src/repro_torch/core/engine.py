@@ -1,5 +1,6 @@
 """The node-stacked federated round engine: the port of
-``repro.core.engine.RoundEngine`` for full participation on one device.
+``repro.core.engine.RoundEngine``, on one device or one process per
+device (``mesh=``).
 
 A round is E local steps for all K nodes at once, then the whole server
 step (consensus Gram, LAP precision weights, side-car average, optional
@@ -71,8 +72,37 @@ LM driver writes no checkpoints, as in the reference).
 driver can stage the next block on the host while the card runs this one
 (the reference's double buffering); ``run_block`` is submit then read.
 
-Not ported: ``mesh=`` (with the sharded participation and async rounds);
-it raises ``NotImplementedError``.
+Across processes (``mesh=``, ``launch/mesh.py``).  One process per
+device -- NCCL between cards, gloo on the CPU -- and each rank holds its
+own slice of every bucket's node axis: rows ``s k_b / R .. (s + 1) k_b /
+R`` of bucket b on the rank of shard index s of R (``local_sizes``).  The
+three round bodies are the same with a mesh or without one; what a mesh
+changes is the server step's traffic, which is exactly the protocol's
+uplink, over the batch axes' process group:
+
+- ``_reduce``: one ``all_reduce`` (sum) of a flat f32 buffer packing the
+  rank's partial sums -- the Gram sum, the precision (or cohort) sums --
+  and then one of the weighted side-car sums, which need the precision
+  total first;
+- ``_gather_rows``: one ``all_gather_into_tensor`` of the rank's per-node
+  rows (the scalars, weights, Grams; under ``async`` the precisions and
+  the shipped side-cars, the report buffer's input), shard-major, then one
+  static reordering into engine rows.  That is what the reference's
+  per-bucket gathers give: a gather of the concatenated rows without the
+  reordering would interleave the buckets shard-major and permute the
+  per-node weights.
+
+Without a mesh both are the identity, so the single-device round is
+unchanged.  The sampler state is replicated: every rank draws the same
+cohort (or async events) from the same staged uniforms and takes its own
+rows of the mask; under a mesh a sampled round always runs the masked
+path, as the reference's does.  The report buffer and the simulator's
+arrays stay replicated too, and every rank runs the same full-K async
+server step.  Every rank ends a round with the same metrics, so taps fire
+on every rank with the full records.  On the card the collectives sit
+inside the captured round and block graphs: the warm-up's collectives,
+which run in the capture's order on every rank, open the communicator
+before the capture.  On the CPU (gloo) the sharded round runs eagerly.
 """
 from __future__ import annotations
 
@@ -82,6 +112,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import graphs
 from repro_torch.core import aggregation as agg
@@ -235,9 +266,6 @@ class RoundEngine:
 
     def __init__(self, ecfg: EngineConfig, local_step: LocalStep,
                  shipped_masks, *, device, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("RoundEngine(mesh=): the sharded round "
-                                      "is not ported yet")
         if ecfg.aggregation not in ("precision", "uniform"):
             raise ValueError(f"unknown aggregation {ecfg.aggregation!r}")
         self.ecfg = ecfg
@@ -268,10 +296,80 @@ class RoundEngine:
             off += kb
         self._groups, self._bucket_offsets = tuple(groups), tuple(offs)
         self.device = torch.device(device)
+        self.mesh, self._shards, self._shard = mesh, 1, 0
+        if mesh is not None:
+            self._shard_over(mesh)
+        #: the rows of each bucket this rank holds (all without a mesh)
+        self.local_sizes = tuple(kb // self._shards
+                                 for kb in self.bucket_sizes)
         self._plan_consts = {}
         self._graphs = {}
         #: captures, replays and device readbacks so far
         self.stats = {"captures": 0, "replays": 0, "readbacks": 0}
+
+    def _shard_over(self, mesh) -> None:
+        """Split each bucket's node axis over the mesh's batch axes: check
+        that every bucket divides (the reference's ``ValueError``), then
+        take the batch group, this rank's shard index and the order that
+        takes a shard-major gather to engine rows."""
+        from repro_torch.launch import mesh as mesh_mod
+        axes = mesh_mod.batch_axes(mesh)
+        if not axes:
+            raise ValueError("mesh has no batch axes to map nodes onto")
+        n = mesh_mod.n_nodes(mesh)
+        for b, kb in enumerate(self.bucket_sizes):
+            if kb % n:
+                raise ValueError(f"bucket {b} has {kb} nodes, not divisible "
+                                 f"by the {n} mesh batch slices {axes}")
+        self._group = mesh_mod.batch_group(mesh)
+        self._shards, self._shard = n, mesh_mod.shard_index(mesh)
+        # gathered position of engine row off_b + s k_b/R + j: shard s's
+        # block of K/R rows, bucket b's slice of it, row j
+        k_loc, order = self.ecfg.n_nodes // n, []
+        for off, kb in zip(self._bucket_offsets, self.bucket_sizes):
+            loc = kb // n
+            order += [s * k_loc + off // n + j for s in range(n)
+                      for j in range(loc)]
+        self._gather_order = torch.tensor(order, dtype=torch.long,
+                                          device=self.device)
+
+    # ---- the server step's collectives (identities without a mesh) ----
+    def _local(self, per_bucket) -> tuple:
+        """This rank's rows of per-bucket (k_b, ...) tensors or trees of
+        them."""
+        return tuple(tree_map(lambda t, n=n: None if t is None else
+                              t[self._shard * n:(self._shard + 1) * n], v)
+                     for v, n in zip(per_bucket, self.local_sizes))
+
+    def _reduce(self, *parts) -> list:
+        """The sums over the batch group of f32 tensors: one
+        ``all_reduce`` of them packed flat."""
+        if self.mesh is None:
+            return list(parts)
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        dist.all_reduce(flat, group=self._group)
+        return [t.view_as(p) for t, p in zip(
+            flat.split([p.numel() for p in parts]), parts)]
+
+    def _reduce_tree(self, tree):
+        """``_reduce`` of a tree's leaves (None leaves kept)."""
+        leaves = iter(self._reduce(*tree_leaves(tree)))
+        return tree_map(lambda t: None if t is None else next(leaves), tree)
+
+    def _gather_rows(self, cols) -> list:
+        """(K_loc, ...) per-node columns of this rank -> (K, ...) columns of
+        every node in engine-row order: one ``all_gather_into_tensor`` of
+        them packed as f32 rows, then the static reordering."""
+        if self.mesh is None:
+            return list(cols)
+        k_loc = sum(self.local_sizes)
+        flat = torch.cat([c.float().reshape(k_loc, -1) for c in cols], 1)
+        out = flat.new_empty((k_loc * self._shards, flat.shape[1]))
+        dist.all_gather_into_tensor(out, flat, group=self._group)
+        out = out.index_select(0, self._gather_order)
+        widths = [c[0].numel() for c in cols]
+        return [t.reshape((-1,) + tuple(c.shape[1:]))
+                for t, c in zip(out.split(widths, 1), cols)]
 
     # ------------------------------------------------------------------
     def _grams_of(self, pooled_a: torch.Tensor) -> torch.Tensor:
@@ -331,24 +429,27 @@ class RoundEngine:
         trains, opts, last = self._local_epochs(trains, opts, gbar, statics,
                                                 batches)
         grams = self._grams_of(last["pooled_a"])
-        new_gbar = cka_mod.consensus_gram(grams)
         if self.ecfg.aggregation == "precision":
-            weights = unc.precision_weights(unc.batched_precisions(
-                last["pooled"], last["pooled_a"]))
+            p = unc.batched_precisions(last["pooled"],
+                                       last["pooled_a"]).float().clamp_min(0)
+            g_sum, p_sum = self._reduce(grams.sum(0), p.sum())
+            weights = p / p_sum.clamp_min(1e-12)
         else:
-            weights = torch.full((k,), 1.0 / k, device=gbar.device)
-        if server_m is None:
-            trains = agg.weighted_average_bucketed(
-                trains, weights, self.shipped_masks, self.bucket_sizes)
-        else:
-            total = agg.bucketed_partial_sums(
-                trains, weights, self.shipped_masks, self.bucket_sizes)
-            server_m, new_val = self._apply_server_momentum(prev, total,
-                                                            server_m)
-            trains = agg.broadcast_into_buckets(trains, self.shipped_masks,
-                                                new_val)
-        metrics = {name: self._unpermute(last[name].float())
-                   for name in SCALARS}
+            (g_sum,) = self._reduce(grams.sum(0))
+            weights = torch.full((grams.shape[0],), 1.0 / k,
+                                 device=gbar.device)
+        new_gbar = g_sum / k
+        total = self._reduce_tree(agg.bucketed_partial_sums(
+            trains, weights, self.shipped_masks, self.local_sizes))
+        if server_m is not None:
+            server_m, total = self._apply_server_momentum(prev, total,
+                                                          server_m)
+        trains = agg.broadcast_into_buckets(trains, self.shipped_masks,
+                                            total)
+        *scalars, weights, grams = self._gather_rows(
+            [last[name].float() for name in SCALARS] + [weights, grams])
+        metrics = {name: self._unpermute(v)
+                   for name, v in zip(SCALARS, scalars)}
         metrics["weights"] = self._unpermute(weights)
         metrics["cross_node_cka"] = cka_mod.mean_offdiag_cka(
             grams, center=self.ecfg.center_cka)
@@ -415,7 +516,8 @@ class RoundEngine:
         else:
             row_masks, cohort_rows, part = part_mod.sample_rows(
                 plan, part, self._groups, u)
-        compact = (plan.compact and part_mod.static_cohort(plan)
+        compact = (self.mesh is None and plan.compact
+                   and part_mod.static_cohort(plan)
                    and cohort_rows is not None)
         trains, opts = list(trains), list(opts)
         mask_rows = torch.cat(row_masks)
@@ -467,51 +569,57 @@ class RoundEngine:
                 part = part_mod.update_state(plan, part, mask_rows,
                                              scatter(p_c))
         else:
-            # masked path: every row computes, only reporting rows' state
-            # advances
+            # masked path (always, under a mesh): every row computes, only
+            # reporting rows' state advances; this rank's rows of the mask
+            masks = self._local(row_masks)
             tr2, op2, last = self._local_epochs(
                 tuple(trains), tuple(opts), gbar, statics,
                 tuple(_pick_draws(bt, sl, torch.arange(
                     kb, device=gbar.device)) for bt, sl, kb
-                      in zip(batches, slots, self.bucket_sizes)))
-            for b, mb in enumerate(row_masks):
+                      in zip(batches, slots, self.local_sizes)))
+            for b, mb in enumerate(masks):
                 trains[b] = masked_select(mb, tr2[b], trains[b])
                 opts[b] = masked_select(mb, op2[b], opts[b])
+            m_loc = torch.cat(masks)
             grams = self._grams_of(last["pooled_a"])
-            new_gbar = cka_mod.consensus_gram(grams, mask=mask_rows)
-            p_rows = (unc.batched_precisions(last["pooled"],
-                                             last["pooled_a"])
-                      if need_p else None)
-            if self.ecfg.aggregation == "precision":
-                weights_rows = unc.masked_precision_weights(p_rows,
-                                                            mask_rows)
-            else:
-                weights_rows = mask_rows / mask_rows.sum().clamp_min(1.0)
-            if server_m is None:
-                trains = list(agg.weighted_average_bucketed(
-                    tuple(trains), weights_rows, self.shipped_masks,
-                    self.bucket_sizes, part_mask=mask_rows))
-            else:
-                total = agg.bucketed_partial_sums(
-                    tuple(trains), weights_rows, self.shipped_masks,
-                    self.bucket_sizes)
+            p_loc = (unc.batched_precisions(
+                last["pooled"], last["pooled_a"]).float().clamp_min(0)
+                if need_p else None)
+            w_num = (m_loc * p_loc if self.ecfg.aggregation == "precision"
+                     else m_loc)
+            g_num, n_rep, w_sum = self._reduce(
+                (m_loc[:, None, None] * grams).sum(0), m_loc.sum(),
+                w_num.sum())
+            new_gbar = g_num / n_rep.clamp_min(1.0)
+            weights = w_num / (w_sum.clamp_min(1e-12)
+                               if self.ecfg.aggregation == "precision"
+                               else w_sum.clamp_min(1.0))
+            total = self._reduce_tree(agg.bucketed_partial_sums(
+                tuple(trains), weights, self.shipped_masks,
+                self.local_sizes))
+            if server_m is not None:
                 server_m, total = self._apply_server_momentum(prev, total,
                                                               server_m)
-                trains = list(agg.broadcast_into_buckets(
-                    tuple(trains), self.shipped_masks, total))
-            scalars = {name: last[name].float() * mask_rows
-                       for name in SCALARS}
+            trains = list(agg.broadcast_into_buckets(
+                tuple(trains), self.shipped_masks, total))
+            rows = self._gather_rows(
+                [last[name].float() for name in SCALARS] + [weights, grams]
+                + ([] if p_loc is None else [p_loc]))
+            *scalars, weights_rows, grams = rows[:5]
+            scalars = {name: v * mask_rows
+                       for name, v in zip(SCALARS, scalars)}
             xcka = cka_mod.mean_offdiag_cka(
                 grams, center=self.ecfg.center_cka, mask=mask_rows)
-            if p_rows is not None:
-                part = part_mod.update_state(plan, part, mask_rows, p_rows)
+            if p_loc is not None:
+                part = part_mod.update_state(plan, part, mask_rows, rows[5])
 
         metrics = {name: self._unpermute(v) for name, v in scalars.items()}
         metrics.update(weights=self._unpermute(weights_rows),
                        cross_node_cka=xcka,
                        participation=self._unpermute(mask_rows),
                        cohort_size=mask_rows.sum())
-        slots = tuple(sl + mb.long() for sl, mb in zip(slots, row_masks))
+        slots = tuple(sl + mb.long()
+                      for sl, mb in zip(slots, self._local(row_masks)))
         return (tuple(trains), tuple(opts), new_gbar, server_m, part,
                 metrics, slots)
 
@@ -536,7 +644,7 @@ class RoundEngine:
             raise ValueError("init_async_state needs an async plan")
         k, dev = self.ecfg.n_nodes, self.device
         buf = {"shipped": tree_map(lambda l: None if l is None
-                                   else torch.zeros_like(l),
+                                   else l.new_zeros((k,) + l.shape[1:]),
                                    self._shipped_rows(trains)),
                "gram": torch.zeros((k, gram_side, gram_side),
                                    dtype=torch.float32, device=dev),
@@ -638,11 +746,11 @@ class RoundEngine:
         and the server averages exactly the reports due this round."""
         prev = self._server_prev(trains)
         start, lag_draw, ctl = part_mod.async_events(plan, part["ctl"], u)
-        starts = torch.split(start, self.bucket_sizes)
+        starts = self._local(torch.split(start, self.bucket_sizes))
         tr2, op2, last = self._local_epochs(
             tuple(trains), tuple(opts), gbar, statics,
             tuple(_pick_draws(bt, sl, torch.arange(kb, device=gbar.device))
-                  for bt, sl, kb in zip(batches, slots, self.bucket_sizes)))
+                  for bt, sl, kb in zip(batches, slots, self.local_sizes)))
         trains = [masked_select(mb, t, t0)
                   for mb, t, t0 in zip(starts, tr2, trains)]
         opts = tuple(masked_select(mb, o, o0)
@@ -651,12 +759,21 @@ class RoundEngine:
         if self.ecfg.aggregation == "precision":
             prec = unc.batched_precisions(last["pooled"], last["pooled_a"])
         else:
-            prec = torch.ones((self.ecfg.n_nodes,), device=gbar.device)
+            prec = torch.ones((grams.shape[0],), device=gbar.device)
+        # the reports of every node: this rank's rows, gathered
+        shipped = self._shipped_rows(trains)
+        rows = self._gather_rows(
+            [last[name].float() for name in SCALARS] + [grams, prec]
+            + tree_leaves(shipped))
+        *scalars, grams, prec = rows[:5]
+        leaves = iter(rows[5:])
+        shipped = tree_map(lambda t: None if t is None else next(leaves),
+                           shipped)
         trains, new_gbar, server_m, part, srv = self._async_server(
-            plan, trains, start, lag_draw, self._shipped_rows(trains),
-            grams, prec, part["buf"], ctl, gbar, prev, server_m)
-        metrics = {name: self._unpermute(last[name].float() * start)
-                   for name in SCALARS}
+            plan, trains, start, lag_draw, shipped, grams, prec,
+            part["buf"], ctl, gbar, prev, server_m)
+        metrics = {name: self._unpermute(v * start)
+                   for name, v in zip(SCALARS, scalars)}
         metrics.update(weights=self._unpermute(srv["weights"]),
                        cross_node_cka=srv["cross_node_cka"],
                        participation=self._unpermute(start),
@@ -699,7 +816,7 @@ class RoundEngine:
                 else self._round_part)
         slots = tuple(torch.zeros((kb,), dtype=torch.long,
                                   device=gbar.device)
-                      for kb in self.bucket_sizes)
+                      for kb in self.local_sizes)
         rows = []
         for i in range(m):
             trains, opts, gbar, server_m, part, metrics, slots = body(

@@ -49,7 +49,18 @@ captured graph stays valid.  ``run_rounds(checkpoint_path=)`` writes
 in-block checkpoints by splitting each block at its checkpoint rounds
 (``core.engine``'s module docstring says why).
 
-Not ported yet: ``mesh=``.
+``Federation(mesh=)`` runs one process per device (``launch/mesh.py``):
+each rank stacks only its own rows of every bucket, on its own device,
+draws only its own nodes' data from their generators, and runs the
+engine's sharded round, whose server step is the collectives of the
+protocol's uplink; every rank returns the same history.  Every rank builds
+every node first, as the single-device federation does (the per-node
+side-cars and adapters are small; the frozen base is shared), and keeps
+its rows.  ``nodes``, ``node_params``, ``save`` and ``restore`` are then
+collective -- every rank calls them: the node views gather the stacks,
+``save`` gathers the state and the generators to rank 0, which writes the
+file the single-device federation writes for the same bucket layout, and
+``restore`` reads the file on every rank and keeps the rank's rows.
 """
 from __future__ import annotations
 
@@ -60,6 +71,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import (jax_key_layout, load_checkpoint,
@@ -719,6 +731,18 @@ def _cat_nodes(trees: list):
 LOCAL_KEYS = ("adapter", "adapter2")
 
 
+def _rows_of_rank(buckets, mesh) -> tuple:
+    """The node ids of each bucket whose rows this rank holds: slice s of
+    the R equal slices of every bucket, s its shard index (every bucket
+    without a mesh).  The engine checks that each bucket divides R."""
+    if mesh is None:
+        return tuple(buckets)
+    from repro_torch.launch import mesh as mesh_mod
+    n, s = mesh_mod.n_nodes(mesh), mesh_mod.shard_index(mesh)
+    return tuple(m[s * (len(m) // n):(s + 1) * (len(m) // n)]
+                 for m in buckets)
+
+
 #: the parameter subtrees whose leaves stack layers (or hybrid groups) first
 STACKS = ("blocks", "enc_blocks", "groups")
 
@@ -763,13 +787,17 @@ class Federation(SequentialFederation):
     def __init__(self, fed: FederationConfig, model: ModelConfig = None, *,
                  device=None, mesh=None, width_bucketing: bool = True):
         if mesh is not None:
-            raise NotImplementedError("Federation(mesh=): the sharded round "
-                                      "is not ported yet")
+            from repro_torch.launch.mesh import mesh_device
+            own = mesh_device(mesh)
+            if device is not None and torch.device(device) != own:
+                raise ValueError(f"Federation(mesh=): this rank's device is "
+                                 f"{own}, not {device}")
+            device = own
         super().__init__(fed, model, device=device)
         self._width_bucketing = width_bucketing
         #: the in-block checkpoints written: step, path, seconds, bytes
         self.checkpoint_writes: List[dict] = []
-        self._build_engine()
+        self._build_engine(mesh)
 
     @property
     def nodes(self):
@@ -783,21 +811,42 @@ class Federation(SequentialFederation):
         self._nodes = value
 
     # ------------------------------------------------------------------
-    def _bucket_layout(self, widths):
-        if self._width_bucketing:
-            return _width_buckets(widths)
-        return (max(widths),), (tuple(range(len(widths))),)
+    def _bucket_layout(self, widths, mesh=None):
+        """(bucket widths, node ids per bucket).  Under a mesh every bucket
+        must divide its batch slices; a bucketed layout that does not falls
+        back to the one padded bucket, with a warning, as the reference
+        does (the state's structure changes, so a checkpoint of it needs
+        the same shard count to restore)."""
+        one = (max(widths),), (tuple(range(len(widths))),)
+        if not self._width_bucketing:
+            return one
+        layout = _width_buckets(widths)
+        if mesh is not None and len(layout[1]) > 1:
+            from repro_torch.launch.mesh import n_nodes as mesh_shards
+            n_shards = mesh_shards(mesh)
+            if any(len(m) % n_shards for m in layout[1]):
+                import warnings
+                warnings.warn(
+                    f"width buckets {[len(m) for m in layout[1]]} do not "
+                    f"divide the {n_shards} mesh batch slices; falling back "
+                    f"to the single pad-to-max-width bucket (checkpoints "
+                    f"from this layout require the same mesh shard count "
+                    f"to restore)", stacklevel=3)
+                return one
+        return layout
 
-    def _build_engine(self) -> None:
+    def _build_engine(self, mesh=None) -> None:
         fed, nodes, dev = self.fed, self._nodes, self.device
         self._has_bridges = any(n["bridge"] for n in nodes)
         widths = [self._node_width(n) for n in nodes]
-        self._bucket_widths, buckets = self._bucket_layout(widths)
+        self._bucket_widths, buckets = self._bucket_layout(widths, mesh)
         self._buckets = tuple(buckets)
         self._node_bucket = {i: (b, r) for b, members in enumerate(buckets)
                              for r, i in enumerate(members)}
+        #: the node ids of each bucket whose rows this rank holds
+        self._local_buckets = _rows_of_rank(buckets, mesh)
         trains, opts, masks = [], [], []
-        for members, wb in zip(buckets, self._bucket_widths):
+        for members, wb in zip(self._local_buckets, self._bucket_widths):
             trees = []
             for i in members:
                 node = nodes[i]
@@ -835,7 +884,8 @@ class Federation(SequentialFederation):
             node_perm=tuple(i for members in buckets for i in members),
             server_momentum=fed.server_momentum)
         self.engine = engine_mod.RoundEngine(
-            ecfg, self._local_step_nodes, tuple(masks), device=dev)
+            ecfg, self._local_step_nodes, tuple(masks), device=dev,
+            mesh=mesh)
         self._server_m = self.engine.init_server_state(self._trains)
 
     def _refresh_statics(self) -> None:
@@ -845,7 +895,7 @@ class Federation(SequentialFederation):
         (``bridge.load_engine_state``)."""
         fed, nodes = self.fed, self._nodes
         statics = []
-        for members, wb in zip(self._buckets, self._bucket_widths):
+        for members, wb in zip(self._local_buckets, self._bucket_widths):
             cols = {}
             for i in members:
                 node = nodes[i]
@@ -946,7 +996,7 @@ class Federation(SequentialFederation):
         batches from its own generator, as m sequential rounds would."""
         fed, nodes, e = self.fed, self._nodes, self.fed.local_steps
         out = []
-        for members in self._buckets:
+        for members in self._local_buckets:
             d = self.task.sample_stacked(
                 [nodes[i]["gen"] for i in members],
                 [nodes[i]["modality"] for i in members], fed.local_batch,
@@ -959,13 +1009,19 @@ class Federation(SequentialFederation):
                         for k, v in d.items()})
         return tuple(out)
 
+    def _own_nodes(self) -> list:
+        """The ids of the nodes whose rows this rank holds (all without a
+        mesh), in engine-row order."""
+        return [i for members in self._local_buckets for i in members]
+
     def _stage_part(self, m: int, plan) -> tuple:
-        """The next m rounds' draws of every node (``_stage``, one round at
-        a time), each node's generator state after each round (``pos[j]``:
-        after j rounds), and the plan's (m, n_u, K) uniforms.  The
+        """The next m rounds' draws of this rank's nodes (``_stage``, one
+        round at a time), each one's generator state after each round
+        (``pos[j][n]``: after j rounds, ``_own_nodes`` order), and the
+        plan's (m, n_u, K) uniforms, the same on every rank.  The
         generators are left after m rounds; ``_run_block_part`` moves each
         back to the rounds its node trained."""
-        gens = [n["gen"] for n in self._nodes]
+        gens = [self._nodes[i]["gen"] for i in self._own_nodes()]
         pos = [[g.get_state() for g in gens]]
         rounds = []
         for _ in range(m):
@@ -1026,9 +1082,9 @@ class Federation(SequentialFederation):
         _, metrics = self.engine.run_block(
             self._state(plan), m, statics=self._statics, batches=batches,
             tap=tap, plan=plan, uniforms=uniforms)
-        for i, node in enumerate(self._nodes):
+        for n, i in enumerate(self._own_nodes()):
             trained = sum(round(x["participation"][i]) for x in metrics)
-            node["gen"].set_state(pos[trained][i])
+            self._nodes[i]["gen"].set_state(pos[trained][n])
         return self._record_block(metrics)
 
     def _metrics_record(self, metrics: dict) -> dict:
@@ -1153,15 +1209,42 @@ class Federation(SequentialFederation):
                         participation=participation)
         return self.history
 
+    # ---- every node's rows, under a mesh -------------------------------
+    def _gathered(self, stacks):
+        """Per-bucket stacked trees with every node's rows: ``stacks``
+        itself without a mesh, else each leaf gathered over the batch
+        group in shard order (collective)."""
+        eng = self.engine
+        if eng.mesh is None:
+            return stacks
+
+        def gather(t):
+            out = t.new_empty((t.shape[0] * eng._shards,) + t.shape[1:])
+            dist.all_gather_into_tensor(out, t.contiguous(),
+                                        group=eng._group)
+            return out
+        return tree_map(lambda t: None if t is None else gather(t), stacks)
+
+    def _barrier(self) -> None:
+        """Every rank's host waits for every other's (a one-element
+        ``all_reduce`` read back); nothing without a mesh."""
+        if self.engine.mesh is not None:
+            flag = torch.zeros((1,), device=self.device)
+            dist.all_reduce(flag)
+            flag.item()
+
     # ---- checkpoints -----------------------------------------------------
     # the file is the engine's bucketed state under the reference's leaf
     # names; the bucket layout is rebuilt from the config, so a restore
     # into a federation with the same config and ``width_bucketing`` lands
     # every node back at its row
-    def _ckpt_state(self, keys: bool = True) -> dict:
+    def _ckpt_state(self, keys: bool = True, stacks=None) -> dict:
         """The live state tensors as the file's tree; ``keys`` adds the
-        JAX-layout key leaves the reference's files hold."""
-        state = {"gbar": self.gbar, "train": self._trains, "opt": self._opts}
+        JAX-layout key leaves the reference's files hold.  ``stacks``
+        replaces the rank's (trains, opts) -- with every node's rows, under
+        a mesh."""
+        trains, opts = stacks or (self._trains, self._opts)
+        state = {"gbar": self.gbar, "train": trains, "opt": opts}
         if keys:
             state["keys"] = tuple(jax_keys(m, self.fed.seed)
                                   for m in self._buckets)
@@ -1183,21 +1266,37 @@ class Federation(SequentialFederation):
         ``round_schedule``, ``participation``), plus every generator's
         state under ``torch_generators``: a save at a block boundary holds
         everything a resumed run needs to continue bit for bit, the cohort
-        stream included."""
+        stream included.  Under a mesh, collective: the state and the
+        generators are gathered and rank 0 writes the file (one file
+        system: every rank reads it back); every rank returns once it is
+        written, or once rank 0's write has failed."""
         part_gen = getattr(self, "_part_gen", None)
-        save_checkpoint(path, self._ckpt_state(), step=len(self.history),
-                        meta={"server_momentum": self.fed.server_momentum,
-                              "n_buckets": len(self._trains),
-                              "round_schedule":
-                                  self.fed.round_lr_schedule is not None,
-                              "participation": part_mod.plan_meta(
-                                  getattr(self, "_part_plan", None)),
-                              "torch_generators": {
-                                  "device": self.device.type,
-                                  "nodes": _gen_states(
-                                      n["gen"] for n in self._nodes),
-                                  "participation": _gen_states(
-                                      [part_gen])[0]}})
+        gens = {i: _gen_states([self._nodes[i]["gen"]])[0]
+                for i in self._own_nodes()}
+        state = self._ckpt_state(stacks=(self._gathered(self._trains),
+                                         self._gathered(self._opts)))
+        if self.engine.mesh is not None:
+            parts = [None] * dist.get_world_size(self.engine._group)
+            dist.all_gather_object(parts, gens, group=self.engine._group)
+            gens = {i: g for part in parts for i, g in part.items()}
+        try:
+            if self.engine.mesh is None or dist.get_rank() == 0:
+                save_checkpoint(
+                    path, state, step=len(self.history),
+                    meta={"server_momentum": self.fed.server_momentum,
+                          "n_buckets": len(self._trains),
+                          "round_schedule":
+                              self.fed.round_lr_schedule is not None,
+                          "participation": part_mod.plan_meta(
+                              getattr(self, "_part_plan", None)),
+                          "torch_generators": {
+                              "device": self.device.type,
+                              "nodes": [gens[i] for i in
+                                        range(self.fed.n_nodes)],
+                              "participation": _gen_states(
+                                  [part_gen])[0]}})
+        finally:
+            self._barrier()
 
     def restore(self, path: str) -> int:
         """Load a checkpoint of either package (same config and
@@ -1207,7 +1306,10 @@ class Federation(SequentialFederation):
         raises ``ValueError``.  The file's plan is installed (its sampler
         state continues), or a stale one dropped.  Generators continue
         from the file's states, or restart from their construction seeds
-        when it has none for this device type (a JAX file)."""
+        when it has none for this device type (a JAX file).  Under a mesh,
+        collective: every rank reads the file and keeps its rows; the
+        bucket layout, and so the mesh's shard count where the layout fell
+        back to one bucket, must be the file's."""
         meta = read_meta(path)
         if meta.get("server_momentum") != self.fed.server_momentum:
             raise ValueError(
@@ -1227,7 +1329,12 @@ class Federation(SequentialFederation):
             self._part_plan = self._part_state = self._part_gen = None
         else:
             self._ensure_participation(plan)
-        state, step = load_checkpoint(path, self._ckpt_state())
+        every = tuple(tree_map(lambda t: None if t is None else t.new_empty(
+            (t.shape[0] * self.engine._shards,) + t.shape[1:]), s)
+            for s in (self._trains, self._opts))
+        state, step = load_checkpoint(path, self._ckpt_state(stacks=every))
+        state = dict(state, train=self.engine._local(state["train"]),
+                     opt=self.engine._local(state["opt"]))
         copy_into(self._ckpt_state(keys=False), state)
         gens = _saved_gens(meta, self.device)
         for i, node in enumerate(self._nodes):
@@ -1256,13 +1363,15 @@ class Federation(SequentialFederation):
 
     def _refresh_node_views(self) -> None:
         """Per-node copies of the stacked state: node i is row r of bucket
-        b."""
+        b (under a mesh, of the gathered stacks)."""
+        trains, opts = self._gathered(self._trains), self._gathered(
+            self._opts)
         for i, node in enumerate(self._nodes):
             b, r = self._node_bucket[i]
             row = (lambda t: None if t is None else t[r].clone())
             node["trainable"] = self._unpad_node_tree(
-                tree_map(row, self._trains[b]), node)
-            opt = self._opts[b]
+                tree_map(row, trains[b]), node)
+            opt = opts[b]
             node["opt_state"] = {
                 "m": self._unpad_node_tree(tree_map(row, opt["m"]), node),
                 "v": self._unpad_node_tree(tree_map(row, opt["v"]), node),

@@ -9,7 +9,13 @@ as one host-to-device copy per leaf (pinned, ``non_blocking``), which
 returns before the copy lands: a driver stages block N + 1 while the card
 runs block N.
 
-Not ported yet: ``shard_batch`` (it waits for ``mesh=``).
+Under a mesh (``launch/mesh.py``; the reference's ``NamedSharding`` over
+the batch axes) one process per device holds its own slice of the node
+axis: ``shard_batch``, ``stack_block_batches(sharding=)`` and
+``BlockStager(sharding=)`` put only the rank's node rows on the rank's
+device (the stager reads only the rank's streams), the rows
+``s K / R .. (s + 1) K / R`` of shard s of R, as the sharded round engine
+holds them.
 """
 from __future__ import annotations
 
@@ -65,11 +71,37 @@ def _to_device(x: np.ndarray, device) -> torch.Tensor:
     return t.to(dev)
 
 
-def stack_block_batches(grid, device="cpu") -> dict:
+def _node_rows(k: int, mesh) -> slice:
+    """The rows of a K-node axis that this rank of ``mesh`` holds."""
+    from repro_torch.launch import mesh as mesh_mod
+    n, s = mesh_mod.n_nodes(mesh), mesh_mod.shard_index(mesh)
+    if k % n:
+        raise ValueError(f"{k} nodes do not divide the {n} mesh batch "
+                         f"slices")
+    return slice(s * (k // n), (s + 1) * (k // n))
+
+
+def shard_batch(batch: dict, sharding) -> dict:
+    """A host batch whose leaves lead with the node axis -> this rank's
+    rows of every leaf, on its device (``sharding``: the mesh whose batch
+    axes split the nodes)."""
+    from repro_torch.launch.mesh import mesh_device
+    dev = mesh_device(sharding)
+    return {name: _to_device(np.asarray(x)[_node_rows(len(x), sharding)],
+                             dev) for name, x in batch.items()}
+
+
+def stack_block_batches(grid, device="cpu", sharding=None) -> dict:
     """``grid[m][e][k]`` per-(round, step, node) batch dicts of numpy
     arrays -> one dict of tensors on ``device`` with leading ``(M, E, K,
     ...)`` axes: stacked on the host, then one copy per leaf instead of
-    M E K small ones."""
+    M E K small ones.  With ``sharding`` (a mesh) only this rank's node
+    rows, on its device."""
+    if sharding is not None:
+        from repro_torch.launch.mesh import mesh_device
+        rows = _node_rows(len(grid[0][0]), sharding)
+        grid = [[nodes[rows] for nodes in rnd] for rnd in grid]
+        device = mesh_device(sharding)
     keys = grid[0][0][0].keys()
     return {name: _to_device(np.stack([np.stack([np.stack(
         [np.asarray(b[name]) for b in nodes]) for nodes in rnd])
@@ -81,17 +113,25 @@ class BlockStager:
     """Host-side staging for blocks of rounds: pulls M rounds x E steps from
     the K per-node streams and stacks them into ``(M, E, K, ...)`` tensors.
     Streams are consumed in (round, step, node) order, the per-round
-    driver's order, so the data does not depend on the block size."""
+    driver's order, so the data does not depend on the block size.  With
+    ``sharding`` (a mesh) only this rank's streams are read, and their
+    rows land on its device."""
     streams: list
     local_steps: int
     block_rounds: int
     device: object = "cpu"
+    sharding: object = None
 
     def next_block(self, m: Optional[int] = None) -> dict:
         m = self.block_rounds if m is None else m
-        grid = [[[next(s) for s in self.streams]
+        streams, device = self.streams, self.device
+        if self.sharding is not None:
+            from repro_torch.launch.mesh import mesh_device
+            streams = streams[_node_rows(len(streams), self.sharding)]
+            device = mesh_device(self.sharding)
+        grid = [[[next(s) for s in streams]
                  for _ in range(self.local_steps)] for _ in range(m)]
-        return stack_block_batches(grid, self.device)
+        return stack_block_batches(grid, device)
 
 
 def make_lm_batch(gen: torch.Generator, cfg: ModelConfig, batch: int,
@@ -103,5 +143,5 @@ def make_lm_batch(gen: torch.Generator, cfg: ModelConfig, batch: int,
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
-__all__ = ["SyntheticLMStream", "stack_block_batches", "BlockStager",
-           "make_lm_batch"]
+__all__ = ["SyntheticLMStream", "shard_batch", "stack_block_batches",
+           "BlockStager", "make_lm_batch"]

@@ -11,6 +11,15 @@ source at once and waits for all of them.
 
 Nothing here runs at import: the first call of a kernel builds it, and a
 failed build raises with the compiler's output.
+
+One card a process.  A wrapper launches under ``card(x, name)``: the
+device of its operand ``x``, any ``cuda:N``, made current for the launch
+(its stream is that device's current stream).  The sources' one-time
+calls -- ``cudaFuncSetAttribute`` for dynamic shared memory, the SM
+count -- sit behind process-wide statics that hold for the first device
+that reached them, so ``card`` raises when a process that has launched on
+one card launches on another.  The sharded federation runs one process
+per card, each on its own ``cuda:N`` (``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -61,6 +70,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
+#: the index of the one card this process launches on, once it has
+_card: Optional[int] = None
 #: ptxas resource report (registers, shared memory, spills) per source
 ptxas_report: Dict[str, str] = {}
 
@@ -133,6 +144,25 @@ def load(name: str) -> ctypes.CDLL:
     return lib if lib is not None else build_all([name])[name]
 
 
+def card(x, name: str):
+    """``torch.cuda.device`` of ``x``'s card, to launch ``name``'s kernel
+    under; raises for a device that is not a card, and for a second card
+    in this process (see the module docstring)."""
+    import torch
+    global _card
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    index = (x.device.index if x.device.index is not None
+             else torch.cuda.current_device())
+    if _card is None:
+        _card = index
+    elif index != _card:
+        raise RuntimeError(f"{name}: this process launches on cuda:{_card}; "
+                           f"cuda:{index} needs a process of its own (the "
+                           f"kernels' one-time setup is per process)")
+    return torch.cuda.device(index)
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if a launch function returned a non-zero ``cudaError_t``."""
     if err:
@@ -141,5 +171,5 @@ def check_launch(name: str, err: int) -> None:
                            f"({msg})")
 
 
-__all__ = ["build_all", "load", "check_launch", "BUILD_DIR", "CSRC",
+__all__ = ["build_all", "load", "card", "check_launch", "BUILD_DIR", "CSRC",
            "ptxas_report"]

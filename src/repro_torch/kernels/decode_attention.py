@@ -12,6 +12,9 @@ kernel turns the chunk into a per-slot window on the card, so the host
 never reads q_pos.  A tensor on the CPU goes to the
 plain version ``ref.decode_attention_ref``; a CUDA tensor launches the
 kernel or raises -- there is no fallback.
+A CUDA tensor on any ``cuda:N`` launches on that card, one card a
+process: a launch on a second card raises, because the source's
+one-time setup is process-wide (``_build.card``).
 
 On the card the pool axis is split across blocks (flash-decoding):
 ``split_plan`` cuts C into chunks of whole tiles for about two blocks per
@@ -127,9 +130,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, q_pos, kv_pos, window=window,
                                     chunk=chunk)
-    if q.device.type != "cuda" or q.device.index not in (None, 0):
-        raise ValueError(f"decode_attention: no kernel for {q.device} (the "
-                         f"kernels launch on cuda:0)")
+    card = _build.card(q, "decode_attention")
     _check(q, k, v, q_pos, kv_pos, window, chunk)
     s_slots, h, dh = q.shape
     c, n_kv = k.shape[1], k.shape[2]
@@ -141,12 +142,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         part = torch.empty(s_slots * n_kv * n_split * rep * (dh + 2),
                            dtype=torch.float32, device=q.device)
     lib = _build.load("decode_attention")
-    err = lib.decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        kv_pos.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), s_slots, c, n_kv, rep, dh,
-        window or c, chunk, float(dh ** -0.5), int(q.dtype == torch.bfloat16),
-        n_split, split_len, torch.cuda.current_stream(q.device).cuda_stream)
+    with card:
+        err = lib.decode_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), s_slots, c, n_kv,
+            rep, dh, window or c, chunk, float(dh ** -0.5),
+            int(q.dtype == torch.bfloat16), n_split, split_len,
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("decode_attention", err)
     decode_attention.launches += 1
     return out

@@ -35,6 +35,9 @@ a CUDA tensor launches the kernel or raises.  On the card bf16 runs both
 products on the tensor cores and f32 on the CUDA cores' FMAs (the source
 note says why).  ``flash_attention.launches`` counts kernel launches
 (forward only; the backward launches none).
+A CUDA tensor on any ``cuda:N`` launches on that card, one card a
+process: a launch on a second card raises, because the source's
+one-time setup is process-wide (``_build.card``).
 """
 from __future__ import annotations
 
@@ -94,19 +97,18 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    chunk=chunk)
-    if q.device.type != "cuda" or q.device.index not in (None, 0):
-        raise ValueError(f"flash_attention: no kernel for {q.device} (the "
-                         f"kernels launch on cuda:0)")
+    card = _build.card(q, "flash_attention")
     _check(q, k, v, window, chunk, causal)
     b, t, h, dh = q.shape
     s, n_kv, dv = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty((b, t, h, dv))
     lib = _build.load("flash_attention")
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, s, h,
-        n_kv, dh, dv, window, chunk, int(causal), float(dh ** -0.5),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with card:
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t,
+            s, h, n_kv, dh, dv, window, chunk, int(causal),
+            float(dh ** -0.5), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attention", err)
     flash_attention.launches += 1
     return out

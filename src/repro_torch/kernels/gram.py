@@ -13,6 +13,9 @@ dx = dz / n - x <dz, x> / n^3 (no gradient through the clamp).
 A tensor on the CPU goes to the plain version ``ref.cosine_gram_ref``; a
 CUDA tensor launches the kernel or raises.  ``cosine_gram.launches``
 counts kernel launches.
+A CUDA tensor on any ``cuda:N`` launches on that card, one card a
+process: a launch on a second card raises, because the source's
+one-time setup is process-wide (``_build.card``).
 
 The kernel computes 32 x 32 output tiles (the upper triangle of tile
 pairs, each stored twice) with the D contraction split across the CTAs
@@ -85,18 +88,18 @@ def _check(x: torch.Tensor) -> None:
 def _forward(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return cosine_gram_ref(x, EPS)
-    if x.device.type != "cuda" or x.device.index not in (None, 0):
-        raise ValueError(f"cosine_gram: no kernel for {x.device} (the "
-                         f"kernels launch on cuda:0)")
+    card = _build.card(x, "cosine_gram")
     _check(x)
     x3 = x if x.dim() == 3 else x[None]
     k, b, d = x3.shape
     out = torch.empty((k, b, b), dtype=torch.float32, device=x.device)
     n_split, d_split = gram_plan(k, b, d)
     lib = _build.load("gram")
-    err = lib.gram_launch(x3.data_ptr(), out.data_ptr(), k, b, d, EPS,
-                          int(x.dtype == torch.bfloat16), n_split, d_split,
-                          torch.cuda.current_stream(x.device).cuda_stream)
+    with card:
+        err = lib.gram_launch(
+            x3.data_ptr(), out.data_ptr(), k, b, d, EPS,
+            int(x.dtype == torch.bfloat16), n_split, d_split,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch("gram", err)
     cosine_gram.launches += 1
     return out if x.dim() == 3 else out[0]

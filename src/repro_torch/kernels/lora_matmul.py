@@ -24,6 +24,9 @@ is again one launch, with the per-node B_k^T in A's slot.
 A tensor on the CPU goes to the plain version ``ref.lora_matmul_ref``; a
 CUDA tensor launches the kernel or raises.  ``lora_matmul.launches``
 counts kernel launches, forward and dx alike.
+A CUDA tensor on any ``cuda:N`` launches on that card, one card a
+process: a launch on a second card raises, because the source's
+one-time setup is process-wide (``_build.card``).
 
 The bf16 kernel runs on the tensor cores.  Two choices of it are made
 here, in plain Python, so the CPU tests pin them: ``tile_plan`` picks the
@@ -168,9 +171,7 @@ def _apply(x, w, a, b, want_xa: bool
     if x.device.type == "cpu":
         return (lora_matmul_ref(x, w, a, b),
                 x.float() @ a.float() if want_xa else None)
-    if x.device.type != "cuda" or x.device.index not in (None, 0):
-        raise ValueError(f"lora_matmul: no kernel for {x.device} (the "
-                         f"kernels launch on cuda:0)")
+    card = _build.card(x, "lora_matmul")
     _check(x, w, a, b)
     nodes = x.shape[0] if x.dim() == 3 else 1
     sa_node, sb_node = (t.stride(0) if t.dim() == 3 else 0 for t in (a, b))
@@ -186,11 +187,13 @@ def _apply(x, w, a, b, want_xa: bool
                              tile_plan(m, k, n, nodes))
                             if bf16 else (0, (0, 0)))
     lib = _build.load("lora_matmul")
-    err = lib.lora_matmul_launch(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-        None if xa is None else xa.data_ptr(), m, k, n, r, *w.stride(),
-        *a0.stride(), *b0.stride(), flags, bn, k_split, int(bf16), nodes,
-        sa_node, sb_node, torch.cuda.current_stream(x.device).cuda_stream)
+    with card:
+        err = lib.lora_matmul_launch(
+            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            y.data_ptr(), None if xa is None else xa.data_ptr(), m, k, n, r,
+            *w.stride(), *a0.stride(), *b0.stride(), flags, bn, k_split,
+            int(bf16), nodes, sa_node, sb_node,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch("lora_matmul", err)
     lora_matmul.launches += 1
     return y, xa

@@ -14,7 +14,11 @@ attention with the jnp einsums of ``mla_decode_slots``.
 
 A tensor on the CPU goes to the plain version ``ref.mla_decode_ref``; a
 CUDA tensor launches the kernel design ``mla_plan`` names or raises --
-there is no fallback from one design to another:
+there is no fallback from one design to another.
+A CUDA tensor on any ``cuda:N`` launches on that card, one card a
+process: a launch on a second card raises, because the source's
+one-time setup is process-wide (``_build.card``).  The
+designs:
 
 - bf16 with H 64 or 128 (DeepSeek-V2's 128): the wgmma design, built for
   Hopper (the source's note says how).  The grid is G shares x H / 64
@@ -223,9 +227,6 @@ def mla_decode(q_c: torch.Tensor, q_rope: torch.Tensor, c_kv: torch.Tensor,
     rows ``c <= lens``; see the module docstring."""
     if q_c.device.type == "cpu":
         return mla_decode_ref(q_c, q_rope, c_kv, k_rope, lens, scale)
-    if q_c.device.type != "cuda" or q_c.device.index not in (None, 0):
-        raise ValueError(f"mla_decode: no kernel for {q_c.device} (the "
-                         f"kernels launch on cuda:0)")
     _check(q_c, q_rope, c_kv, k_rope, lens)
     plan = mla_plan(q_c.dtype, q_c.shape[0], q_c.shape[1], c_kv.shape[1])
     out = launch_design(q_c, q_rope, c_kv, k_rope, lens, scale, *plan)
@@ -243,6 +244,7 @@ def launch_design(q_c: torch.Tensor, q_rope: torch.Tensor,
     plan that ``mla_plan`` does not pick.  For the wgmma design n_split is
     the share budget G and split_len the least tiles a share.  Raises
     when the launch refuses the design for this shape."""
+    card = _build.card(q_c, "mla_decode")
     s_slots, h, kvr = q_c.shape
     out = torch.empty_like(q_c)
     # f32 scratch: (acc, then (m, l)) of every chunk, or of every piece
@@ -253,12 +255,14 @@ def launch_design(q_c: torch.Tensor, q_rope: torch.Tensor,
         part = torch.empty(pieces * h * (kvr + 2), dtype=torch.float32,
                            device=q_c.device)
     lib = _build.load("mla_decode")
-    err = lib.mla_decode_launch(
-        q_c.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
-        k_rope.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), s_slots, c_kv.shape[1],
-        h, kvr, k_rope.shape[2], float(scale), DESIGNS[design], n_split,
-        split_len, torch.cuda.current_stream(q_c.device).cuda_stream)
+    with card:
+        err = lib.mla_decode_launch(
+            q_c.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
+            k_rope.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), s_slots,
+            c_kv.shape[1], h, kvr, k_rope.shape[2], float(scale),
+            DESIGNS[design], n_split, split_len,
+            torch.cuda.current_stream(q_c.device).cuda_stream)
     _build.check_launch("mla_decode", err)
     return out
 

@@ -10,6 +10,9 @@ requires one (a training path must not drop it quietly).
 
 A tensor on the CPU goes to the plain version ``ref.selective_scan_ref``;
 a CUDA tensor launches the kernel or raises.
+A CUDA tensor on any ``cuda:N`` launches on that card, one card a
+process: a launch on a second card raises, because the source's
+one-time setup is process-wide (``_build.card``).
 
 On the card ``scan_plan`` picks one of two designs (the source's note
 says why): one pass over S, 4 adjacent columns a thread, when the B x C
@@ -105,9 +108,7 @@ def selective_scan(da: torch.Tensor, dbx: torch.Tensor,
     _check(da, dbx, h0)
     if da.device.type == "cpu":
         return selective_scan_ref(da, dbx, h0)
-    if da.device.type != "cuda" or da.device.index not in (None, 0):
-        raise ValueError(f"selective_scan: no kernel for {da.device} (the "
-                         f"kernels launch on cuda:0)")
+    card = _build.card(da, "selective_scan")
     if da.dtype not in _DTYPES or dbx.dtype != da.dtype:
         raise TypeError(f"selective_scan: da and dbx must share one of "
                         f"{_DTYPES}; got {da.dtype}, {dbx.dtype}")
@@ -128,12 +129,13 @@ def selective_scan(da: torch.Tensor, dbx: torch.Tensor,
     links = (torch.zeros(n_links, dtype=torch.int64, device=da.device)
              if n_links else None)
     lib = _build.load("selective_scan")
-    err = lib.selective_scan_launch(
-        da.data_ptr(), dbx.data_ptr(), h0.data_ptr(), h_all.data_ptr(),
-        h_last.data_ptr(), None if links is None else links.data_ptr(),
-        n_links, b, s, c, tile, chunk, fold_steps(chained, s),
-        int(da.dtype == torch.bfloat16),
-        torch.cuda.current_stream(da.device).cuda_stream)
+    with card:
+        err = lib.selective_scan_launch(
+            da.data_ptr(), dbx.data_ptr(), h0.data_ptr(), h_all.data_ptr(),
+            h_last.data_ptr(), None if links is None else links.data_ptr(),
+            n_links, b, s, c, tile, chunk, fold_steps(chained, s),
+            int(da.dtype == torch.bfloat16),
+            torch.cuda.current_stream(da.device).cuda_stream)
     _build.check_launch("selective_scan", err)
     selective_scan.launches += 1
     return h_all, h_last
